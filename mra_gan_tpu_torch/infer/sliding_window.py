@@ -1,0 +1,86 @@
+"""Full-volume sliding-window inference (counterpart of
+mra_gan_tpu/infer/sliding_window.py:26,37,48).
+
+One general path on the device replaces the JAX package's three (overlap-add,
+depth-streamed, scan), which are TPU and transfer-tunnel designs; the
+arithmetic is theirs: the clamped patch grid over the volume zero-padded up
+to the patch size, every patch weighted by the blend window, an f32 sum of
+outputs and of windows, and a division by max(window sum, 1e-8). The
+reference's "+0.01 after dividing" bias is not reproduced, as in the JAX
+package."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def compute_grid_starts(size: int, patch: int, stride: int) -> list:
+    """Start offsets covering [0, size) with the last window clamped flush to
+    the edge (the reference's boundary handling, test.py:111-145)."""
+    if size <= patch:
+        return [0]
+    starts = list(range(0, size - patch + 1, stride))
+    if starts[-1] != size - patch:
+        starts.append(size - patch)
+    return starts
+
+
+def gaussian_window(patch_size: Sequence[int], sigma_scale: float = 0.125) -> np.ndarray:
+    wins = []
+    for p in patch_size:
+        sigma = max(p * sigma_scale, 1.0)
+        x = np.arange(p, dtype=np.float64) - (p - 1) / 2.0
+        wins.append(np.exp(-0.5 * (x / sigma) ** 2))
+    w = wins[0][:, None, None] * wins[1][None, :, None] * wins[2][None, None, :]
+    w = np.maximum(w / w.max(), 1e-4)
+    return w.astype(np.float32)
+
+
+def patch_grid(shape: Sequence[int], patch: Sequence[int], strides: Sequence[int]) -> list:
+    """Every (x, y, z) patch start of the clamped grid over ``shape`` padded
+    up to the patch size, in the JAX package's order."""
+    padded = [max(s, p) for s, p in zip(shape, patch)]
+    axes = [compute_grid_starts(padded[a], patch[a], strides[a]) for a in range(3)]
+    return [(a, b, c) for a in axes[0] for b in axes[1] for c in axes[2]]
+
+
+@torch.inference_mode()
+def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64, 64),
+                             stride_inplane: int = 32, stride_layer: int = 32,
+                             blend: str = "gaussian", batch: int = 4) -> np.ndarray:
+    """volume: (X, Y, Z) float32 in the generator's input range, mapped to the
+    generator's (D, H, W); stride_inplane covers X and Y, stride_layer Z, like
+    the reference. generate_fn: a models.cycle_gan.GenerateFn, (B, 1, px, py,
+    pz) -> same shape. The volume goes to the device once, in the generator's
+    compute dtype (exact: the generator's first op casts to it anyway), and
+    the result comes back once, float32 (X, Y, Z). The last batch may be
+    short; instance norm is per sample, so that changes nothing."""
+    if blend not in ("gaussian", "uniform"):
+        raise ValueError(f"unknown blend {blend!r}")
+    patch = tuple(int(p) for p in patch_size)
+    strides = (int(stride_inplane), int(stride_inplane), int(stride_layer))
+    dev = generate_fn.device
+    vshape = volume.shape
+    padded = [max(v, p) for v, p in zip(vshape, patch)]
+    host = torch.from_numpy(np.ascontiguousarray(volume, np.float32)).to(generate_fn.dtype)
+    vol = host.to(dev)
+    vol = F.pad(vol, [x for v, p in reversed(list(zip(vshape, padded))) for x in (0, p - v)])
+
+    win_np = gaussian_window(patch) if blend == "gaussian" else np.ones(patch, np.float32)
+    win = torch.from_numpy(win_np).to(dev)
+    acc = torch.zeros(padded, dtype=torch.float32, device=dev)
+    wsum = torch.zeros(padded, dtype=torch.float32, device=dev)
+    starts = patch_grid(vshape, patch, strides)
+    for i in range(0, len(starts), batch):
+        chunk = starts[i:i + batch]
+        x = torch.stack([vol[a:a + patch[0], b:b + patch[1], c:c + patch[2]]
+                         for a, b, c in chunk])[:, None]
+        out = generate_fn(x)[:, 0].float() * win
+        for (a, b, c), o in zip(chunk, out):
+            acc[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += o
+            wsum[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += win
+    out = acc / wsum.clamp_min(1e-8)
+    return out[:vshape[0], :vshape[1], :vshape[2]].cpu().numpy()

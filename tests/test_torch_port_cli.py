@@ -1,0 +1,129 @@
+"""The port's decode CLI (``python -m mra_gan_tpu_torch.test``) on synthetic
+NIfTIs, against the JAX package's ``test.inference`` with the same weights,
+and the import guard of the port package."""
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mra_gan_tpu.checkpoint import save_torch_network
+from mra_gan_tpu.models.cycle_gan import CycleGANConfig
+from mra_gan_tpu_torch import test as port_cli
+from mra_gan_tpu_torch.data import nifti
+
+from torch_port_util import jax_forward, jax_generator
+
+REPO = Path(__file__).resolve().parents[1]
+# one decode, float32 both sides, in the 0-255 output range: the generator
+# bar (atol 1e-4 on [-1, 1]) times 127.5, with room for the blend's division
+TOL_0_255 = 0.05
+SMALL = ["--ngf", "4", "--patch_size", "16", "16", "16", "--stride_inplane", "8",
+         "--stride_layer", "8", "--decode_batch", "4", "--precision", "float32"]
+
+
+def _jax_cli():
+    spec = importlib.util.spec_from_file_location("jax_test_cli", REPO / "test.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    jnet, params = jax_generator(seed=11)
+    (root / "ck" / "run").mkdir(parents=True)
+    save_torch_network(params, root / "ck" / "run" / "latest_net_G_A.pth",
+                       arch="resnet_6blocks")
+    rng = np.random.RandomState(12)
+    (root / "in").mkdir()
+    affines = [np.diag([1.0, 1.0, 2.0, 1.0]), np.array(
+        [[0.0, -1.2, 0.0, 10.0], [1.2, 0.0, 0.0, -4.0], [0.0, 0.0, 1.5, 3.0], [0, 0, 0, 1.0]])]
+    for i, (shape, aff) in enumerate(zip([(26, 20, 17), (18, 21, 15)], affines)):
+        data = (rng.rand(*shape) * 80 + 10).astype(np.float32)
+        nifti.save(nifti.NiftiImage(data=data, affine=aff), root / "in" / f"{i}.nii.gz")
+    return root, jnet, params
+
+
+def _args(root, image, result, *extra):
+    return ["--image", str(image), "--result", str(result), "--checkpoints_dir",
+            str(root / "ck"), "--name", "run", "--device", "cpu", *SMALL, *extra]
+
+
+def test_single_file_matches_jax_cli(setup, tmp_path):
+    root, jnet, params = setup
+    image = root / "in" / "0.nii.gz"  # odd Z: edge-padded to even, then cropped
+    out = tmp_path / "out.nii"
+    assert port_cli.main(_args(root, image, out)) == []
+    got = nifti.load(out)
+    src = nifti.load(image)
+    assert got.data.shape == src.data.shape == (26, 20, 17)
+    np.testing.assert_allclose(got.affine, src.affine, atol=1e-6)
+
+    opt = port_cli.parse(_args(root, image, out))
+    opt.spatial_shard = opt.data_parallel = False
+    cfg = CycleGANConfig(ngf=4)
+    ref = _jax_cli().inference(opt, loaded=(cfg, jax_forward(jnet, params), params, jnet),
+                               save=False)
+    assert np.all(np.isfinite(got.data))
+    np.testing.assert_allclose(got.data, ref.data, atol=TOL_0_255)
+
+
+def test_directory_mode_decodes_every_volume(setup, tmp_path):
+    root, _, _ = setup
+    assert port_cli.main(_args(root, root / "in", tmp_path / "out")) == []
+    for name in ("0.nii.gz", "1.nii.gz"):
+        src, got = nifti.load(root / "in" / name), nifti.load(tmp_path / "out" / name)
+        assert got.data.shape == src.data.shape
+        np.testing.assert_allclose(got.affine, src.affine, atol=1e-6)
+        assert np.all(np.isfinite(got.data))
+    single = tmp_path / "single.nii"
+    port_cli.main(_args(root, root / "in" / "1.nii.gz", single, "--single_pass"))
+    assert nifti.load(single).data.shape == (18, 21, 15)
+
+
+def test_unported_wire_is_refused(setup, tmp_path):
+    root, _, _ = setup
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_cli.main(_args(root, root / "in" / "0.nii.gz", tmp_path / "o.nii",
+                            "--wire", "f16"))
+
+
+def _run(code_or_args, **kw):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, *code_or_args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120, **kw)
+
+
+def test_cli_without_cuda_or_cpu_request_fails_clearly(setup, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without CUDA")
+    root, _, _ = setup
+    proc = _run(["-m", "mra_gan_tpu_torch.test", "--image", str(root / "in"),
+                 "--result", str(tmp_path / "o"), "--checkpoints_dir", str(root / "ck"),
+                 "--name", "run", "--ngf", "4"])
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "--device cpu" in proc.stderr
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, import without pulling
+    in jax, flax, optax, orbax or any module of the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mra_gan_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mra_gan_tpu')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in banned)\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
