@@ -8,29 +8,43 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
    the nvcc build of every kernel source under
    mra_gan_tpu_torch/ops/kernels/csrc/ (one nvcc per source, in parallel);
-2. every CUDA kernel against its plain PyTorch version on the card, at every
-   instance-norm shape of the decode path (batch 8, the short last batch of
-   3, and the whole-volume single pass) in bfloat16 and float32, plus a small
-   shape each for leaky_relu and tanh; timed beside the plain version, the
-   library yardstick (F.instance_norm + activation) and the memory bound;
+2. every CUDA kernel against its plain PyTorch version on the card, in
+   bfloat16 and float32: the three forward kernels at every instance-norm
+   shape of the decode path (batch 8, the short last batch of 3, and the
+   whole-volume single pass), and the three forward and three backward
+   kernels at every norm shape of the train step at batch 1 and 8 (the
+   generator at 2B and B, the PatchGAN at B and 2B), plus small shapes for
+   leaky_relu, tanh and C = 6; each timed beside its plain version, the
+   library yardsticks (F.instance_norm + activation and its autograd
+   backward, torch.var_mean for the statistics) and the memory bound;
 3. cuDNN conv3d / conv_transpose3d at the generator's shapes, NCDHW against
    channels_last_3d;
 4. the resnet_6blocks generator at ngf=32, batch 8, 64^3, weights from a
    seeded numpy tree in the JAX layout through state_dict_from_jax: kernel
    norms against plain norms in bfloat16 and (TF32 off) float32, and 17
-   launches of each kernel per forward;
+   launches of each forward kernel per forward, none of a backward one;
 5. the sliding-window decode of a 128x256x256 volume (147 patches in 19
-   batches, Gaussian blend; 19 x 17 launches of each kernel), then the
-   single-pass whole-volume forward of the same volume;
+   batches, Gaussian blend; 19 x 17 launches of each forward kernel), then
+   the single-pass whole-volume forward of the same volume;
 6. the decode CLI (python -m mra_gan_tpu_torch.test) in directory mode on
-   three synthetic NIfTIs with a .pth checkpoint written from the same tree.
+   three synthetic NIfTIs with a .pth checkpoint written from the same tree;
+7. the CycleGAN train step (create_state + make_train_step) at the
+   reference default (bench.py:193-198: two resnet_6blocks generators, two
+   3-layer PatchGANs, ngf = ndf = 32, LSGAN, pool 50, Adam 2e-4 / 0.5, bf16
+   over f32 parameters, 64^3 patches) at batch 1 and 8: s/step, pairs/s,
+   peak memory, 80 launches of every norm kernel per step, the gradient
+   relayouts, finite losses, and one profiled step by kernel class;
+8. step 0 at batch 1 through the kernels and through the plain norms, in
+   float32 (TF32 off) and bf16, each against a float64 step
+   (phase_train_parity states the bars).
 
 The line before the last is the card's name and power limit; before it, one
-JSON line {"kernels": [...]} with each kernel's launches on the decode, its
-largest error against the plain version, and its times at the batch-8 stem
-shape (bfloat16). ``--json-out PATH`` also writes every shape's numbers. The
-last line is {"ok": true, "device": {...}}. Without CUDA the script exits
-non-zero and prints no result.
+JSON line {"kernels": [...]} with each kernel's launches on its main path
+(the decode for the forward kernels, the batch-8 train step for the
+backward ones), its largest error against the plain version, and its times
+at the main path's largest norm (bfloat16). ``--json-out PATH`` also writes
+every shape's numbers. The last line is {"ok": true, "device": {...}}.
+Without CUDA the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -53,11 +67,21 @@ DECODE_BATCH = 8
 EXPECTED_GRID = (147, 19)  # patches, batches
 CLI_SHAPES = [(96, 128, 77), (128, 128, 64), (100, 90, 45)]  # odd, even, sub-patch Z
 NGF = 32
+NDF = 32
+TRAIN_BATCHES = (1, 8)  # bench.py:186-251
+TRAIN_LR = 2e-4
+NORMS_PER_STEP = 80  # 4 generator applies x 17 norms + 4 discriminator applies x 3
+TRAIN_WARMUP = 2
+TRAIN_TIMED_STEPS = (5, 3)  # at batch 1 and 8
 PAIRED_ACTS = ("leaky_relu", "tanh")
+BF16_ULP = 2.0 ** -8
 # f32 operations per element, for the operations bound
 APPLY_OPS = {"none": 2, "relu": 3, "leaky_relu": 4, "tanh": 10}
 STATS_OPS = 7  # Welford: sub, mul, add, sub, mul, add, + the count's reciprocal
 FINALIZE_OPS = 12  # Chan merge per partial
+ACT_GRAD_OPS = {"none": 0, "relu": 1, "leaky_relu": 1, "tanh": 10}
+BWD_STATS_OPS = 6  # z (sub, mul), g' (mul), two sums, g'z (mul) + act'
+BWD_APPLY_OPS = 7  # z (sub, mul), g' (mul), sub, fma, mul + act'
 
 
 def check(cond: bool, what: str) -> None:
@@ -147,6 +171,15 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def lib_act(act: str):
+    """The library yardstick's activation, torch's own."""
+    import torch
+    import torch.nn.functional as F
+
+    return {"none": lambda y: y, "relu": F.relu,
+            "leaky_relu": lambda y: F.leaky_relu(y, 0.2), "tanh": torch.tanh}[act]
+
+
 def bf16_ulps(got, ref) -> float:
     """Largest |got - ref| in bfloat16 ulps of max(|ref|, 1): the outputs
     are unit-variance, so values below 1 are held to the ulp at 1."""
@@ -210,12 +243,247 @@ def norm_shapes():
     return out
 
 
-def phase_kernels(K, bw: float, flops: float, results: dict) -> None:
+def train_norm_shapes():
+    """(label, (N, C, D, H, W), act) of every instance norm of the train step
+    at batch 1 and 8, each run forward and backward: the generator at 2B
+    (the leaf applies) and B (the chains), the PatchGAN at B (in the G loss)
+    and 2B (the D loss)."""
+    out = []
+    for b in TRAIN_BATCHES:
+        for n in (2 * b, b):
+            for c, div, act in ((NGF, 1, "relu"), (2 * NGF, 2, "relu"),
+                                (4 * NGF, 4, "relu"), (4 * NGF, 4, "none")):
+                out.append((f"G b{b}", (n, c) + tuple(s // div for s in PATCH), act))
+            for c, side in ((2 * NDF, 16), (4 * NDF, 8), (8 * NDF, 7)):
+                out.append((f"D b{b}", (n, c, side, side, side), "leaky_relu"))
+    return list(dict.fromkeys(out))  # the D shapes at N = 2 and 8 come twice
+
+
+def _volume(gen, shape, dtype, scale=3.0, shift=1.0):
+    import torch
+
+    x = (torch.randn(shape, generator=gen, device=DEVICE) * scale + shift).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last_3d)
+
+
+def forward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
+    """The three forward kernels against their plain versions at one shape,
+    then timed beside the plain versions, the library yardsticks and the
+    bounds."""
     import torch
     import torch.nn.functional as F
 
-    lib_act = {"none": lambda y: y, "relu": F.relu,
-               "leaky_relu": lambda y: F.leaky_relu(y, 0.2), "tanh": torch.tanh}
+    x = _volume(gen, shape, dtype)
+    n, c = shape[:2]
+    v = math.prod(shape[2:])
+    es = x.element_size()
+    bf16 = dtype == torch.bfloat16
+    seg = K.num_segments(n, v, c, K.vector_width(x))
+
+    pm, pq = K.instance_norm_stats(x, seg)
+    rm, rq = K.stats_plain(x, seg)
+    cnt = max(b - a for a, b in zip(K.segment_bounds(v, seg), K.segment_bounds(v, seg)[1:]))
+    # partial sums in two summation orders, float32
+    err_stats = max(float((pm - rm).abs().max()), float((pq - rq).abs().max()) / cnt)
+    check(torch.allclose(pm, rm, rtol=1e-4, atol=1e-5)
+          and torch.allclose(pq, rq, rtol=1e-4, atol=1e-3),
+          f"stats {label} {shape} {dtype}: {err_stats}")
+    mean, rstd = K.instance_norm_finalize(pm, pq, v)
+    fm, fr = K.finalize_plain(pm, pq, v)
+    err_fin = max(float((mean - fm).abs().max()), float((rstd - fr).abs().max()))
+    check(torch.allclose(mean, fm, rtol=1e-5, atol=1e-6)
+          and torch.allclose(rstd, fr, rtol=1e-5, atol=1e-6),
+          f"finalize {label} {shape} {dtype}: {err_fin}")
+    y = K.instance_norm_apply(x, mean, rstd, act, 0.2)
+    ya = K.apply_plain(x, mean, rstd, act, 0.2)
+    err_apply = float((y.float() - ya.float()).abs().max())
+    # the same float32 arithmetic rounded once: 1 bf16 ulp, or 1e-5 in f32
+    check(bf16_ulps(y, ya) <= 1.0 if bf16 else err_apply <= 1e-5,
+          f"apply {label} {shape} {dtype}: {err_apply}")
+    yk = K.instance_norm_act_fused(x, act, 0.2)
+    yp = K.instance_norm_act_plain(x, act, 0.2)
+    check(yk.is_contiguous(memory_format=torch.channels_last_3d) and yk.dtype == dtype,
+          "fused output layout and dtype")
+    err_norm = float((yk.float() - yp.float()).abs().max())
+    ulps = bf16_ulps(yk, yp) if bf16 else None
+    check(ulps <= 2.0 if bf16 else err_norm <= 1e-5,
+          f"instance_norm_act {label} {shape} {dtype}: {err_norm} ({ulps} ulps)")
+
+    big = x.numel() * es >= 100e6
+    iters = 10 if big else 30
+    t = {
+        "instance_norm_stats": device_ms(lambda: K.instance_norm_stats(x, seg), iters),
+        "instance_norm_finalize": device_ms(lambda: K.instance_norm_finalize(pm, pq, v), iters),
+        "instance_norm_apply": device_ms(
+            lambda: K.instance_norm_apply(x, mean, rstd, act, 0.2), iters),
+        "instance_norm_act": device_ms(lambda: K.instance_norm_act_fused(x, act, 0.2), iters),
+    }
+    fused_dispatch = dispatch_ms(lambda: K.instance_norm_act_fused(x, act, 0.2), iters)
+    p = {
+        "instance_norm_stats": device_ms(lambda: K.stats_plain(x, seg), 3, 1),
+        "instance_norm_finalize": device_ms(lambda: K.finalize_plain(pm, pq, v), iters),
+        "instance_norm_apply": device_ms(lambda: K.apply_plain(x, mean, rstd, act), iters),
+        "instance_norm_act": device_ms(lambda: K.instance_norm_act_plain(x, act), iters),
+    }
+    lib = {"instance_norm_act": device_ms(lambda: lib_act(act)(F.instance_norm(x)), iters),
+           # the stats + finalize pair: per-(n, c) mean and variance
+           "instance_norm_stats": device_ms(
+               lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0), iters)}
+    part_bytes = 2 * n * seg * c * 4
+    stat_bytes = 2 * n * c * 4
+    bounds = {
+        "instance_norm_stats": max((x.numel() * es + part_bytes) / bw,
+                                   STATS_OPS * x.numel() / flops),
+        "instance_norm_finalize": max((part_bytes + stat_bytes) / bw,
+                                      FINALIZE_OPS * n * seg * c / flops),
+        "instance_norm_apply": max((2 * x.numel() * es + stat_bytes) / bw,
+                                   APPLY_OPS[act] * x.numel() / flops),
+        "instance_norm_act": max(2 * x.numel() * es / bw,
+                                 (STATS_OPS + APPLY_OPS[act]) * x.numel() / flops),
+    }
+    errs = {"instance_norm_stats": err_stats, "instance_norm_finalize": err_fin,
+            "instance_norm_apply": err_apply, "instance_norm_act": err_norm}
+    dname = "bf16" if bf16 else "f32"
+    for k in t:
+        results[k]["shapes"].append({
+            "path": label, "shape": list(shape), "dtype": dname, "act": act,
+            "segments": seg, "ms": t[k], "plain_ms": p[k], "library_ms": lib.get(k),
+            **({"dispatch_ms": fused_dispatch} if k == "instance_norm_act" else {}),
+            "bound_ms": bounds[k] * 1e3, "max_abs_err": errs[k]})
+    print(f"[kernels] {label:6s} {str(shape):28s} {dname} {act:10s} S={seg:5d} "
+          f"norm {t['instance_norm_act']:.4f} ms (stats {t['instance_norm_stats']:.4f}, "
+          f"fin {t['instance_norm_finalize']:.4f}, apply {t['instance_norm_apply']:.4f}) "
+          f"dispatch {fused_dispatch:.4f} plain {p['instance_norm_act']:.4f} "
+          f"lib {lib['instance_norm_act']:.4f} var_mean {lib['instance_norm_stats']:.4f} "
+          f"bound {bounds['instance_norm_act'] * 1e3:.4f} ms  err {err_norm:.3g}"
+          + (f" ({ulps:.2f} ulp)" if bf16 else ""), flush=True)
+
+
+def backward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
+    """The three backward kernels against their plain versions at one shape,
+    the whole kernel backward against the plain step-by-step backward
+    (instance_norm_act_bwd_plain, JAX _in_vjp_bwd) and against float32, then
+    timed beside the plain versions, the library yardstick (autograd of
+    F.instance_norm + activation) and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    x = _volume(gen, shape, dtype)
+    g = _volume(gen, shape, dtype, 1.0, 0.0)
+    n, c = shape[:2]
+    v = math.prod(shape[2:])
+    es = x.element_size()
+    bf16 = dtype == torch.bfloat16
+    _, mean, rstd = K.instance_norm_act_fwd(x, act, 0.2)
+    seg = K.num_segments(n, v, c, K.pair_width(x, g))
+
+    pg, pgz = K.instance_norm_bwd_stats(x, g, mean, rstd, seg, act, 0.2)
+    rg, rgz = K.bwd_stats_plain(x, g, mean, rstd, seg, act, 0.2)
+    # float32 sums of one segment's terms in two orders, against the largest partial
+    scale = max(float(rg.abs().max()), float(rgz.abs().max()), 1e-30)
+    err_stats = max(float((pg - rg).abs().max()), float((pgz - rgz).abs().max()))
+    check(err_stats <= 1e-5 * scale, f"bwd_stats {label} {shape} {dtype}: {err_stats:.3g} "
+          f"against partials up to {scale:.3g}")
+    gm, gzm = K.instance_norm_bwd_finalize(pg, pgz, v)
+    fgm, fgzm = K.bwd_finalize_plain(pg, pgz, v)
+    err_fin = max(float((gm - fgm).abs().max()), float((gzm - fgzm).abs().max()))
+    check(torch.allclose(gm, fgm, rtol=1e-5, atol=1e-7)
+          and torch.allclose(gzm, fgzm, rtol=1e-5, atol=1e-7),
+          f"bwd_finalize {label} {shape} {dtype}: {err_fin:.3g}")
+    dx = K.instance_norm_bwd_apply(x, g, mean, rstd, gm, gzm, act, 0.2)
+    dxa = K.bwd_apply_plain(x, g, mean, rstd, gm, gzm, act, 0.2)
+    dmax = float(dxa.float().abs().max())
+    err_apply = float((dx.float() - dxa.float()).abs().max())
+    # the same float32 arithmetic rounded once: 1 bf16 ulp of the largest
+    # |dx|, or 1e-5 of it in f32
+    check(dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last_3d)
+          and err_apply <= (BF16_ULP if bf16 else 1e-5) * dmax,
+          f"bwd_apply {label} {shape} {dtype}: {err_apply:.3g}, max|dx| {dmax:.3g}")
+
+    dk = K.instance_norm_act_bwd_fused(x, g, mean, rstd, act, 0.2).float()
+    dp = K.instance_norm_act_bwd_plain(x, g, mean, rstd, act, 0.2).float()
+    d32 = K.instance_norm_act_bwd_plain(x.float(), g.float(), mean, rstd, act, 0.2)
+    dmax = float(d32.abs().max())
+    diff = (dk - dp).abs() / dmax
+    err_k, err_p = float((dk - d32).abs().mean()), float((dp - d32).abs().mean())
+    if bf16:
+        # The plain version rounds z, g' and every step of dx to bf16, the
+        # kernel only dx: a relu mask flips where x lies between the float32
+        # mean and its bf16 rounding. Held to: mean |diff| <= 1 bf16 ulp of
+        # max |dx|, and the kernel no farther from float32 than the plain
+        # version is (mean |error|, x1.25).
+        check(float(diff.mean()) <= BF16_ULP and err_k <= 1.25 * err_p,
+              f"bwd {label} {shape} bf16: mean {float(diff.mean()):.3g} max "
+              f"{float(diff.max()):.3g} of max|dx|; vs f32 kernel {err_k:.3g} plain {err_p:.3g}")
+    else:
+        check(float(diff.max()) <= 1e-5, f"bwd {label} {shape} f32: {float(diff.max()):.3g}")
+
+    big = x.numel() * es >= 100e6
+    iters = 10 if big else 30
+    t = {
+        "instance_norm_bwd_stats": device_ms(
+            lambda: K.instance_norm_bwd_stats(x, g, mean, rstd, seg, act, 0.2), iters),
+        "instance_norm_bwd_finalize": device_ms(
+            lambda: K.instance_norm_bwd_finalize(pg, pgz, v), iters),
+        "instance_norm_bwd_apply": device_ms(
+            lambda: K.instance_norm_bwd_apply(x, g, mean, rstd, gm, gzm, act, 0.2), iters),
+        "instance_norm_act_bwd": device_ms(
+            lambda: K.instance_norm_act_bwd_fused(x, g, mean, rstd, act, 0.2), iters),
+    }
+    bwd_dispatch = dispatch_ms(
+        lambda: K.instance_norm_act_bwd_fused(x, g, mean, rstd, act, 0.2), iters)
+    p = {
+        "instance_norm_bwd_stats": device_ms(
+            lambda: K.bwd_stats_plain(x, g, mean, rstd, seg, act, 0.2), 3, 1),
+        "instance_norm_bwd_finalize": device_ms(lambda: K.bwd_finalize_plain(pg, pgz, v), iters),
+        "instance_norm_bwd_apply": device_ms(
+            lambda: K.bwd_apply_plain(x, g, mean, rstd, gm, gzm, act, 0.2), iters),
+        "instance_norm_act_bwd": device_ms(
+            lambda: K.instance_norm_act_bwd_plain(x, g, mean, rstd, act, 0.2), iters),
+    }
+    xl = x.detach().requires_grad_()
+    yl = lib_act(act)(F.instance_norm(xl))
+    lib = device_ms(lambda: torch.autograd.grad(yl, xl, g, retain_graph=True), iters)
+    del yl, xl
+    part_bytes = 2 * n * seg * c * 4
+    stat_bytes = 2 * n * c * 4
+    ops = ACT_GRAD_OPS[act]
+    bounds = {
+        "instance_norm_bwd_stats": max((2 * x.numel() * es + stat_bytes + part_bytes) / bw,
+                                       (BWD_STATS_OPS + ops) * x.numel() / flops),
+        "instance_norm_bwd_finalize": max((part_bytes + stat_bytes) / bw,
+                                          2 * n * seg * c / flops),
+        "instance_norm_bwd_apply": max((3 * x.numel() * es + 2 * stat_bytes) / bw,
+                                       (BWD_APPLY_OPS + ops) * x.numel() / flops),
+        "instance_norm_act_bwd": max(3 * x.numel() * es / bw,
+                                     (BWD_STATS_OPS + BWD_APPLY_OPS + 2 * ops) * x.numel()
+                                     / flops),
+    }
+    errs = {"instance_norm_bwd_stats": err_stats, "instance_norm_bwd_finalize": err_fin,
+            "instance_norm_bwd_apply": err_apply,
+            "instance_norm_act_bwd": float((dk - dp).abs().max())}
+    dname = "bf16" if bf16 else "f32"
+    for k in t:
+        results[k]["shapes"].append({
+            "path": label, "shape": list(shape), "dtype": dname, "act": act,
+            "segments": seg, "ms": t[k], "plain_ms": p[k],
+            "library_ms": lib if k == "instance_norm_act_bwd" else None,
+            **({"dispatch_ms": bwd_dispatch,
+                "vs_plain_mean": float(diff.mean()), "vs_plain_max": float(diff.max()),
+                "vs_f32_kernel": err_k, "vs_f32_plain": err_p}
+               if k == "instance_norm_act_bwd" else {}),
+            "bound_ms": bounds[k] * 1e3, "max_abs_err": errs[k]})
+    print(f"[bwd]     {label:6s} {str(shape):28s} {dname} {act:10s} S={seg:5d} "
+          f"bwd {t['instance_norm_act_bwd']:.4f} ms (stats {t['instance_norm_bwd_stats']:.4f}, "
+          f"fin {t['instance_norm_bwd_finalize']:.4f}, apply {t['instance_norm_bwd_apply']:.4f}) "
+          f"dispatch {bwd_dispatch:.4f} plain {p['instance_norm_act_bwd']:.4f} lib {lib:.4f} "
+          f"bound {bounds['instance_norm_act_bwd'] * 1e3:.4f} ms  vs plain mean "
+          f"{float(diff.mean()):.3g} max {float(diff.max()):.3g}", flush=True)
+
+
+def phase_kernels(K, bw: float, flops: float, results: dict) -> None:
+    import torch
+
     cases = [(lbl, s, a, dt) for lbl, s, a in norm_shapes()
              for dt in (torch.bfloat16, torch.float32)
              if not (lbl == "b3" and dt == torch.float32)]
@@ -224,92 +492,36 @@ def phase_kernels(K, bw: float, flops: float, results: dict) -> None:
     # C = 6 is no multiple of a 16-byte vector: the one-element-per-thread kernels
     cases += [("odd_c", (2, 6, 16, 16, 16), "relu", dt) for dt in (torch.bfloat16, torch.float32)]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    for label, shape, act, dtype in cases:
-        x = (torch.randn(shape, generator=gen, device=DEVICE) * 3 + 1).to(dtype)
-        x = x.contiguous(memory_format=torch.channels_last_3d)
-        n, c = shape[:2]
-        v = math.prod(shape[2:])
-        es = x.element_size()
-        bf16 = dtype == torch.bfloat16
-        seg = K.num_segments(n, v, c, K.vector_width(x))
-
-        pm, pq = K.instance_norm_stats(x, seg)
-        rm, rq = K.stats_plain(x, seg)
-        cnt = max(b - a for a, b in zip(K.segment_bounds(v, seg), K.segment_bounds(v, seg)[1:]))
-        # partial sums in two summation orders, float32
-        err_stats = max(float((pm - rm).abs().max()), float((pq - rq).abs().max()) / cnt)
-        check(torch.allclose(pm, rm, rtol=1e-4, atol=1e-5)
-              and torch.allclose(pq, rq, rtol=1e-4, atol=1e-3),
-              f"stats {label} {shape} {dtype}: {err_stats}")
-        mean, rstd = K.instance_norm_finalize(pm, pq, v)
-        fm, fr = K.finalize_plain(pm, pq, v)
-        err_fin = max(float((mean - fm).abs().max()), float((rstd - fr).abs().max()))
-        check(torch.allclose(mean, fm, rtol=1e-5, atol=1e-6)
-              and torch.allclose(rstd, fr, rtol=1e-5, atol=1e-6),
-              f"finalize {label} {shape} {dtype}: {err_fin}")
-        y = K.instance_norm_apply(x, mean, rstd, act, 0.2)
-        ya = K.apply_plain(x, mean, rstd, act, 0.2)
-        err_apply = float((y.float() - ya.float()).abs().max())
-        # the same float32 arithmetic rounded once: 1 bf16 ulp, or 1e-5 in f32
-        check(bf16_ulps(y, ya) <= 1.0 if bf16 else err_apply <= 1e-5,
-              f"apply {label} {shape} {dtype}: {err_apply}")
-        yk = K.instance_norm_act_fused(x, act, 0.2)
-        yp = K.instance_norm_act_plain(x, act, 0.2)
-        check(yk.is_contiguous(memory_format=torch.channels_last_3d) and yk.dtype == dtype,
-              "fused output layout and dtype")
-        err_norm = float((yk.float() - yp.float()).abs().max())
-        ulps = bf16_ulps(yk, yp) if bf16 else None
-        check(ulps <= 2.0 if bf16 else err_norm <= 1e-5,
-              f"instance_norm_act {label} {shape} {dtype}: {err_norm} ({ulps} ulps)")
-
-        big = x.numel() * es >= 100e6
-        iters = 10 if big else 30
-        t = {
-            "instance_norm_stats": device_ms(lambda: K.instance_norm_stats(x, seg), iters),
-            "instance_norm_finalize": device_ms(
-                lambda: K.instance_norm_finalize(pm, pq, v), iters),
-            "instance_norm_apply": device_ms(
-                lambda: K.instance_norm_apply(x, mean, rstd, act, 0.2), iters),
-            "instance_norm_act": device_ms(lambda: K.instance_norm_act_fused(x, act, 0.2), iters),
-        }
-        fused_dispatch = dispatch_ms(lambda: K.instance_norm_act_fused(x, act, 0.2), iters)
-        p = {
-            "instance_norm_stats": device_ms(lambda: K.stats_plain(x, seg), 3, 1),
-            "instance_norm_finalize": device_ms(lambda: K.finalize_plain(pm, pq, v), iters),
-            "instance_norm_apply": device_ms(lambda: K.apply_plain(x, mean, rstd, act), iters),
-            "instance_norm_act": device_ms(lambda: K.instance_norm_act_plain(x, act), iters),
-        }
-        lib = device_ms(lambda: lib_act[act](F.instance_norm(x)), iters)
-        part_bytes = 2 * n * seg * c * 4
-        stat_bytes = 2 * n * c * 4
-        bounds = {
-            "instance_norm_stats": max((x.numel() * es + part_bytes) / bw,
-                                       STATS_OPS * x.numel() / flops),
-            "instance_norm_finalize": max((part_bytes + stat_bytes) / bw,
-                                          FINALIZE_OPS * n * seg * c / flops),
-            "instance_norm_apply": max((2 * x.numel() * es + stat_bytes) / bw,
-                                       APPLY_OPS[act] * x.numel() / flops),
-            "instance_norm_act": max(2 * x.numel() * es / bw,
-                                     (STATS_OPS + APPLY_OPS[act]) * x.numel() / flops),
-        }
-        errs = {"instance_norm_stats": err_stats, "instance_norm_finalize": err_fin,
-                "instance_norm_apply": err_apply, "instance_norm_act": err_norm}
-        dname = "bf16" if bf16 else "f32"
-        for k in t:
-            results[k]["shapes"].append({
-                "path": label, "shape": list(shape), "dtype": dname, "act": act,
-                "segments": seg, "ms": t[k], "plain_ms": p[k],
-                "library_ms": lib if k == "instance_norm_act" else None,
-                **({"dispatch_ms": fused_dispatch} if k == "instance_norm_act" else {}),
-                "bound_ms": bounds[k] * 1e3, "max_abs_err": errs[k]})
-        print(f"[kernels] {label:6s} {str(shape):28s} {dname} {act:10s} S={seg:5d} "
-              f"norm {t['instance_norm_act']:.4f} ms (stats {t['instance_norm_stats']:.4f}, "
-              f"fin {t['instance_norm_finalize']:.4f}, apply {t['instance_norm_apply']:.4f}) "
-              f"dispatch {fused_dispatch:.4f} plain {p['instance_norm_act']:.4f} lib {lib:.4f} "
-              f"bound {bounds['instance_norm_act'] * 1e3:.4f} ms  err {err_norm:.3g}"
-              + (f" ({ulps:.2f} ulp)" if bf16 else ""), flush=True)
-        del x, pm, pq, rm, rq, y, ya, yk, yp
+    for case in cases:
+        forward_case(K, *case, bw, flops, results, gen)
+        if case[0] in ("small", "odd_c"):
+            backward_case(K, *case, bw, flops, results, gen)
     torch.cuda.empty_cache()
+
+
+def phase_train_kernels(K, bw: float, flops: float, results: dict) -> None:
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    for label, shape, act in train_norm_shapes():
+        for dtype in (torch.bfloat16, torch.float32):
+            forward_case(K, label, shape, act, dtype, bw, flops, results, gen)
+            backward_case(K, label, shape, act, dtype, bw, flops, results, gen)
+        torch.cuda.empty_cache()
+
+
+def with_wholes(launches: dict) -> dict:
+    """Launch counts with the two whole-norm entries of the report added:
+    one forward (three launches) per apply, one backward per bwd apply."""
+    return {**launches, "instance_norm_act": launches["instance_norm_apply"],
+            "instance_norm_act_bwd": launches["instance_norm_bwd_apply"]}
+
+
+def launched(K, forward: int, backward: int) -> bool:
+    """Every forward norm kernel launched ``forward`` times and every
+    backward one ``backward`` times since the counters were zeroed."""
+    return (all(K.LAUNCHES[k] == forward for k in K.FORWARD)
+            and all(K.LAUNCHES[k] == backward for k in K.BACKWARD))
 
 
 def phase_conv_formats() -> list:
@@ -366,7 +578,7 @@ def phase_generator(K, tree) -> None:
         y = gen(x)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        check(all(v == 17 for v in K.LAUNCHES.values()), f"17 launches per forward: {K.LAUNCHES}")
+        check(launched(K, 17, 0), f"17 launches per forward, no backward: {K.LAUNCHES}")
         with plain_norms():
             yp = gen(x)
         check(y.shape == (DECODE_BATCH, 1) + PATCH and bool(torch.isfinite(y).all()),
@@ -389,47 +601,59 @@ def phase_generator(K, tree) -> None:
           "bf16 generator: kernel norms within tolerance of plain norms")
 
 
-def profile_decode(decode) -> dict:
-    """One decode under torch.profiler: device time by kernel class and the
-    device's idle share of the wall time (profiling on)."""
+# kernel classes of a profile, first match wins (the optimizer's
+# multi_tensor_apply_kernel and the backward norm kernels contain the names
+# of forward norm kernels)
+PROFILE_CLASSES = (
+    ("norm_bwd", ("bwd_stats_kernel", "bwd_finalize_kernel", "bwd_apply_kernel")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("norm", ("stats_kernel", "finalize_kernel", "apply_kernel")),
+    ("copy", ("memcpy", "memset", "copy_kernel")),
+    ("pad", ("replication_pad",)),
+    ("conv", ("conv", "xmma", "cudnn", "gemm", "implicit", "fprop", "dgrad", "wgrad",
+              "cutlass", "winograd", "nhwc", "nchw")),
+)
+
+
+def kernel_class(name: str) -> str:
+    name = name.lower()
+    return next((cls for cls, keys in PROFILE_CLASSES if any(k in name for k in keys)),
+                "other")
+
+
+def profile_run(fn, what: str) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by kernel class
+    and the device's idle share of the wall time (profiling on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    classes = {"norm": 0.0, "conv": 0.0, "copy": 0.0, "other": 0.0}
+    classes = dict.fromkeys([c for c, _ in PROFILE_CLASSES] + ["other"], 0.0)
     rows = []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")) != "DeviceType.CUDA":
             continue
         us = getattr(e, "self_device_time_total", None)
         ms = (us if us is not None else e.self_cuda_time_total) / 1e3
-        name = e.key.lower()
-        if any(k in name for k in ("stats_kernel", "finalize_kernel", "apply_kernel")):
-            cls = "norm"
-        elif "memcpy" in name or "memset" in name:
-            cls = "copy"
-        elif any(k in name for k in ("conv", "xmma", "cudnn", "gemm", "implicit", "fprop",
-                                     "dgrad", "wgrad", "cutlass", "winograd", "nhwc", "nchw")):
-            cls = "conv"
-        else:
-            cls = "other"
+        cls = kernel_class(e.key)
         classes[cls] += ms
         rows.append((ms, e.count, cls, e.key[:100]))
     busy = sum(classes.values())
     if busy == 0:
-        print("[profile] the profiler recorded no device time", flush=True)
+        print(f"[profile] {what}: the profiler recorded no device time", flush=True)
         return {"wall_ms": wall_ms}
     for ms, count, cls, key in sorted(rows, reverse=True)[:15]:
-        print(f"[profile] {ms:9.3f} ms {count:6d}x {cls:5s} {key}")
-    print(f"[profile] decode wall {wall_ms:.1f} ms (profiling on), device busy {busy:.1f} ms, "
+        print(f"[profile] {what}: {ms:9.3f} ms {count:6d}x {cls:9s} {key}")
+    print(f"[profile] {what} wall {wall_ms:.1f} ms (profiling on), device busy {busy:.1f} ms, "
           f"idle {1 - busy / wall_ms:.1%}; " + ", ".join(
               f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in classes.items()), flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
-            "by_class_ms": classes}
+            "by_class_ms": classes, "top": [list(r) for r in sorted(rows, reverse=True)[:15]]}
 
 
 def phase_decode(K, tree, results: dict) -> dict:
@@ -458,15 +682,15 @@ def phase_decode(K, tree, results: dict) -> dict:
     out = decode()
     secs = [time.perf_counter() - t0]
     launches = dict(K.LAUNCHES)
-    check(all(v == n_batches * 17 for v in launches.values()),
-          f"{n_batches} x 17 launches per decode: {launches}")
+    check(launched(K, n_batches * 17, 0),
+          f"{n_batches} x 17 launches per decode, no backward: {launches}")
     check(out.shape == VOLUME and out.dtype == np.float32 and bool(np.isfinite(out).all()),
           "decode output finite float32 of the volume's shape")
     for _ in range(2):
         t0 = time.perf_counter()
         decode()
         secs.append(time.perf_counter() - t0)
-    profile = profile_decode(decode)
+    profile = profile_run(decode, "decode")
     with plain_norms():
         ref = decode()
     diff = np.abs(out - ref)
@@ -483,7 +707,7 @@ def phase_decode(K, tree, results: dict) -> dict:
     sp = single_pass_apply(gen, vol)
     sp_secs = [time.perf_counter() - t0]
     sp_launches = dict(K.LAUNCHES)
-    check(all(v == 17 for v in sp_launches.values()), f"single pass launches {sp_launches}")
+    check(launched(K, 17, 0), f"single pass launches {sp_launches}")
     check(sp.shape == VOLUME and bool(np.isfinite(sp).all()), "single-pass output finite")
     t0 = time.perf_counter()
     single_pass_apply(gen, vol)
@@ -496,11 +720,10 @@ def phase_decode(K, tree, results: dict) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     check(float(sp_diff.mean()) <= 0.02 and float(sp_diff.max()) <= 0.5,
           "single pass: kernel norms within tolerance of plain norms")
-    for k, v in launches.items():
-        results[k]["launches"] = v
-        results[k]["launches_single_pass"] = sp_launches[k]
-    results["instance_norm_act"]["launches"] = launches["instance_norm_apply"]
-    results["instance_norm_act"]["launches_single_pass"] = sp_launches["instance_norm_apply"]
+    launches, sp_launches = with_wholes(launches), with_wholes(sp_launches)
+    for k, r in results.items():
+        r["launches_decode"] = launches[k]
+        r["launches_single_pass"] = sp_launches[k]
     return {"decode_s": secs, "single_pass_s": sp_secs, "decode_launches": launches,
             "single_pass_launches": sp_launches, "decode_profile": profile}
 
@@ -538,8 +761,7 @@ def phase_cli(K, tree, workdir: Path) -> None:
                        "--decode_batch", str(DECODE_BATCH), "--device", DEVICE])
     secs = time.perf_counter() - t0
     check(failed == [], f"CLI skipped {failed}")
-    check(all(v == 17 * batches for v in K.LAUNCHES.values()),
-          f"CLI launches {K.LAUNCHES}, want 17 x {batches}")
+    check(launched(K, 17 * batches, 0), f"CLI launches {K.LAUNCHES}, want 17 x {batches}")
     for i, shp in enumerate(shapes):
         src = nifti.load(workdir / "in" / f"v{i}.nii.gz")
         got = nifti.load(workdir / "out" / f"v{i}.nii.gz")
@@ -548,6 +770,166 @@ def phase_cli(K, tree, workdir: Path) -> None:
               f"CLI output v{i}: shape, finite, affine")
     print(f"[cli] {len(shapes)} volumes in {secs:.2f} s (gzip IO included); "
           f"launches {dict(K.LAUNCHES)}", flush=True)
+
+
+def train_config(dtype):
+    """The reference default of bench.py:193-198: two resnet_6blocks
+    generators and two 3-layer PatchGANs at ngf = ndf = 32, affine-free
+    instance norm, LSGAN, ImagePool 50, Adam at beta1 0.5."""
+    from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig
+
+    return CycleGANConfig(ngf=NGF, ndf=NDF, net_g="resnet_6blocks", net_d="n_layers",
+                          n_layers_d=3, gan_mode="lsgan", pool_size=50, beta1=0.5, dtype=dtype)
+
+
+def train_inputs(batch: int, seed: int):
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rs.uniform(-1, 1, (batch, 1) + PATCH).astype(np.float32))
+                 .to(DEVICE) for _ in range(2))
+
+
+def phase_train(K, results: dict) -> dict:
+    """create_state + make_train_step at the reference default in bf16, at
+    batch 1 and 8: warm-up steps, then timed steps with the launch counters
+    zeroed just before them, then one profiled step."""
+    import torch
+
+    from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+
+    cfg = train_config(torch.bfloat16)
+    out = {}
+    for batch, timed in zip(TRAIN_BATCHES, TRAIN_TIMED_STEPS):
+        state = create_state(cfg, SEED, PATCH, DEVICE)
+        step = make_train_step(cfg)
+        real_a, real_b = train_inputs(batch, SEED + batch)
+        for _ in range(TRAIN_WARMUP):
+            step(state, real_a, real_b, TRAIN_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            _, metrics = step(state, real_a, real_b, TRAIN_LR)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / timed
+        launches = dict(K.LAUNCHES)
+        relayouts = K.GRAD_RELAYOUTS["count"] / timed
+        check(launched(K, NORMS_PER_STEP * timed, NORMS_PER_STEP * timed),
+              f"train b{batch}: {NORMS_PER_STEP} launches of every norm kernel per step: "
+              f"{launches} over {timed} steps")
+        losses = {k: float(v) for k, v in metrics.items()}
+        check(len(losses) == 10 and all(math.isfinite(v) for v in losses.values()),
+              f"train b{batch}: finite losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[train] b{batch}: {secs:.4f} s/step, {batch / secs:.3f} pairs/s over {timed} "
+              f"steps; peak memory {peak:.2f} GiB; launches {launches}; gradient relayouts "
+              f"{relayouts:g} per step; losses {losses}", flush=True)
+        prof = profile_run(lambda: step(state, real_a, real_b, TRAIN_LR), f"train b{batch}")
+        out[f"b{batch}"] = {"s_per_step": secs, "pairs_per_s": batch / secs, "steps": timed,
+                            "peak_gib": peak, "launches": launches,
+                            "grad_relayouts_per_step": relayouts, "losses": losses,
+                            "profile": prof}
+        for k, n in with_wholes(launches).items():
+            results[k].setdefault("launches_train_per_step", {})[f"b{batch}"] = n / timed
+            if batch == max(TRAIN_BATCHES):
+                results[k]["launches_train"] = n
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _step0(cfg, plain: bool, real_a, real_b):
+    """Step 0 from the seeded state: (the ten losses, {param: raw gradient})."""
+    import torch
+
+    from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+
+    state = create_state(cfg, SEED, PATCH, DEVICE)
+    with plain_norms() if plain else contextlib.nullcontext():
+        _, metrics = make_train_step(cfg)(state, real_a.to(cfg.dtype), real_b.to(cfg.dtype),
+                                          TRAIN_LR)
+    grads = {f"{name}.{k}": (None if p.grad is None else p.grad.double().clone())
+             for name, net in state.nets.items() for k, p in net.named_parameters()}
+    losses = {k: float(v) for k, v in metrics.items()}
+    del state
+    torch.cuda.empty_cache()
+    return losses, grads
+
+
+def _errors_vs(ref, run) -> dict:
+    """Per network: the relative L2 distance of ``run``'s raw gradients to
+    ``ref``'s, and the largest elementwise one against the network's largest
+    gradient; and the largest relative loss error."""
+    import torch
+
+    (lr, gr), (lx, gx) = ref, run
+    out = {"loss": max(abs(lx[k] - lr[k]) / abs(lr[k]) for k in lr)}
+    for key, g in gr.items():
+        check((g is None) == (gx[key] is None), f"parity: {key} gradient presence")
+    nets = {}
+    for key, g in gr.items():
+        if g is not None:
+            nets.setdefault(key.split(".")[0], []).append((g.flatten(), gx[key].flatten()))
+    for net, pairs in nets.items():
+        ref_v = torch.cat([r for r, _ in pairs])
+        got_v = torch.cat([x for _, x in pairs])
+        d = got_v - ref_v
+        out[net] = {"l2": float(d.norm() / ref_v.norm()),
+                    "max": float(d.abs().max() / ref_v.abs().max())}
+    return out
+
+
+def phase_train_parity() -> dict:
+    """Step 0 at batch 1 from the same seeded state through the norm kernels
+    and through the plain norms (plain_norms), in float32 (TF32 off) and in
+    bf16, each held against a float64 step through the plain norms, with
+    cuDNN's deterministic algorithms so that the bars hold from run to run.
+
+    Float32 is not exact here: at 64^3 a weight gradient of the stem or an
+    up-conv is a sum over 10^5-10^6 voxels that cancels to a small value, and
+    float32 rounding leaves both paths some 1e-3 of the network's largest
+    gradient from float64 (2.5e-3 to 4.6e-3 on an H100). So the bars are
+    relative to the
+    plain path: float32 losses of the two paths at rtol 1e-4; for each
+    network the kernel path's relative L2 distance to float64 at most 1.5x
+    the plain path's + 1e-4; bf16 (the kernels round once where the plain
+    norms round at every step) the same distance at most 1.25x the plain
+    path's, and the largest relative loss error at most 1.25x the plain
+    path's + 2^-8."""
+    import torch
+
+    real_a, real_b = train_inputs(1, SEED + 100)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = _step0(train_config(torch.float64), True, real_a, real_b)
+        runs = {(dt, plain): _step0(train_config(dt), plain, real_a, real_b)
+                for dt in (torch.float32, torch.bfloat16) for plain in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    report = {}
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        ek, ep = _errors_vs(ref, runs[(dt, False)]), _errors_vs(ref, runs[(dt, True)])
+        report[name] = {"kernel_vs_f64": ek, "plain_vs_f64": ep}
+        print(f"[parity] {name} step 0 against float64: kernel path {ek}; plain path {ep}",
+              flush=True)
+        nets = [k for k in ek if k != "loss"]
+        if dt == torch.float32:
+            lk, lp = runs[(dt, False)][0], runs[(dt, True)][0]
+            rel = max(abs(lk[k] - lp[k]) / abs(lp[k]) for k in lk)
+            report[name]["loss_kernel_vs_plain"] = rel
+            check(rel <= 1e-4, f"f32 parity: losses kernel vs plain at rtol 1e-4 ({rel:.3g})")
+            check(all(ek[n]["l2"] <= 1.5 * ep[n]["l2"] + 1e-4 for n in nets),
+                  "f32 parity: kernel-path gradients as close to float64 as plain-path ones")
+        else:
+            check(ek["loss"] <= 1.25 * ep["loss"] + BF16_ULP,
+                  "bf16 parity: kernel-path losses as close to float64 as plain-path ones")
+            check(all(ek[n]["l2"] <= 1.25 * ep[n]["l2"] for n in nets),
+                  "bf16 parity: kernel-path gradients as close to float64 as plain-path ones")
+    return report
 
 
 def main(argv=None) -> int:
@@ -588,17 +970,23 @@ def main(argv=None) -> int:
     src = "mra_gan_tpu_torch/ops/kernels/csrc/instance_norm.cu"
     pallas = "mra_gan_tpu/ops/pallas/instance_norm.py"
     results = {
-        "instance_norm_stats": {"replaces": f"{pallas}:86", "bound_by": "bytes"},
-        "instance_norm_finalize": {"replaces": f"{pallas}:86", "bound_by": "bytes"},
-        "instance_norm_apply": {"replaces": f"{pallas}:100", "bound_by": "bytes"},
-        "instance_norm_act": {"replaces": f"{pallas}:108", "bound_by": "bytes",
-                              "note": "the three launches together (_fwd); launches = "
-                                      "forward norms"},
+        "instance_norm_stats": {"replaces": f"{pallas}:86", "note": "library_ms: "
+                                "torch.var_mean, which computes the stats + finalize pair"},
+        "instance_norm_finalize": {"replaces": f"{pallas}:86"},
+        "instance_norm_apply": {"replaces": f"{pallas}:100"},
+        "instance_norm_act": {"replaces": f"{pallas}:108", "note": "the three forward "
+                              "launches together (_fwd); launches = forward norms"},
+        "instance_norm_bwd_stats": {"replaces": f"{pallas}:137"},
+        "instance_norm_bwd_finalize": {"replaces": f"{pallas}:137"},
+        "instance_norm_bwd_apply": {"replaces": f"{pallas}:155"},
+        "instance_norm_act_bwd": {"replaces": f"{pallas}:167", "note": "the three backward "
+                                  "launches together (_bwd); launches = backward norms"},
     }
     for k, r in results.items():
-        r.update(name=k, route="cuda", source=src, shapes=[])
+        r.update(name=k, route="cuda", source=src, bound_by="bytes", shapes=[])
 
     phase_kernels(K, bw, flops, results)
+    phase_train_kernels(K, bw, flops, results)
     conv_rows = phase_conv_formats()
     tree = random_jax_tree(NGF, 6, SEED)
     phase_generator(K, tree)
@@ -607,28 +995,48 @@ def main(argv=None) -> int:
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_cli(K, tree, Path(tmp))
+    train = phase_train(K, results)
+    parity = phase_train_parity()
 
     kernels = []
     for k, r in results.items():
-        head = next(s for s in r["shapes"]
-                    if s["path"] == "b8" and s["dtype"] == "bf16" and s["shape"][1] == NGF)
-        check(r.get("launches", 0) > 0, f"{k} launched on the decode")
+        backward = "bwd" in k
+        # forward kernels: the decode's batch-8 stem shape (the decode is
+        # their first main path); backward kernels: the batch-8 train step's
+        # largest norm
+        path, n = ("G b8", 2 * max(TRAIN_BATCHES)) if backward else ("b8", DECODE_BATCH)
+        head = next(s for s in r["shapes"] if s["path"] == path and s["shape"][:2] == [n, NGF]
+                    and s["dtype"] == "bf16")
+        train_head = next(s for s in r["shapes"] if s["path"] == "G b8"
+                          and s["shape"][:2] == [2 * max(TRAIN_BATCHES), NGF]
+                          and s["dtype"] == "bf16")
+        launches = r["launches_train"] if backward else r["launches_decode"]
+        check(launches > 0, f"{k} launched on its main path")
         kernels.append({
             "name": k, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-            "launches": r["launches"], "max_abs_err": max(s["max_abs_err"] for s in r["shapes"]),
+            "launches": launches, "max_abs_err": max(s["max_abs_err"] for s in r["shapes"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": head["library_ms"],
-            "at": {"shape": head["shape"], "dtype": "bf16", "act": head["act"]},
+            "at": {"path": path, "shape": head["shape"], "dtype": "bf16", "act": head["act"]},
+            "launches_decode": r["launches_decode"],
             "launches_single_pass": r["launches_single_pass"],
+            "launches_train": r["launches_train"],
+            "launches_train_per_step": r["launches_train_per_step"],
+            "train_at": {"shape": train_head["shape"], "ms": train_head["ms"],
+                         "plain_ms": train_head["plain_ms"],
+                         "bound_ms": train_head["bound_ms"],
+                         "library_ms": train_head["library_ms"]},
             **({"note": r["note"]} if "note" in r else {})})
-    summary = {"decode": decode, "conv_formats": conv_rows,
-               "seconds": time.perf_counter() - t_start}
-    print(json.dumps(summary))
+    summary = {"decode": decode, "train": train, "train_parity": parity,
+               "conv_formats": conv_rows, "seconds": time.perf_counter() - t_start}
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(
             {"gpu": card, **summary, "kernels": kernels,
              "shapes": {k: r["shapes"] for k, r in results.items()}}, indent=1))
+    for prof in [decode["decode_profile"]] + [t["profile"] for t in train.values()]:
+        prof.pop("top", None)  # printed above; kept in --json-out
+    print(json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

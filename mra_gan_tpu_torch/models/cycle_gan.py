@@ -1,19 +1,38 @@
-"""CycleGAN configuration and the inference forward (counterpart of
-mra_gan_tpu/models/cycle_gan.py:39,476).
+"""CycleGAN: configuration, state, the train step and the inference forward
+(counterpart of mra_gan_tpu/models/cycle_gan.py:39,171,201,231,476).
 
-Only the generator fields are here; the discriminator, loss and optimiser
-fields arrive with the training slice."""
+The train step is the reference's optimize_parameters as the JAX package
+runs it, one call per iteration:
+
+- the G loss from four batched generator applies (the two "leaf" applies
+  on [real_a, real_b] and [real_b, real_a] give the fakes and the identity
+  outputs, the two "chain" applies the reconstructions) and the two
+  discriminators on the fakes; the gradient is taken over G's parameters
+  only, so D is frozen for it;
+- the G Adam step;
+- both image pools queried with the pre-update fakes, detached;
+- the D loss on real and pooled fake stacked into one apply per
+  discriminator, then the D Adam step.
+
+The correlation-coefficient losses are computed on the detached fakes and
+logged, not optimized (JAX :338-341). Everything runs on the device the state
+was created on, in channels_last_3d on CUDA, with the configured compute
+dtype over float32 parameters."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+import itertools
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtypes import set_conv_precision
-from .networks import define_g
+from ..ops.losses import cor_coe_loss, gan_loss, l1_loss
+from .networks import define_d, define_g
+
+_CL = torch.channels_last_3d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,11 +40,24 @@ class CycleGANConfig:
     input_nc: int = 1
     output_nc: int = 1
     ngf: int = 32
+    ndf: int = 32
     net_g: str = "resnet_6blocks"
+    net_d: str = "n_layers"
+    n_layers_d: int = 3
     norm: str = "instance"
     no_dropout: bool = True
     init_type: str = "normal"
     init_gain: float = 0.02
+    # the reference's effective default (its --no_lsgan is store_false); pass
+    # gan_mode="lsgan" for least-squares GAN
+    gan_mode: str = "vanilla"
+    lambda_a: float = 10.0
+    lambda_b: float = 10.0
+    lambda_identity: float = 0.5
+    lambda_co_a: float = 2.0
+    lambda_co_b: float = 2.0
+    pool_size: int = 50
+    beta1: float = 0.5
     dtype: torch.dtype = torch.float32
 
     def build_generator(self, which: str = "g_a",
@@ -38,6 +70,195 @@ class CycleGANConfig:
                      else (self.output_nc, self.input_nc))
         return define_g(cin, cout, self.ngf, self.net_g, self.norm, not self.no_dropout,
                         self.init_type, self.init_gain, generator)
+
+    def build_discriminator(self, which: str = "d_a",
+                            generator: Optional[torch.Generator] = None) -> nn.Module:
+        """d_a judges domain B (output_nc channels), d_b domain A; a sigmoid
+        head under vanilla GAN. float32 parameters on the CPU."""
+        if which not in ("d_a", "d_b"):
+            raise ValueError(f"which must be 'd_a' or 'd_b', got {which!r}")
+        cin = self.output_nc if which == "d_a" else self.input_nc
+        return define_d(cin, self.ndf, self.net_d, self.n_layers_d, self.norm,
+                        self.gan_mode == "vanilla", self.init_type, self.init_gain, generator)
+
+
+class ImagePool:
+    """The reference's ImagePool as a buffer of ``size`` images on the
+    device, (max(size, 1), C, D, H, W), and the count filled so far."""
+
+    def __init__(self, size: int, image_shape: Sequence[int], dtype: torch.dtype,
+                 device: torch.device):
+        self.size = size
+        self.images = torch.zeros((max(size, 1), *image_shape), dtype=dtype, device=device)
+        self.count = 0
+
+
+def pool_query(pool: ImagePool, images: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[Tuple[Sequence[float], Sequence[int]]] = None) -> torch.Tensor:
+    """JAX ``pool_query`` (cycle_gan.py:201), image by image in batch order:
+    while the pool fills, store the image and return it; once full, with
+    p > 0.5 swap it with slot ``slot`` and return the evicted image, else
+    return it. ``pool`` is updated in place. The draws (p uniform in [0, 1),
+    slot in [0, size)) come from the CPU ``generator``, or are given as
+    ``draws = (p, slot)``, one of each per image, so that a test can feed
+    the JAX package's own. No draw touches the device."""
+    if pool.size == 0:
+        return images
+    b = images.shape[0]
+    if draws is None:
+        draws = (torch.rand(b, generator=generator).tolist(),
+                 torch.randint(0, pool.size, (b,), generator=generator).tolist())
+    p, slot = draws
+    out = images
+    for i in range(b):
+        if pool.count < pool.size:
+            pool.images[pool.count].copy_(images[i])
+            pool.count += 1
+        elif p[i] > 0.5:
+            if out is images:
+                out = images.clone()
+            out[i].copy_(pool.images[slot[i]])
+            pool.images[slot[i]].copy_(images[i])
+    return out
+
+
+@dataclasses.dataclass(eq=False)
+class CycleGANState:
+    """The four networks, both Adam chains, both pools, the pools' random
+    generator and the step count. Unlike the JAX package's state it is
+    mutable: ``make_train_step``'s step updates it in place."""
+
+    g_a: nn.Module
+    g_b: nn.Module
+    d_a: nn.Module
+    d_b: nn.Module
+    opt_g: torch.optim.Adam
+    opt_d: torch.optim.Adam
+    pool_fake_a: ImagePool
+    pool_fake_b: ImagePool
+    generator: torch.Generator
+    device: torch.device
+    step: int = 0
+
+    @property
+    def nets(self) -> Dict[str, nn.Module]:
+        return {"g_a": self.g_a, "g_b": self.g_b, "d_a": self.d_a, "d_b": self.d_b}
+
+
+def _adam(params, beta1: float) -> torch.optim.Adam:
+    # optax.scale_by_adam(b1=beta1, b2=0.999, eps=1e-8); lr is set per step
+    return torch.optim.Adam(params, lr=0.0, betas=(beta1, 0.999), eps=1e-8)
+
+
+def create_state(cfg: CycleGANConfig, seed: int = 0,
+                 patch_shape: Tuple[int, int, int] = (64, 64, 64),
+                 device: Optional[Union[str, torch.device]] = None) -> CycleGANState:
+    """All four networks (weights drawn from ``seed`` on the CPU, in the
+    order g_a, g_b, d_a, d_b), both optimizers and empty pools for
+    ``patch_shape`` patches, on ``device`` (CUDA by default; channels_last_3d
+    there). Load trained or JAX weights into ``state.nets`` afterwards
+    (checkpoint.io.load_jax_nets)."""
+    dev = resolve_device(device)
+    set_conv_precision(cfg.dtype)
+    gen = torch.Generator().manual_seed(seed)
+    nets = [cfg.build_generator("g_a", gen), cfg.build_generator("g_b", gen),
+            cfg.build_discriminator("d_a", gen), cfg.build_discriminator("d_b", gen)]
+    if dev.type == "cuda":
+        nets = [n.to(dev, memory_format=_CL) for n in nets]
+    g_a, g_b, d_a, d_b = (n.train() for n in nets)
+    return CycleGANState(
+        g_a=g_a, g_b=g_b, d_a=d_a, d_b=d_b,
+        opt_g=_adam(itertools.chain(g_a.parameters(), g_b.parameters()), cfg.beta1),
+        opt_d=_adam(itertools.chain(d_a.parameters(), d_b.parameters()), cfg.beta1),
+        pool_fake_a=ImagePool(cfg.pool_size, (cfg.input_nc, *patch_shape), cfg.dtype, dev),
+        pool_fake_b=ImagePool(cfg.pool_size, (cfg.output_nc, *patch_shape), cfg.dtype, dev),
+        generator=gen, device=dev)
+
+
+def _optimizer_step(opt: torch.optim.Adam, loss: torch.Tensor, lr: float) -> None:
+    # Gradients of the optimizer's own parameters only; a norm-dead bias is
+    # not in the graph and keeps .grad None, which Adam skips.
+    params = [p for group in opt.param_groups for p in group["params"]]
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    for p, g in zip(params, grads):
+        p.grad = g
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+
+
+def make_train_step(cfg: CycleGANConfig):
+    """step(state, real_a, real_b, lr, pool_draws=None) -> (state, metrics).
+
+    real_a (B, input_nc, D, H, W) and real_b (B, output_nc, D, H, W) in
+    [-1, 1], on any device; they are cast to the compute dtype on the
+    state's device. ``state`` is updated in place and returned. After the
+    step every parameter's ``.grad`` holds the raw gradient the step applied
+    (None for the norm-dead biases). ``metrics`` maps the JAX package's ten
+    names (G_A, G_B, cycle_A, cycle_B, idt_A, idt_B, cor_coe_GA, cor_coe_GB,
+    D_A, D_B) to float32 scalars on the device; nothing is read back to the
+    host. ``pool_draws`` = {"fake_a": (p, slot), "fake_b": (p, slot)}
+    replaces the pools' own draws (tests)."""
+    lam_idt = cfg.lambda_identity
+
+    def g_loss(s: CycleGANState, real_a, real_b):
+        bsz = real_a.shape[0]
+        if lam_idt > 0:
+            out_a1 = s.g_a(torch.cat([real_a, real_b]))
+            fake_b, idt_a = out_a1[:bsz], out_a1[bsz:]
+            out_b1 = s.g_b(torch.cat([real_b, real_a]))
+            fake_a, idt_b = out_b1[:bsz], out_b1[bsz:]
+        else:
+            fake_b, fake_a = s.g_a(real_a), s.g_b(real_b)
+        rec_a, rec_b = s.g_b(fake_b), s.g_a(fake_a)
+        m = {"G_A": gan_loss(s.d_a(fake_b), True, cfg.gan_mode),
+             "G_B": gan_loss(s.d_b(fake_a), True, cfg.gan_mode),
+             "cycle_A": l1_loss(rec_a, real_a) * cfg.lambda_a,
+             "cycle_B": l1_loss(rec_b, real_b) * cfg.lambda_b}
+        if lam_idt > 0:
+            m["idt_A"] = l1_loss(idt_a, real_b) * cfg.lambda_b * lam_idt
+            m["idt_B"] = l1_loss(idt_b, real_a) * cfg.lambda_a * lam_idt
+        else:
+            m["idt_A"] = m["idt_B"] = torch.zeros((), device=real_a.device)
+        loss = sum(m.values())
+        fake_a, fake_b = fake_a.detach(), fake_b.detach()
+        with torch.no_grad():  # logged, not optimized
+            m["cor_coe_GA"] = cor_coe_loss(fake_b, real_a) * cfg.lambda_co_a
+            m["cor_coe_GB"] = cor_coe_loss(fake_a, real_b) * cfg.lambda_co_b
+        return loss, fake_a, fake_b, m
+
+    def d_loss(s: CycleGANState, real_a, real_b, fake_a, fake_b):
+        # 0.5 * (gan(D(real), 1) + gan(D(pooled fake), 0)) per D, real and
+        # fake stacked into one apply
+        bsz = real_a.shape[0]
+        out = {}
+        for name, d, real, fake in (("D_A", s.d_a, real_b, fake_b),
+                                    ("D_B", s.d_b, real_a, fake_a)):
+            pred = d(torch.cat([real, fake]))
+            out[name] = 0.5 * (gan_loss(pred[:bsz], True, cfg.gan_mode)
+                               + gan_loss(pred[bsz:], False, cfg.gan_mode))
+        return out["D_A"] + out["D_B"], out
+
+    def prepare(s: CycleGANState, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(s.device, cfg.dtype)
+        return x.contiguous(memory_format=_CL) if x.is_cuda else x
+
+    def train_step(state: CycleGANState, real_a: torch.Tensor, real_b: torch.Tensor,
+                   lr: float, pool_draws: Optional[dict] = None):
+        real_a, real_b = prepare(state, real_a), prepare(state, real_b)
+        draws = pool_draws or {}
+        loss, fake_a, fake_b, metrics = g_loss(state, real_a, real_b)
+        _optimizer_step(state.opt_g, loss, lr)
+        fake_b = pool_query(state.pool_fake_b, fake_b, state.generator, draws.get("fake_b"))
+        fake_a = pool_query(state.pool_fake_a, fake_a, state.generator, draws.get("fake_a"))
+        loss, d_metrics = d_loss(state, real_a, real_b, fake_a, fake_b)
+        _optimizer_step(state.opt_d, loss, lr)
+        metrics.update(d_metrics)
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
 
 
 class GenerateFn:

@@ -3,30 +3,55 @@ mra_gan_tpu/ops/norm.py:53,99).
 
 torch ``nn.InstanceNorm3d(affine=False)`` numerics: biased variance over the
 spatial dims, eps 1e-5 inside the square root, statistics in float32 under
-bfloat16 compute. A CPU tensor takes the plain version, which follows the JAX
-``_in_fwd_core`` step by step; a CUDA tensor takes the hand-written kernels
-(ops/kernels/csrc/instance_norm.cu). The JAX package's grouped-lane variant
+bfloat16 compute. The gradient is the JAX custom VJP's (``_in_vjp_bwd``):
+dx = rstd * (g' - mean(g') - z mean(g' z)) with g' = g * act'(z), z
+recomputed from the saved (x, mean, rstd) and act' taken at z >= 0, so relu
+passes the gradient where z is exactly 0 (autograd of torch's relu would
+not). A CPU tensor takes the plain versions, which follow the JAX
+``_in_fwd_core`` and ``_in_vjp_bwd`` step by step; a CUDA tensor takes the
+hand-written kernels (ops/kernels/csrc/instance_norm.cu), forward and
+backward. The JAX package's grouped-lane variant
 (``instance_norm_act_grouped``) is a TPU layout rewrite of the same function
 and maps to the same call here."""
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from .kernels.instance_norm import EPS, instance_norm_act_fused, instance_norm_act_plain
+from .kernels.instance_norm import (
+    EPS,
+    instance_norm_act_bwd_fused,
+    instance_norm_act_bwd_plain,
+    instance_norm_act_fwd,
+    instance_norm_act_plain_fwd,
+)
+
+
+class InstanceNormAct(torch.autograd.Function):
+    """act(instance_norm(x)) with the analytic backward; saves x, mean and
+    rstd (not y)."""
+
+    @staticmethod
+    def forward(ctx, x, eps, act, negative_slope):
+        fwd = instance_norm_act_plain_fwd if x.device.type == "cpu" else instance_norm_act_fwd
+        y, mean, rstd = fwd(x, act, negative_slope, eps)
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.act, ctx.negative_slope = act, negative_slope
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, mean, rstd = ctx.saved_tensors
+        bwd = (instance_norm_act_bwd_plain if x.device.type == "cpu"
+               else instance_norm_act_bwd_fused)
+        return bwd(x, g, mean, rstd, ctx.act, ctx.negative_slope), None, None, None
 
 
 def instance_norm_act(x: torch.Tensor, eps: float = EPS, act: str = "none",
                       negative_slope: float = 0.2) -> torch.Tensor:
-    """act in {'none', 'relu', 'leaky_relu', 'tanh'}; forward only."""
-    if x.device.type == "cpu":
-        return instance_norm_act_plain(x, act, negative_slope, eps)
-    if x.requires_grad:
-        raise NotImplementedError(
-            "instance_norm_act has no backward on CUDA yet: its backward "
-            "kernels (Pallas _bwd_sum_kernel/_bwd_apply_kernel) come with the "
-            "training slice (ROADMAP Queue A); run under "
-            "torch.inference_mode() or torch.no_grad()")
-    return instance_norm_act_fused(x, act, negative_slope, eps)
+    """act in {'none', 'relu', 'leaky_relu', 'tanh'}."""
+    return InstanceNormAct.apply(x, eps, act, negative_slope)
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Shared fixtures of the PyTorch port's parity tests (tests/test_torch_port_*.py):
-one generator's weights, made with numpy from a seed, run through the JAX
-package and through the port."""
+network weights made with numpy from a seed, and paired JAX and port train
+states, run through the JAX package and through the port."""
 from __future__ import annotations
 
 import jax
@@ -24,15 +24,7 @@ def jax_generator(ngf: int = 4, n_blocks: int = 6, use_dropout: bool = False,
     net = define_g(1, ngf, f"resnet_{n_blocks}blocks", use_dropout=use_dropout)
     shapes = jax.eval_shape(lambda k: net.init(k, jnp.zeros((1, 16, 16, 16, 1)), train=False),
                             jax.random.PRNGKey(seed))
-    rng = np.random.RandomState(seed)
-
-    def redraw(leaf):
-        shape = tuple(leaf.shape)
-        if len(shape) == 5:
-            return (rng.randn(*shape) / np.sqrt(np.prod(shape[:4]))).astype(np.float32)
-        return (0.1 * rng.randn(*shape)).astype(np.float32)
-
-    return net, jax.tree.map(redraw, shapes)
+    return net, random_conv_tree(shapes, seed)
 
 
 def jax_forward(net, params):
@@ -55,3 +47,63 @@ def to_ncdhw(x: np.ndarray) -> torch.Tensor:
 
 def to_ndhwc(t: torch.Tensor) -> np.ndarray:
     return np.moveaxis(t.detach().float().numpy(), 1, -1)
+
+
+def random_conv_tree(shapes_tree, seed: int):
+    """Redraw a JAX param tree (shapes from jax.eval_shape) with numpy at O(1)
+    activation scale: kernel std 1/sqrt(fan_in), bias std 0.1."""
+    rng = np.random.RandomState(seed)
+
+    def redraw(leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 5:
+            return (rng.randn(*shape) / np.sqrt(np.prod(shape[:4]))).astype(np.float32)
+        return (0.1 * rng.randn(*shape)).astype(np.float32)
+
+    return jax.tree.map(redraw, shapes_tree)
+
+
+def numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+# The small train-step configuration of the port's step tests (as
+# tests/test_torch_parity_step.py sizes its run): 16^3, ngf = ndf = 4,
+# a 2-layer PatchGAN, no pool, float32.
+STEP_PATCH = (16, 16, 16)
+STEP_LR = 2e-4
+
+
+def paired_train_states(gan_mode: str, seed: int = 0):
+    """(JAX config, JAX state, port config, port state on the CPU) with the
+    JAX state's initial weights loaded into the port's four networks."""
+    from mra_gan_tpu.models.cycle_gan import CycleGANConfig as JaxConfig
+    from mra_gan_tpu.models.cycle_gan import create_state as jax_create_state
+    from mra_gan_tpu_torch.checkpoint.io import load_jax_nets
+    from mra_gan_tpu_torch.models.cycle_gan import create_state
+
+    common = dict(ngf=4, ndf=4, net_g="resnet_6blocks", net_d="n_layers", n_layers_d=2,
+                  norm="instance", gan_mode=gan_mode, pool_size=0)
+    jcfg = JaxConfig(**common)
+    jstate = jax_create_state(jcfg, jax.random.PRNGKey(seed), STEP_PATCH)
+    cfg = CycleGANConfig(**common, dtype=torch.float32)
+    state = create_state(cfg, seed, STEP_PATCH, device="cpu")
+    load_jax_nets(state.nets, numpy_tree(jstate.g_params), numpy_tree(jstate.d_params))
+    return jcfg, jstate, cfg, state
+
+
+def jax_state_dicts(g_params, d_params) -> dict:
+    """{net name: torch-layout state dict} of JAX g_params/d_params trees (or
+    of gradient trees of the same structure)."""
+    out = {}
+    for name, tree, arch in (("g_a", g_params, "resnet_6blocks"),
+                             ("g_b", g_params, "resnet_6blocks"),
+                             ("d_a", d_params, "n_layers"), ("d_b", d_params, "n_layers")):
+        out[name] = state_dict_from_jax(numpy_tree(tree[name]), arch)
+    return out
+
+
+def dead_bias_keys(net) -> set:
+    """State-dict keys of the biases the port detaches (norm-dead)."""
+    return {f"{name}.bias" for name, m in net.named_modules()
+            if getattr(m, "dead_bias", False) and m.bias is not None}
