@@ -9,30 +9,35 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the nvcc build of every kernel source under
    mra_gan_tpu_torch/ops/kernels/csrc/ (one nvcc per source, in parallel);
 2. every CUDA kernel against its plain PyTorch version on the card, in
-   bfloat16 and float32: the three forward kernels at every instance-norm
-   shape of the decode path (batch 8, the short last batch of 3, and the
-   whole-volume single pass), and the three forward and three backward
-   kernels at every norm shape of the train step at batch 1 and 8 (the
-   generator at 2B and B, the PatchGAN at B and 2B), plus small shapes for
-   leaky_relu, tanh and C = 6; each timed beside its plain version, the
-   library yardsticks (F.instance_norm + activation and its autograd
-   backward, torch.var_mean for the statistics) and the memory bound;
+   bfloat16 and float32: the forward kernels of each shape's route (the
+   slab kernel where K.uses_slab holds, else stats then apply) at every
+   instance-norm shape of the decode path (batch 8, the short last batch
+   of 3, and the whole-volume single pass), and the forward and the three
+   backward kernels at every norm shape of the train step at batch 1 and 8
+   (the generator at 2B and B, the PatchGAN at B and 2B), plus small shapes
+   for leaky_relu, tanh and C = 6 and the largest slab instance at C = 128;
+   each timed beside its plain version, the library yardsticks
+   (F.instance_norm + activation and its autograd backward, torch.var_mean
+   for the statistics) and the memory bound, and at each slab shape beside
+   the two-pass kernels;
 3. cuDNN conv3d / conv_transpose3d at the generator's shapes, NCDHW against
    channels_last_3d;
 4. the resnet_6blocks generator at ngf=32, batch 8, 64^3, weights from a
    seeded numpy tree in the JAX layout through state_dict_from_jax: kernel
-   norms against plain norms in bfloat16 and (TF32 off) float32, and 17
-   launches of each forward kernel per forward, none of a backward one;
+   norms against plain norms in bfloat16 and (TF32 off) float32, and the
+   exact launches of each forward kernel per forward that uses_slab gives
+   (13 slab, 4 stats, 4 apply), none of a backward one;
 5. the sliding-window decode of a 128x256x256 volume (147 patches in 19
-   batches, Gaussian blend; 19 x 17 launches of each forward kernel), then
-   the single-pass whole-volume forward of the same volume;
+   batches, Gaussian blend; 19 x those launches), then the single-pass
+   whole-volume forward of the same volume (17 stats, 17 apply, no slab);
 6. the decode CLI (python -m mra_gan_tpu_torch.test) in directory mode on
    three synthetic NIfTIs with a .pth checkpoint written from the same tree;
 7. the CycleGAN train step (create_state + make_train_step) at the
    reference default (bench.py:193-198: two resnet_6blocks generators, two
    3-layer PatchGANs, ngf = ndf = 32, LSGAN, pool 50, Adam 2e-4 / 0.5, bf16
    over f32 parameters, 64^3 patches) at batch 1 and 8: s/step, pairs/s,
-   peak memory, 80 launches of every norm kernel per step, the gradient
+   peak memory, the exact forward launches per step (4 x 13 + 12 slab, 16
+   stats, 16 apply) and 80 of each backward kernel, the gradient
    relayouts, finite losses, and one profiled step by kernel class;
 8. step 0 at batch 1 through the kernels and through the plain norms, in
    float32 (TF32 off) and bf16, each against a float64 step
@@ -42,7 +47,7 @@ The line before the last is the card's name and power limit; before it, one
 JSON line {"kernels": [...]} with each kernel's launches on its main path
 (the decode for the forward kernels, the batch-8 train step for the
 backward ones), its largest error against the plain version, and its times
-at the main path's largest norm (bfloat16). ``--json-out PATH`` also writes
+at the main path's largest norm that it runs (bfloat16). ``--json-out PATH`` also writes
 every shape's numbers. The last line is {"ok": true, "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -77,8 +82,9 @@ PAIRED_ACTS = ("leaky_relu", "tanh")
 BF16_ULP = 2.0 ** -8
 # f32 operations per element, for the operations bound
 APPLY_OPS = {"none": 2, "relu": 3, "leaky_relu": 4, "tanh": 10}
-STATS_OPS = 7  # Welford: sub, mul, add, sub, mul, add, + the count's reciprocal
-FINALIZE_OPS = 12  # Chan merge per partial
+STATS_OPS = 4  # Welford at a shared reciprocal: sub, fma, sub, fma
+SLAB_OPS = 3  # the sum (add), then the centred square (sub, fma); the apply's beside it
+MERGE_OPS = 12  # Chan merge per partial (the apply's prologue)
 ACT_GRAD_OPS = {"none": 0, "relu": 1, "leaky_relu": 1, "tanh": 10}
 BWD_STATS_OPS = 6  # z (sub, mul), g' (mul), two sums, g'z (mul) + act'
 BWD_APPLY_OPS = 7  # z (sub, mul), g' (mul), sub, fma, mul + act'
@@ -267,9 +273,11 @@ def _volume(gen, shape, dtype, scale=3.0, shift=1.0):
 
 
 def forward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
-    """The three forward kernels against their plain versions at one shape,
-    then timed beside the plain versions, the library yardsticks and the
-    bounds."""
+    """The forward kernels of the shape's route (K.uses_slab: the slab kernel,
+    or stats then apply) against their plain versions at one shape, and the
+    whole forward against instance_norm_act_plain; then timed beside the
+    plain versions, the library yardsticks and the bounds. At a slab shape
+    the two-pass kernels are timed too, for comparison in the same run."""
     import torch
     import torch.nn.functional as F
 
@@ -278,28 +286,63 @@ def forward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
     v = math.prod(shape[2:])
     es = x.element_size()
     bf16 = dtype == torch.bfloat16
-    seg = K.num_segments(n, v, c, K.vector_width(x))
-
-    pm, pq = K.instance_norm_stats(x, seg)
-    rm, rq = K.stats_plain(x, seg)
-    cnt = max(b - a for a, b in zip(K.segment_bounds(v, seg), K.segment_bounds(v, seg)[1:]))
-    # partial sums in two summation orders, float32
-    err_stats = max(float((pm - rm).abs().max()), float((pq - rq).abs().max()) / cnt)
-    check(torch.allclose(pm, rm, rtol=1e-4, atol=1e-5)
-          and torch.allclose(pq, rq, rtol=1e-4, atol=1e-3),
-          f"stats {label} {shape} {dtype}: {err_stats}")
-    mean, rstd = K.instance_norm_finalize(pm, pq, v)
-    fm, fr = K.finalize_plain(pm, pq, v)
-    err_fin = max(float((mean - fm).abs().max()), float((rstd - fr).abs().max()))
-    check(torch.allclose(mean, fm, rtol=1e-5, atol=1e-6)
-          and torch.allclose(rstd, fr, rtol=1e-5, atol=1e-6),
-          f"finalize {label} {shape} {dtype}: {err_fin}")
-    y = K.instance_norm_apply(x, mean, rstd, act, 0.2)
-    ya = K.apply_plain(x, mean, rstd, act, 0.2)
-    err_apply = float((y.float() - ya.float()).abs().max())
+    slab = K.uses_slab(shape, dtype)
+    seg = K.forward_segments(x)
+    stat_bytes = 2 * n * c * 4
+    part_bytes = 2 * n * seg * c * 4
+    big = x.numel() * es >= 100e6
+    iters = 10 if big else 30
     # the same float32 arithmetic rounded once: 1 bf16 ulp, or 1e-5 in f32
-    check(bf16_ulps(y, ya) <= 1.0 if bf16 else err_apply <= 1e-5,
-          f"apply {label} {shape} {dtype}: {err_apply}")
+    one_rounding = (lambda y, ref: bf16_ulps(y, ref) <= 1.0) if bf16 else (
+        lambda y, ref: float((y.float() - ref.float()).abs().max()) <= 1e-5)
+
+    def stats_close(m, r, fm, fr):
+        return (torch.allclose(m, fm, rtol=1e-5, atol=1e-6)
+                and torch.allclose(r, fr, rtol=1e-5, atol=1e-6))
+
+    t, p, lib, bounds, errs, extra = {}, {}, {}, {}, {}, {}
+    if slab:
+        y, m, r = K.instance_norm_slab(x, act, 0.2)
+        yp, mp, rp = K.slab_plain(x, act, 0.2)
+        errs["instance_norm_slab"] = float((y.float() - yp.float()).abs().max())
+        check(one_rounding(y, yp) and stats_close(m, r, mp, rp),
+              f"slab {label} {shape} {dtype}: {errs['instance_norm_slab']}")
+        t["instance_norm_slab"] = device_ms(lambda: K.instance_norm_slab(x, act, 0.2), iters)
+        p["instance_norm_slab"] = device_ms(lambda: K.slab_plain(x, act, 0.2), iters)
+        bounds["instance_norm_slab"] = max((2 * x.numel() * es + stat_bytes) / bw,
+                                           (SLAB_OPS + APPLY_OPS[act]) * x.numel() / flops)
+    else:
+        pm, pq = K.instance_norm_stats(x, seg)
+        rm, rq = K.stats_plain(x, seg)
+        cnt = max(b - a for a, b in zip(K.segment_bounds(v, seg), K.segment_bounds(v, seg)[1:]))
+        # partial sums in two summation orders, float32
+        errs["instance_norm_stats"] = max(float((pm - rm).abs().max()),
+                                          float((pq - rq).abs().max()) / cnt)
+        check(torch.allclose(pm, rm, rtol=1e-4, atol=1e-5)
+              and torch.allclose(pq, rq, rtol=1e-4, atol=1e-3),
+              f"stats {label} {shape} {dtype}: {errs['instance_norm_stats']}")
+        y, m, r = K.instance_norm_apply(x, pm, pq, act, 0.2)
+        fm, fr = K.finalize_plain(pm, pq, v)
+        ya = K.apply_plain(x, m, r, act, 0.2)
+        errs["instance_norm_apply"] = max(float((y.float() - ya.float()).abs().max()),
+                                          float((m - fm).abs().max()), float((r - fr).abs().max()))
+        check(one_rounding(y, ya) and stats_close(m, r, fm, fr),
+              f"apply {label} {shape} {dtype}: {errs['instance_norm_apply']}")
+        t["instance_norm_stats"] = device_ms(lambda: K.instance_norm_stats(x, seg), iters)
+        t["instance_norm_apply"] = device_ms(
+            lambda: K.instance_norm_apply(x, pm, pq, act, 0.2), iters)
+        p["instance_norm_stats"] = device_ms(lambda: K.stats_plain(x, seg), 3, 1)
+        p["instance_norm_apply"] = device_ms(
+            lambda: K.apply_plain(x, *K.finalize_plain(pm, pq, v), act), iters)
+        # the stats kernel's yardstick: per-(n, c) mean and variance
+        lib["instance_norm_stats"] = device_ms(
+            lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0), iters)
+        bounds["instance_norm_stats"] = max((x.numel() * es + part_bytes) / bw,
+                                            STATS_OPS * x.numel() / flops)
+        bounds["instance_norm_apply"] = max(
+            (2 * x.numel() * es + part_bytes + stat_bytes) / bw,
+            (APPLY_OPS[act] * x.numel() + MERGE_OPS * n * seg * c) / flops)
+
     yk = K.instance_norm_act_fused(x, act, 0.2)
     yp = K.instance_norm_act_plain(x, act, 0.2)
     check(yk.is_contiguous(memory_format=torch.channels_last_3d) and yk.dtype == dtype,
@@ -308,53 +351,42 @@ def forward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
     ulps = bf16_ulps(yk, yp) if bf16 else None
     check(ulps <= 2.0 if bf16 else err_norm <= 1e-5,
           f"instance_norm_act {label} {shape} {dtype}: {err_norm} ({ulps} ulps)")
-
-    big = x.numel() * es >= 100e6
-    iters = 10 if big else 30
-    t = {
-        "instance_norm_stats": device_ms(lambda: K.instance_norm_stats(x, seg), iters),
-        "instance_norm_finalize": device_ms(lambda: K.instance_norm_finalize(pm, pq, v), iters),
-        "instance_norm_apply": device_ms(
-            lambda: K.instance_norm_apply(x, mean, rstd, act, 0.2), iters),
-        "instance_norm_act": device_ms(lambda: K.instance_norm_act_fused(x, act, 0.2), iters),
-    }
-    fused_dispatch = dispatch_ms(lambda: K.instance_norm_act_fused(x, act, 0.2), iters)
-    p = {
-        "instance_norm_stats": device_ms(lambda: K.stats_plain(x, seg), 3, 1),
-        "instance_norm_finalize": device_ms(lambda: K.finalize_plain(pm, pq, v), iters),
-        "instance_norm_apply": device_ms(lambda: K.apply_plain(x, mean, rstd, act), iters),
-        "instance_norm_act": device_ms(lambda: K.instance_norm_act_plain(x, act), iters),
-    }
-    lib = {"instance_norm_act": device_ms(lambda: lib_act(act)(F.instance_norm(x)), iters),
-           # the stats + finalize pair: per-(n, c) mean and variance
-           "instance_norm_stats": device_ms(
-               lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0), iters)}
-    part_bytes = 2 * n * seg * c * 4
-    stat_bytes = 2 * n * c * 4
-    bounds = {
-        "instance_norm_stats": max((x.numel() * es + part_bytes) / bw,
-                                   STATS_OPS * x.numel() / flops),
-        "instance_norm_finalize": max((part_bytes + stat_bytes) / bw,
-                                      FINALIZE_OPS * n * seg * c / flops),
-        "instance_norm_apply": max((2 * x.numel() * es + stat_bytes) / bw,
-                                   APPLY_OPS[act] * x.numel() / flops),
-        "instance_norm_act": max(2 * x.numel() * es / bw,
-                                 (STATS_OPS + APPLY_OPS[act]) * x.numel() / flops),
-    }
-    errs = {"instance_norm_stats": err_stats, "instance_norm_finalize": err_fin,
-            "instance_norm_apply": err_apply, "instance_norm_act": err_norm}
+    errs["instance_norm_act"] = err_norm
+    t["instance_norm_act"] = device_ms(lambda: K.instance_norm_act_fused(x, act, 0.2), iters)
+    p["instance_norm_act"] = device_ms(lambda: K.instance_norm_act_plain(x, act), iters)
+    extra["instance_norm_act"] = {
+        "route": "slab" if slab else "two_pass",
+        "dispatch_ms": dispatch_ms(lambda: K.instance_norm_act_fused(x, act, 0.2), iters)}
+    if slab:
+        extra["instance_norm_act"]["two_pass_ms"] = device_ms(
+            lambda: K.instance_norm_two_pass(x, act, 0.2), iters)
+    else:
+        # what PyTorch's own streaming kernels reach on the same bytes: the
+        # stats kernel's read-only pass against a sum, the apply's read and
+        # write against a copy
+        out = torch.empty_like(x)
+        extra["instance_norm_act"]["sum_ms"] = device_ms(lambda: x.sum(), iters)
+        extra["instance_norm_act"]["copy_ms"] = device_ms(lambda: out.copy_(x), iters)
+        del out
+    lib["instance_norm_act"] = device_ms(lambda: lib_act(act)(F.instance_norm(x)), iters)
+    lib["instance_norm_slab"] = lib["instance_norm_act"] if slab else None
+    ops = SLAB_OPS if slab else STATS_OPS
+    bounds["instance_norm_act"] = max(2 * x.numel() * es / bw,
+                                      (ops + APPLY_OPS[act]) * x.numel() / flops)
     dname = "bf16" if bf16 else "f32"
     for k in t:
         results[k]["shapes"].append({
             "path": label, "shape": list(shape), "dtype": dname, "act": act,
-            "segments": seg, "ms": t[k], "plain_ms": p[k], "library_ms": lib.get(k),
-            **({"dispatch_ms": fused_dispatch} if k == "instance_norm_act" else {}),
+            "segments": None if slab else seg, "ms": t[k], "plain_ms": p[k],
+            "library_ms": lib.get(k), **extra.get(k, {}),
             "bound_ms": bounds[k] * 1e3, "max_abs_err": errs[k]})
-    print(f"[kernels] {label:6s} {str(shape):28s} {dname} {act:10s} S={seg:5d} "
-          f"norm {t['instance_norm_act']:.4f} ms (stats {t['instance_norm_stats']:.4f}, "
-          f"fin {t['instance_norm_finalize']:.4f}, apply {t['instance_norm_apply']:.4f}) "
-          f"dispatch {fused_dispatch:.4f} plain {p['instance_norm_act']:.4f} "
-          f"lib {lib['instance_norm_act']:.4f} var_mean {lib['instance_norm_stats']:.4f} "
+    parts = ", ".join(f"{k.replace('instance_norm_', '')} {t[k]:.4f}"
+                      for k in t if k != "instance_norm_act")
+    more = f" two_pass {extra['instance_norm_act']['two_pass_ms']:.4f}" if slab else ""
+    print(f"[kernels] {label:8s} {str(shape):28s} {dname} {act:10s} "
+          f"{'slab' if slab else f'S={seg}':7s} norm {t['instance_norm_act']:.4f} ms ({parts}){more} "
+          f"dispatch {extra['instance_norm_act']['dispatch_ms']:.4f} "
+          f"plain {p['instance_norm_act']:.4f} lib {lib['instance_norm_act']:.4f} "
           f"bound {bounds['instance_norm_act'] * 1e3:.4f} ms  err {err_norm:.3g}"
           + (f" ({ulps:.2f} ulp)" if bf16 else ""), flush=True)
 
@@ -491,6 +523,13 @@ def phase_kernels(K, bw: float, flops: float, results: dict) -> None:
               for dt in (torch.bfloat16, torch.float32)]
     # C = 6 is no multiple of a 16-byte vector: the one-element-per-thread kernels
     cases += [("odd_c", (2, 6, 16, 16, 16), "relu", dt) for dt in (torch.bfloat16, torch.float32)]
+    # the largest instance the slab kernel takes at C = 128: 16 x 16 x 28 voxels
+    edge = (2, 4 * NGF, 16, 16, 28)
+    for dt in (torch.bfloat16, torch.float32):
+        check(K.uses_slab(edge, dt) and math.prod(edge[2:]) == K.SLAB_BYTES // K.SLAB_CHUNK
+              and not K.uses_slab(edge[:2] + (math.prod(edge[2:]) + 1, 1, 1), dt),
+              f"{edge} {dt} is the largest slab instance at C = {edge[1]}")
+        cases.append(("boundary", edge, "relu", dt))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for case in cases:
         forward_case(K, *case, bw, flops, results, gen)
@@ -512,15 +551,43 @@ def phase_train_kernels(K, bw: float, flops: float, results: dict) -> None:
 
 def with_wholes(launches: dict) -> dict:
     """Launch counts with the two whole-norm entries of the report added:
-    one forward (three launches) per apply, one backward per bwd apply."""
-    return {**launches, "instance_norm_act": launches["instance_norm_apply"],
+    one forward per slab or apply launch, one backward per bwd apply."""
+    return {**launches,
+            "instance_norm_act": launches["instance_norm_slab"] + launches["instance_norm_apply"],
             "instance_norm_act_bwd": launches["instance_norm_bwd_apply"]}
 
 
-def launched(K, forward: int, backward: int) -> bool:
-    """Every forward norm kernel launched ``forward`` times and every
-    backward one ``backward`` times since the counters were zeroed."""
-    return (all(K.LAUNCHES[k] == forward for k in K.FORWARD)
+def generator_norms(n: int, spatial) -> list:
+    """(N, C, D, H, W) of the 17 norms of one resnet_6blocks forward on
+    ``spatial`` input: the stem and up2 at full size, down1 and up1 at half,
+    down2 and the 12 trunk norms at a quarter."""
+    out = []
+    for c, div, count in ((NGF, 1, 2), (2 * NGF, 2, 2), (4 * NGF, 4, 13)):
+        out += [(n, c) + tuple(s // div for s in spatial)] * count
+    return out
+
+
+def patchgan_norms(n: int) -> list:
+    """(N, C, D, H, W) of the 3 norms of one 3-layer PatchGAN on 64^3."""
+    return [(n, 2 * NDF, 16, 16, 16), (n, 4 * NDF, 8, 8, 8), (n, 8 * NDF, 7, 7, 7)]
+
+
+def forward_launches(K, shapes, dtype) -> dict:
+    """Each forward kernel's launches for norms of these shapes: one slab
+    launch where K.uses_slab holds, one stats and one apply elsewhere."""
+    slab = sum(K.uses_slab(s, dtype) for s in shapes)
+    return {"instance_norm_slab": slab, "instance_norm_stats": len(shapes) - slab,
+            "instance_norm_apply": len(shapes) - slab}
+
+
+def times(counts: dict, k: int) -> dict:
+    return {name: n * k for name, n in counts.items()}
+
+
+def launched(K, forward: dict, backward: int) -> bool:
+    """Every forward norm kernel launched as often as ``forward`` says and
+    every backward one ``backward`` times since the counters were zeroed."""
+    return (all(K.LAUNCHES[k] == forward[k] for k in K.FORWARD)
             and all(K.LAUNCHES[k] == backward for k in K.BACKWARD))
 
 
@@ -578,7 +645,9 @@ def phase_generator(K, tree) -> None:
         y = gen(x)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        check(launched(K, 17, 0), f"17 launches per forward, no backward: {K.LAUNCHES}")
+        want = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), dtype)
+        check(launched(K, want, 0), f"launches per forward {K.LAUNCHES}, want {want}, "
+              f"no backward")
         with plain_norms():
             yp = gen(x)
         check(y.shape == (DECODE_BATCH, 1) + PATCH and bool(torch.isfinite(y).all()),
@@ -607,7 +676,7 @@ def phase_generator(K, tree) -> None:
 PROFILE_CLASSES = (
     ("norm_bwd", ("bwd_stats_kernel", "bwd_finalize_kernel", "bwd_apply_kernel")),
     ("optimizer", ("multi_tensor_apply",)),
-    ("norm", ("stats_kernel", "finalize_kernel", "apply_kernel")),
+    ("norm", ("slab_kernel", "stats_kernel", "apply_kernel")),
     ("copy", ("memcpy", "memset", "copy_kernel")),
     ("pad", ("replication_pad",)),
     ("conv", ("conv", "xmma", "cudnn", "gemm", "implicit", "fprop", "dgrad", "wgrad",
@@ -682,8 +751,9 @@ def phase_decode(K, tree, results: dict) -> dict:
     out = decode()
     secs = [time.perf_counter() - t0]
     launches = dict(K.LAUNCHES)
-    check(launched(K, n_batches * 17, 0),
-          f"{n_batches} x 17 launches per decode, no backward: {launches}")
+    per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
+    check(launched(K, times(per_forward, n_batches), 0),
+          f"{n_batches} x {per_forward} launches per decode, no backward: {launches}")
     check(out.shape == VOLUME and out.dtype == np.float32 and bool(np.isfinite(out).all()),
           "decode output finite float32 of the volume's shape")
     for _ in range(2):
@@ -707,7 +777,8 @@ def phase_decode(K, tree, results: dict) -> dict:
     sp = single_pass_apply(gen, vol)
     sp_secs = [time.perf_counter() - t0]
     sp_launches = dict(K.LAUNCHES)
-    check(launched(K, 17, 0), f"single pass launches {sp_launches}")
+    want = forward_launches(K, generator_norms(1, VOLUME), torch.bfloat16)
+    check(launched(K, want, 0), f"single pass launches {sp_launches}, want {want}")
     check(sp.shape == VOLUME and bool(np.isfinite(sp).all()), "single-pass output finite")
     t0 = time.perf_counter()
     single_pass_apply(gen, vol)
@@ -761,7 +832,9 @@ def phase_cli(K, tree, workdir: Path) -> None:
                        "--decode_batch", str(DECODE_BATCH), "--device", DEVICE])
     secs = time.perf_counter() - t0
     check(failed == [], f"CLI skipped {failed}")
-    check(launched(K, 17 * batches, 0), f"CLI launches {K.LAUNCHES}, want 17 x {batches}")
+    per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
+    check(launched(K, times(per_forward, batches), 0),
+          f"CLI launches {K.LAUNCHES}, want {batches} x {per_forward}")
     for i, shp in enumerate(shapes):
         src = nifti.load(workdir / "in" / f"v{i}.nii.gz")
         got = nifti.load(workdir / "out" / f"v{i}.nii.gz")
@@ -817,9 +890,11 @@ def phase_train(K, results: dict) -> dict:
         secs = (time.perf_counter() - t0) / timed
         launches = dict(K.LAUNCHES)
         relayouts = K.GRAD_RELAYOUTS["count"] / timed
-        check(launched(K, NORMS_PER_STEP * timed, NORMS_PER_STEP * timed),
-              f"train b{batch}: {NORMS_PER_STEP} launches of every norm kernel per step: "
-              f"{launches} over {timed} steps")
+        per_step = forward_launches(
+            K, 4 * generator_norms(batch, PATCH) + 4 * patchgan_norms(batch), cfg.dtype)
+        check(launched(K, times(per_step, timed), NORMS_PER_STEP * timed),
+              f"train b{batch}: {per_step} forward and {NORMS_PER_STEP} of each backward "
+              f"launch per step: {launches} over {timed} steps")
         losses = {k: float(v) for k, v in metrics.items()}
         check(len(losses) == 10 and all(math.isfinite(v) for v in losses.values()),
               f"train b{batch}: finite losses {losses}")
@@ -970,12 +1045,15 @@ def main(argv=None) -> int:
     src = "mra_gan_tpu_torch/ops/kernels/csrc/instance_norm.cu"
     pallas = "mra_gan_tpu/ops/pallas/instance_norm.py"
     results = {
+        "instance_norm_slab": {"replaces": f"{pallas}:86", "note": "_sum_kernel (:86) and "
+                               f"_apply_kernel (:100) in one launch where K.uses_slab holds; "
+                               "library_ms: F.instance_norm + activation"},
         "instance_norm_stats": {"replaces": f"{pallas}:86", "note": "library_ms: "
-                                "torch.var_mean, which computes the stats + finalize pair"},
-        "instance_norm_finalize": {"replaces": f"{pallas}:86"},
-        "instance_norm_apply": {"replaces": f"{pallas}:100"},
-        "instance_norm_act": {"replaces": f"{pallas}:108", "note": "the three forward "
-                              "launches together (_fwd); launches = forward norms"},
+                                "torch.var_mean, per-(n, c) mean and variance"},
+        "instance_norm_apply": {"replaces": f"{pallas}:100", "note": "with the merge of the "
+                                "stats kernel's partials in its prologue"},
+        "instance_norm_act": {"replaces": f"{pallas}:108", "note": "the whole forward (_fwd): "
+                              "one slab launch or stats + apply; launches = forward norms"},
         "instance_norm_bwd_stats": {"replaces": f"{pallas}:137"},
         "instance_norm_bwd_finalize": {"replaces": f"{pallas}:137"},
         "instance_norm_bwd_apply": {"replaces": f"{pallas}:155"},
@@ -1004,11 +1082,13 @@ def main(argv=None) -> int:
         # forward kernels: the decode's batch-8 stem shape (the decode is
         # their first main path); backward kernels: the batch-8 train step's
         # largest norm
+        # largest norm; the slab kernel at the trunk's 128 channels, its largest
         path, n = ("G b8", 2 * max(TRAIN_BATCHES)) if backward else ("b8", DECODE_BATCH)
-        head = next(s for s in r["shapes"] if s["path"] == path and s["shape"][:2] == [n, NGF]
+        width = 4 * NGF if k == "instance_norm_slab" else NGF
+        head = next(s for s in r["shapes"] if s["path"] == path and s["shape"][:2] == [n, width]
                     and s["dtype"] == "bf16")
         train_head = next(s for s in r["shapes"] if s["path"] == "G b8"
-                          and s["shape"][:2] == [2 * max(TRAIN_BATCHES), NGF]
+                          and s["shape"][:2] == [2 * max(TRAIN_BATCHES), width]
                           and s["dtype"] == "bf16")
         launches = r["launches_train"] if backward else r["launches_decode"]
         check(launches > 0, f"{k} launched on its main path")

@@ -2,8 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU Pallas kernels of mra_gan_tpu/ops/pallas/instance_norm.py:
-//   _sum_kernel       (:86)  per-(n, c) statistics  -> stats_kernel + finalize_kernel
-//   _apply_kernel     (:100) normalise + activation -> apply_kernel
+//   _sum_kernel       (:86)  per-(n, c) statistics  -> slab_kernel, or stats_kernel
+//   _apply_kernel     (:100) normalise + activation -> slab_kernel, or apply_kernel
 //   _bwd_sum_kernel   (:137) sums of g' and g'z     -> bwd_stats_kernel + bwd_finalize_kernel
 //   _bwd_apply_kernel (:155) the input gradient     -> bwd_apply_kernel
 // y = act((x - mean) * rsqrt(var + eps)), act in {none, relu, leaky_relu, tanh},
@@ -16,19 +16,34 @@
 //
 // Bound: memory. The norm does a few flops per element (~1 flop per byte in
 // bf16, against the H100's ~295 bf16 flops per byte), so only the bytes
-// count. The design keeps it to three passes over the big tensor:
+// count: x read once and y written once at the least. The forward takes one
+// of two routes, picked by the wrapper from the shape (uses_slab):
+//
+// One launch, where an instance fits in one SM's shared memory (the 16^3
+// trunk and the PatchGAN's 16^3, 8^3 and 7^3 norms):
+//   slab_kernel: one block per (n, 32-byte channel chunk) instance copies
+//   its V x 32-byte slab of x into shared memory with cp.async (every 16-byte
+//   copy of the thread in flight at once), takes the float32 mean and then
+//   the centred sum of squares from shared memory (exact two-pass), writes
+//   mean and rstd, and normalises from shared memory into y. x is read from
+//   device memory once: the bound's traffic exactly.
+//
+// Two launches elsewhere (the 32^3 and 64^3 norms, the whole-volume pass,
+// and C that is no multiple of a chunk):
 //   1. stats_kernel reads x once. The TPU walks depth tiles in order and
 //      carries the sum in one VMEM block; here blocks run in no order, so
 //      the grid is (S segments, N samples, channel chunks) with S chosen by
-//      the wrapper to fill the 132 SMs several times over. Each block walks
-//      one contiguous voxel segment for its channels, keeps a per-thread
-//      Welford (count, mean, M2) in f32, merges its threads with Chan's
-//      formula in shared memory and writes (N, S, C) f32 partials.
-//   2. finalize_kernel merges the S partials per (n, c) (Chan again) into
-//      mean and rstd, (N, C) f32. It touches only the partials.
-//   3. apply_kernel reads x once more and writes y once, with the thread's
-//      mean and rstd held in registers; z is formed in f32 and rounded once
-//      to x's dtype.
+//      the wrapper to fill the 132 SMs several times over. Each thread
+//      issues kUnroll independent 16-byte loads per step and keeps one
+//      Welford (count, mean, M2) stream per load slot in f32, all slots at
+//      one count (one reciprocal per step, not per voxel); the slots and
+//      then the block's threads are merged with Chan's formula, and the
+//      block writes (N, S, C) f32 partials.
+//   2. apply_kernel merges the S partials of its (n, channels) with Chan's
+//      formula in its prologue (every block in the same order, so all agree
+//      bit for bit, and the blocks of segment 0 write mean and rstd), then
+//      reads x once more and writes y once; z is formed in f32 and rounded
+//      once to x's dtype.
 // Offsets are int64: a batch-8 full-volume tensor passes 2^31 elements.
 //
 // Backward (the analytic VJP, mra_gan_tpu/ops/norm.py:_in_vjp_bwd):
@@ -43,8 +58,8 @@
 //   6. bwd_apply_kernel reads x and g again and writes dx, all in f32 and
 //      rounded once to g's dtype (the Pallas form, not the XLA one, which
 //      rounds at every step).
-// z is formed by one function, normalize(), in the forward's apply_kernel
-// and in both backward kernels, so a relu or leaky_relu mask at z ~ 0 is
+// z is formed by one function, normalize(), in the forward's slab_kernel and
+// apply_kernel and in both backward kernels, so a relu or leaky_relu mask at z ~ 0 is
 // the same in the two passes; act'(z) is taken at z >= 0, as in JAX.
 //
 // Plain C interface for ctypes; every launch goes on the caller's stream and
@@ -59,8 +74,15 @@
 namespace {
 
 constexpr int kThreads = 256;   // stats and apply blocks (the wrapper's _THREADS)
-constexpr int kFinX = 32;       // finalize: channels per block
-constexpr int kFinY = 32;       // finalize: segment lanes per block
+// stats and apply: independent 16-byte loads per thread and step (8 was
+// slower for stats on the H100: more registers, fewer resident blocks)
+constexpr int kUnroll = 4;
+constexpr int kFinX = 32;       // bwd_finalize: channels per block
+constexpr int kFinY = 32;       // bwd_finalize: segment lanes per block
+constexpr int kSlabThreads = 256;  // 128, 512 and 1024 were slower on the H100
+// Dynamic shared memory for one slab (the wrapper's SLAB_BYTES): 224 KiB of
+// the 227 KiB a block may have, the rest for the slab kernel's static sums.
+constexpr int kSlabBytes = 224 * 1024;
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY_RELU = 2, ACT_TANH = 3 };
@@ -97,9 +119,75 @@ __device__ __forceinline__ void chan_merge(float& na, float& ma, float& qa,
   na = n;
 }
 
+// Welford: fold x into (mean, m2), inv being 1 / (the count with x).
+__device__ __forceinline__ void welford(float& mean, float& m2, float x, float inv) {
+  const float d = x - mean;
+  mean += d * inv;
+  m2 += d * (x - mean);
+}
+
+// One 16-byte asynchronous copy from device to shared memory (sm_80+).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// Wait for every cp.async of this thread; its copies are then visible to it.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Chan merge over the R = blockDim.y voxel lanes of a (gx, R) block, each
+// thread holding (cnt, mean[VEC], m2[VEC]); smem holds gx * R * (1 + 2 VEC)
+// floats. A tree: at step `off`, lane ty (a multiple of 2*off) folds in lane
+// ty+off; readers and writers of a step never share a slot. Lane 0 ends with
+// the whole in its registers and in slot tx of smem (s_n, then s_mean and
+// s_m2 at VEC floats a slot), read after a __syncthreads().
+template <int VEC>
+__device__ __forceinline__ void merge_lanes(float& cnt, float* mean, float* m2, float* smem) {
+  const int gx = blockDim.x, R = blockDim.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  float* s_n = smem;
+  float* s_mean = s_n + gx * R;
+  float* s_m2 = s_mean + gx * R * VEC;
+  const int slot = ty * gx + tx;
+  s_n[slot] = cnt;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    s_mean[slot * VEC + i] = mean[i];
+    s_m2[slot * VEC + i] = m2[i];
+  }
+  for (int off = 1; off < R; off <<= 1) {
+    __syncthreads();
+    if ((ty & (2 * off - 1)) == 0 && ty + off < R) {
+      const int o = (ty + off) * gx + tx;
+      const float nb = s_n[o];
+      if (nb > 0.f) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float na = cnt;
+          chan_merge(na, mean[i], m2[i], nb, s_mean[o * VEC + i], s_m2[o * VEC + i]);
+        }
+        cnt += nb;
+        s_n[slot] = cnt;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          s_mean[slot * VEC + i] = mean[i];
+          s_m2[slot * VEC + i] = m2[i];
+        }
+      }
+    }
+  }
+}
+
 // The one expression for z, forward and backward.
 __device__ __forceinline__ float normalize(float x, float mu, float rs) {
   return (x - mu) * rs;
+}
+
+// rstd from the centred sum of squares over V voxels.
+__device__ __forceinline__ float inv_std(float m2, int64_t V, float eps) {
+  return 1.f / sqrtf(m2 / (float)V + eps);
 }
 
 template <int ACT>
@@ -137,139 +225,239 @@ stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
   const int64_t n = blockIdx.y;
   const int64_t v0 = seg_begin(s, V, S), v1 = seg_begin(s + 1, V, S);
 
-  float cnt = 0.f, mean[VEC], m2[VEC];
+  // Slot u takes voxels v0 + ty + u R, then every kUnroll R after; all
+  // slots stand at count k in the main loop, so one reciprocal serves them.
+  float cnt[kUnroll], mean[kUnroll][VEC], m2[kUnroll][VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) mean[i] = m2[i] = 0.f;
+  for (int u = 0; u < kUnroll; ++u) {
+    cnt[u] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) mean[u][i] = m2[u][i] = 0.f;
+  }
   if (g < G) {
     const T* p = x + n * V * C + (int64_t)g * VEC;
-    int k = 0;
-    for (int64_t v = v0 + ty; v < v1; v += R) {
-      const Pack<T, VEC> pk = *reinterpret_cast<const Pack<T, VEC>*>(p + v * C);
-      ++k;
-      const float inv = 1.f / (float)k;
+    int64_t v = v0 + ty;
+    float k = 0.f;
+    for (; v + (kUnroll - 1) * R < v1; v += kUnroll * R) {
+      Pack<T, VEC> pk[kUnroll];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float xi = to_float(pk.v[i]);
-        const float d = xi - mean[i];
-        mean[i] += d * inv;
-        m2[i] += d * (xi - mean[i]);
+      for (int u = 0; u < kUnroll; ++u)
+        pk[u] = *reinterpret_cast<const Pack<T, VEC>*>(p + (v + u * R) * C);
+      k += 1.f;
+      const float inv = 1.f / k;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) welford(mean[u][i], m2[u][i], to_float(pk[u].v[i]), inv);
+    }
+    // fewer than kUnroll voxels are left: one to each of the first slots
+    const float inv = 1.f / (k + 1.f);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      cnt[u] = k;
+      if (v + u * R < v1) {
+        const Pack<T, VEC> pk = *reinterpret_cast<const Pack<T, VEC>*>(p + (v + u * R) * C);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) welford(mean[u][i], m2[u][i], to_float(pk.v[i]), inv);
+        cnt[u] = k + 1.f;
       }
     }
-    cnt = (float)k;
+#pragma unroll
+    for (int u = 1; u < kUnroll; ++u) {
+      if (cnt[u] > 0.f) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float na = cnt[0];
+          chan_merge(na, mean[0][i], m2[0][i], cnt[u], mean[u][i], m2[u][i]);
+        }
+        cnt[0] += cnt[u];
+      }
+    }
   }
 
-  // Tree over the R voxel lanes: at step `off`, lane ty (a multiple of
-  // 2*off) folds in lane ty+off. Readers and writers of a step never share
-  // a slot, and lane 0 ends with the whole segment.
-  float* s_n = smem;
-  float* s_mean = s_n + gx * R;
-  float* s_m2 = s_mean + gx * R * VEC;
-  const int slot = ty * gx + tx;
-  s_n[slot] = cnt;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    s_mean[slot * VEC + i] = mean[i];
-    s_m2[slot * VEC + i] = m2[i];
-  }
-  for (int off = 1; off < R; off <<= 1) {
-    __syncthreads();
-    if ((ty & (2 * off - 1)) == 0 && ty + off < R) {
-      const int o = (ty + off) * gx + tx;
-      const float nb = s_n[o];
-      if (nb > 0.f) {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          float na = cnt;
-          chan_merge(na, mean[i], m2[i], nb, s_mean[o * VEC + i], s_m2[o * VEC + i]);
-        }
-        cnt += nb;
-        s_n[slot] = cnt;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          s_mean[slot * VEC + i] = mean[i];
-          s_m2[slot * VEC + i] = m2[i];
-        }
-      }
-    }
-  }
+  merge_lanes<VEC>(cnt[0], mean[0], m2[0], smem);
   if (ty == 0 && g < G) {
     const int64_t o = (n * S + s) * C + (int64_t)g * VEC;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      part_mean[o + i] = mean[i];
-      part_m2[o + i] = m2[i];
+      part_mean[o + i] = mean[0][i];
+      part_m2[o + i] = m2[0][i];
     }
   }
 }
 
-// grid (ceil(C / kFinX), N), block (kFinX, kFinY).
-__global__ void __launch_bounds__(kFinX * kFinY)
-finalize_kernel(const float* __restrict__ part_mean, const float* __restrict__ part_m2,
-                float* __restrict__ mean, float* __restrict__ rstd,
-                int64_t V, int C, int S, float eps) {
-  __shared__ float s_n[kFinY][kFinX], s_m[kFinY][kFinX], s_q[kFinY][kFinX];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * kFinX + tx;
-  const int64_t n = blockIdx.y;
-  float cnt = 0.f, m = 0.f, q = 0.f;
-  if (c < C) {
-    for (int s = ty; s < S; s += kFinY) {
-      const float nb = (float)(seg_begin(s + 1, V, S) - seg_begin(s, V, S));
-      if (nb > 0.f) {
-        const int64_t o = (n * S + s) * C + c;
-        chan_merge(cnt, m, q, nb, part_mean[o], part_m2[o]);
-      }
-    }
-  }
-  s_n[ty][tx] = cnt;
-  s_m[ty][tx] = m;
-  s_q[ty][tx] = q;
-  for (int off = 1; off < kFinY; off <<= 1) {
-    __syncthreads();
-    if ((ty & (2 * off - 1)) == 0) {
-      const float nb = s_n[ty + off][tx];
-      if (nb > 0.f) {
-        chan_merge(cnt, m, q, nb, s_m[ty + off][tx], s_q[ty + off][tx]);
-        s_n[ty][tx] = cnt;
-        s_m[ty][tx] = m;
-        s_q[ty][tx] = q;
-      }
-    }
-  }
-  if (ty == 0 && c < C) {
-    mean[n * C + c] = m;
-    rstd[n * C + c] = 1.f / sqrtf(q / (float)V + eps);
-  }
-}
-
-// Same grid and block as stats_kernel.
+// Same grid and block as stats_kernel; shared memory as stats_kernel's.
+// part_mean, part_m2 are the stats kernel's (N, S, C) partials on this grid.
 template <typename T, int VEC, int ACT>
 __global__ void __launch_bounds__(kThreads)
-apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-             const float* __restrict__ rstd, T* __restrict__ y,
-             int64_t V, int C, int S, float slope) {
+apply_kernel(const T* __restrict__ x, const float* __restrict__ part_mean,
+             const float* __restrict__ part_m2, float* __restrict__ mean,
+             float* __restrict__ rstd, T* __restrict__ y, int64_t V, int C, int S,
+             float eps, float slope) {
+  extern __shared__ float smem[];
   const int G = C / VEC;
-  const int g = blockIdx.z * blockDim.x + threadIdx.x;
-  if (g >= G) return;
+  const int gx = blockDim.x, R = blockDim.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int g = blockIdx.z * gx + tx;
   const int s = blockIdx.x;
   const int64_t n = blockIdx.y;
-  const int64_t v0 = seg_begin(s, V, S), v1 = seg_begin(s + 1, V, S);
-  float mu[VEC], rs[VEC];
+
+  // The merge: lane ty folds partials ty, ty + R, ... in order, then the
+  // lanes' tree. Every block of (n, channels) does the same, in the same order.
+  float cnt = 0.f, mu[VEC], rs[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) mu[i] = rs[i] = 0.f;
+  if (g < G) {
+    for (int j = ty; j < S; j += R) {
+      const float nb = (float)(seg_begin(j + 1, V, S) - seg_begin(j, V, S));
+      if (nb > 0.f) {
+        const int64_t o = (n * S + j) * C + (int64_t)g * VEC;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float na = cnt;
+          chan_merge(na, mu[i], rs[i], nb, part_mean[o + i], part_m2[o + i]);
+        }
+        cnt += nb;
+      }
+    }
+  }
+  merge_lanes<VEC>(cnt, mu, rs, smem);
+  __syncthreads();
+  const float* s_mean = smem + gx * R;
+  const float* s_m2 = s_mean + gx * R * VEC;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    mu[i] = mean[n * C + g * VEC + i];
-    rs[i] = rstd[n * C + g * VEC + i];
+    mu[i] = s_mean[tx * VEC + i];
+    rs[i] = inv_std(s_m2[tx * VEC + i], V, eps);
   }
-  const int64_t base = n * V * C + (int64_t)g * VEC;
-  for (int64_t v = v0 + threadIdx.y; v < v1; v += blockDim.y) {
-    const Pack<T, VEC> in = *reinterpret_cast<const Pack<T, VEC>*>(x + base + v * C);
-    Pack<T, VEC> out;
+  if (g >= G) return;
+  if (s == 0 && ty == 0) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      const float z = normalize(to_float(in.v[i]), mu[i], rs[i]);
-      out.v[i] = from_float<T>(activate<ACT>(z, slope));
+      mean[n * C + g * VEC + i] = mu[i];
+      rstd[n * C + g * VEC + i] = rs[i];
     }
-    *reinterpret_cast<Pack<T, VEC>*>(y + base + v * C) = out;
+  }
+
+  const int64_t v0 = seg_begin(s, V, S), v1 = seg_begin(s + 1, V, S);
+  const T* xp = x + n * V * C + (int64_t)g * VEC;
+  T* yp = y + n * V * C + (int64_t)g * VEC;
+  auto apply = [&](const Pack<T, VEC>& in) {
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      out.v[i] = from_float<T>(activate<ACT>(normalize(to_float(in.v[i]), mu[i], rs[i]), slope));
+    return out;
+  };
+  int64_t v = v0 + ty;
+  for (; v + (kUnroll - 1) * R < v1; v += kUnroll * R) {  // kUnroll loads in flight
+    Pack<T, VEC> in[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      in[u] = *reinterpret_cast<const Pack<T, VEC>*>(xp + (v + u * R) * C);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      *reinterpret_cast<Pack<T, VEC>*>(yp + (v + u * R) * C) = apply(in[u]);
+  }
+  for (; v < v1; v += R)
+    *reinterpret_cast<Pack<T, VEC>*>(yp + v * C) =
+        apply(*reinterpret_cast<const Pack<T, VEC>*>(xp + v * C));
+}
+
+constexpr int kSlabWarps = kSlabThreads / 32;
+// 16-byte packs per voxel in one slab instance: a 32-byte chunk of channels,
+// one full sector (16 bf16 or 8 f32 channels).
+constexpr int kSlabPacks = 2;
+constexpr int kSlabChunk = kSlabPacks * 16;  // the wrapper's SLAB_CHUNK
+
+// v[i] summed over the threads of a slab block with the same t % kSlabPacks:
+// a shuffle tree inside each warp (xor by multiples of kSlabPacks keeps the
+// pack), then the warps' sums from `red` (VEC * kSlabWarps * kSlabPacks
+// floats) in warp order, so every thread of a pack ends with the same bits.
+template <int VEC>
+__device__ __forceinline__ void slab_sum(float* v, float* red) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, h = threadIdx.x % kSlabPacks;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i)
+#pragma unroll
+    for (int o = kSlabPacks; o < 32; o <<= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  if (lane < kSlabPacks) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) red[(i * kSlabWarps + warp) * kSlabPacks + lane] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSlabWarps; ++w) sum += red[(i * kSlabWarps + w) * kSlabPacks + h];
+    v[i] = sum;
+  }
+  __syncthreads();  // red is free again
+}
+
+// grid (C / (kSlabPacks VEC) chunks, N), block kSlabThreads, dynamic shared
+// memory V * kSlabChunk bytes. Thread t owns pack t % kSlabPacks of voxels
+// t / kSlabPacks + k * lanes, and reads back from shared memory only what it
+// copied there itself.
+template <typename T, int VEC, int ACT>
+__global__ void __launch_bounds__(kSlabThreads)
+slab_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ mean,
+            float* __restrict__ rstd, int V, int C, float eps, float slope) {
+  extern __shared__ __align__(16) unsigned char slab_raw[];
+  __shared__ float red[VEC * kSlabWarps * kSlabPacks];
+  using P = Pack<T, VEC>;
+  P* slab = reinterpret_cast<P*>(slab_raw);
+  constexpr int kLanes = kSlabThreads / kSlabPacks;
+  const int h = threadIdx.x % kSlabPacks, lane = threadIdx.x / kSlabPacks;
+  const int64_t n = blockIdx.y;
+  const int c0 = (blockIdx.x * kSlabPacks + h) * VEC;
+  const int64_t base = n * (int64_t)V * C + c0;
+
+  for (int v = lane; v < V; v += kLanes)
+    cp_async16(&slab[v * kSlabPacks + h], x + base + (int64_t)v * C);
+  cp_async_wait_all();
+
+  float mu[VEC], rs[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) mu[i] = 0.f;
+  for (int v = lane; v < V; v += kLanes) {
+    const P p = slab[v * kSlabPacks + h];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) mu[i] += to_float(p.v[i]);
+  }
+  slab_sum<VEC>(mu, red);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) mu[i] /= (float)V;
+
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) rs[i] = 0.f;
+  for (int v = lane; v < V; v += kLanes) {
+    const P p = slab[v * kSlabPacks + h];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float d = to_float(p.v[i]) - mu[i];
+      rs[i] = fmaf(d, d, rs[i]);
+    }
+  }
+  slab_sum<VEC>(rs, red);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) rs[i] = inv_std(rs[i], V, eps);
+
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      mean[n * C + c0 + i] = mu[i];
+      rstd[n * C + c0 + i] = rs[i];
+    }
+  }
+  for (int v = lane; v < V; v += kLanes) {
+    const P p = slab[v * kSlabPacks + h];
+    P out;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      out.v[i] = from_float<T>(activate<ACT>(normalize(to_float(p.v[i]), mu[i], rs[i]), slope));
+    *reinterpret_cast<P*>(y + base + (int64_t)v * C) = out;
   }
 }
 
@@ -345,7 +533,7 @@ bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// grid (ceil(C / kFinX), N), block (kFinX, kFinY), as finalize_kernel.
+// grid (ceil(C / kFinX), N), block (kFinX, kFinY).
 __global__ void __launch_bounds__(kFinX * kFinY)
 bwd_finalize_kernel(const float* __restrict__ part_g, const float* __restrict__ part_gz,
                     float* __restrict__ gmean, float* __restrict__ gzmean,
@@ -463,6 +651,20 @@ int dispatch(int dtype, int vec, int act, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
+// Prefer shared memory over L1 for `kernel` (its blocks' shared memory then
+// never limits how many are resident) and allow it `dynamic` bytes of
+// dynamic shared memory. Called from a static initialiser, once per kernel.
+template <typename K>
+cudaError_t prefer_shared(K kernel, int dynamic) {
+  cudaError_t e = cudaSuccess;
+  if (dynamic > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
 #define MRA_KERNEL_TYPES(t, v, a)              \
   using T = typename decltype(t)::type;        \
   constexpr int VEC = decltype(v)::value;      \
@@ -483,6 +685,8 @@ int mra_in_stats(const void* x, void* part_mean, void* part_m2, int64_t N, int64
     MRA_KERNEL_TYPES(t, v, a);
     const Geometry geo = geometry<VEC>(N, C, S);
     const size_t smem = (size_t)geo.threads * (1 + 2 * VEC) * sizeof(float);
+    static const cudaError_t attr = prefer_shared(stats_kernel<T, VEC>, 0);
+    if (attr != cudaSuccess) return (int)attr;
     stats_kernel<T, VEC><<<geo.grid, geo.block, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x), static_cast<float*>(part_mean),
         static_cast<float*>(part_m2), V, C, S);
@@ -490,31 +694,49 @@ int mra_in_stats(const void* x, void* part_mean, void* part_m2, int64_t N, int64
   });
 }
 
-// part_mean, part_m2 (N, S, C) -> mean, rstd (N, C), all float32.
-int mra_in_finalize(const void* part_mean, const void* part_m2, void* mean, void* rstd,
-                    int64_t N, int64_t V, int C, int S, float eps, void* stream) {
-  if (!valid(N, V, C, S, 1)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((C + kFinX - 1) / kFinX), (unsigned)N);
-  const dim3 block(kFinX, kFinY);
-  finalize_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_mean), static_cast<const float*>(part_m2),
-      static_cast<float*>(mean), static_cast<float*>(rstd), V, C, S, eps);
-  return (int)cudaGetLastError();
-}
-
-// x, y (N, V, C) in `dtype`; mean, rstd (N, C) float32.
-int mra_in_apply(const void* x, const void* mean, const void* rstd, void* y, int64_t N,
-                 int64_t V, int C, int S, int dtype, int vec, int act, float slope,
-                 void* stream) {
+// x, y (N, V, C) in `dtype`; part_mean, part_m2 (N, S, C) from mra_in_stats
+// with the same S; mean, rstd (N, C), written here. All stats float32.
+int mra_in_apply(const void* x, const void* part_mean, const void* part_m2, void* mean,
+                 void* rstd, void* y, int64_t N, int64_t V, int C, int S, int dtype, int vec,
+                 int act, float eps, float slope, void* stream) {
   if (!valid(N, V, C, S, vec)) return (int)cudaErrorInvalidValue;
   return dispatch(dtype, vec, act, [&](auto t, auto v, auto a) {
     MRA_KERNEL_TYPES(t, v, a);
     const Geometry geo = geometry<VEC>(N, C, S);
-    apply_kernel<T, VEC, ACT><<<geo.grid, geo.block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const float*>(mean),
-        static_cast<const float*>(rstd), static_cast<T*>(y), V, C, S, slope);
+    const size_t smem = (size_t)geo.threads * (1 + 2 * VEC) * sizeof(float);
+    static const cudaError_t attr = prefer_shared(apply_kernel<T, VEC, ACT>, 0);
+    if (attr != cudaSuccess) return (int)attr;
+    apply_kernel<T, VEC, ACT><<<geo.grid, geo.block, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const float*>(part_mean),
+        static_cast<const float*>(part_m2), static_cast<float*>(mean),
+        static_cast<float*>(rstd), static_cast<T*>(y), V, C, S, eps, slope);
     return (int)cudaGetLastError();
   });
+}
+
+// x, y (N, V, C) in `dtype`, 16-byte aligned; mean, rstd (N, C) float32.
+// One block per (n, 32-byte channel chunk); V * kSlabChunk must fit in
+// kSlabBytes.
+int mra_in_slab(const void* x, void* y, void* mean, void* rstd, int64_t N, int64_t V, int C,
+                int dtype, int act, float eps, float slope, void* stream) {
+  const int es = dtype == DT_BF16 ? 2 : 4;
+  if (!valid(N, V, C, 1, 1) || (C * es) % kSlabChunk != 0 || V * kSlabChunk > kSlabBytes)
+    return (int)cudaErrorInvalidValue;
+  auto f = [&](auto t, auto v, auto a) {
+    MRA_KERNEL_TYPES(t, v, a);
+    static const cudaError_t attr = prefer_shared(slab_kernel<T, VEC, ACT>, kSlabBytes);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((unsigned)(C / (kSlabPacks * VEC)), (unsigned)N);
+    slab_kernel<T, VEC, ACT>
+        <<<grid, kSlabThreads, (size_t)V * kSlabChunk, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(x), static_cast<T*>(y), static_cast<float*>(mean),
+            static_cast<float*>(rstd), (int)V, C, eps, slope);
+    return (int)cudaGetLastError();
+  };
+  // 16-byte packs only
+  if (dtype == DT_BF16) return with_act<__nv_bfloat16, 8>(act, f);
+  if (dtype == DT_F32) return with_act<float, 4>(act, f);
+  return (int)cudaErrorInvalidValue;
 }
 
 // x, g (N, V, C) in `dtype`; mean, rstd (N, C) and part_g, part_gz (N, S, C)

@@ -5,13 +5,19 @@ Port of mra_gan_tpu/ops/pallas/instance_norm.py (``_fwd`` :108, ``_bwd``
 :167, ``instance_norm_act_tpu`` :196); the kernels' design is described in
 ``csrc/instance_norm.cu``. Six kernels, one wrapper each:
 
+- ``instance_norm_slab``         x -> act((x - mean) * rstd), mean, rstd in one
+  launch, for an instance that fits in shared memory (``uses_slab``)
 - ``instance_norm_stats``        x -> per-segment (mean, M2) partials (N, S, C)
-- ``instance_norm_finalize``     partials -> mean, rstd (N, C)
-- ``instance_norm_apply``        x, mean, rstd -> act((x - mean) * rstd)
+- ``instance_norm_apply``        x, partials -> act((x - mean) * rstd), mean, rstd
 - ``instance_norm_bwd_stats``    x, g, mean, rstd -> per-segment sums of
   g' = g * act'(z) and g' z (N, S, C)
 - ``instance_norm_bwd_finalize`` those sums -> mean(g'), mean(g' z) (N, C)
 - ``instance_norm_bwd_apply``    -> dx = rstd * (g' - mean(g') - z mean(g' z))
+
+The forward (``instance_norm_act_fwd``) takes one of two routes, picked by
+``uses_slab`` from the shape and dtype alone: the slab kernel where one (n,
+32-byte channel chunk) instance fits in SLAB_BYTES of shared memory, else
+stats then apply (``instance_norm_two_pass``).
 
 A wrapper given a CPU tensor runs its plain version; given a CUDA tensor it
 launches its kernel or raises (wrong dtype, shape or layout, failed build,
@@ -38,10 +44,15 @@ EPS = 1e-5
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256          # stats/apply block size, kThreads in the .cu
-_TARGET_BLOCKS = 132 * 8  # about 8 resident blocks on each of the H100's 132 SMs
+_TARGET_BLOCKS = 132 * 8  # backward: about 8 resident blocks on each of the H100's 132 SMs
+# Forward: half that. Each apply block merges all S partials of its channels,
+# and fewer, longer segments were faster at every two-pass shape on the H100.
+_FWD_TARGET_BLOCKS = 132 * 4
 _MIN_VOXELS_PER_LANE = 4
+SLAB_BYTES = 224 * 1024  # kSlabBytes in the .cu: one instance's shared memory
+SLAB_CHUNK = 32          # kSlabChunk in the .cu: bytes of channels per voxel in one instance
 
-FORWARD = ("instance_norm_stats", "instance_norm_finalize", "instance_norm_apply")
+FORWARD = ("instance_norm_slab", "instance_norm_stats", "instance_norm_apply")
 BACKWARD = ("instance_norm_bwd_stats", "instance_norm_bwd_finalize",
             "instance_norm_bwd_apply")
 LAUNCHES = {k: 0 for k in FORWARD + BACKWARD}
@@ -176,6 +187,18 @@ def apply_plain(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     return _act(z, act, negative_slope).to(x.dtype)
 
 
+def slab_plain(x: torch.Tensor, act: str = "none", negative_slope: float = 0.2,
+               eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The slab kernel's arithmetic: float32 mean, then the centred variance
+    (exact two-pass), z and the activation in float32, rounded once to x's
+    dtype. Returns (y, mean, rstd), the statistics (N, C) float32."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3, 4))
+    xm = xf - _bcast(mean)
+    rstd = torch.rsqrt(xm.square().mean(dim=(2, 3, 4)) + eps)
+    return _act(xm * _bcast(rstd), act, negative_slope).to(x.dtype), mean, rstd
+
+
 def _z_and_gp(x, g, mean, rstd, act, slope):
     # the kernels' float32 arithmetic: z and g' = g * act'(z)
     z = (x.float() - _bcast(mean)) * _bcast(rstd)
@@ -229,16 +252,31 @@ def pair_width(x: torch.Tensor, g: torch.Tensor) -> int:
     return min(vector_width(x), vector_width(g))
 
 
-def num_segments(n: int, voxels: int, c: int, vec: int) -> int:
-    """Voxel segments per sample: enough blocks to fill the card about 8
-    times over, but at least _MIN_VOXELS_PER_LANE voxels per thread lane."""
+def uses_slab(shape, dtype: torch.dtype) -> bool:
+    """The forward's route: True where C is a whole number of SLAB_CHUNK-byte
+    chunks and one (n, chunk) instance, V voxels of SLAB_CHUNK bytes, fits in
+    SLAB_BYTES of shared memory (the 16^3, 8^3 and 7^3 norms of the path);
+    False sends the norm to the two-pass kernels."""
+    return shape[1] * dtype.itemsize % SLAB_CHUNK == 0 and math.prod(shape[2:]) * SLAB_CHUNK <= SLAB_BYTES
+
+
+def num_segments(n: int, voxels: int, c: int, vec: int,
+                 target: int = _TARGET_BLOCKS) -> int:
+    """Voxel segments per sample: about ``target`` blocks in all, but at
+    least _MIN_VOXELS_PER_LANE voxels per thread lane."""
     groups = c // vec
     gx = min(groups, _THREADS)
     lanes = _THREADS // gx
     chunks = -(-groups // gx)
-    want = -(-_TARGET_BLOCKS // (n * chunks))
+    want = -(-target // (n * chunks))
     most = max(1, voxels // (lanes * _MIN_VOXELS_PER_LANE))
     return max(1, min(want, most))
+
+
+def forward_segments(x: torch.Tensor) -> int:
+    """The two-pass forward's segment count for x."""
+    n, c = x.shape[:2]
+    return num_segments(n, math.prod(x.shape[2:]), c, vector_width(x), _FWD_TARGET_BLOCKS)
 
 
 # ---------------------------------------------------------------------------
@@ -252,14 +290,15 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library("instance_norm")))
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
     lib.mra_in_stats.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32, p]
-    lib.mra_in_finalize.argtypes = [p, p, p, p, i64, i64, i32, i32, f32, p]
-    lib.mra_in_apply.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i32, f32, p]
+    lib.mra_in_apply.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, i32, f32,
+                                 f32, p]
+    lib.mra_in_slab.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, f32, f32, p]
     lib.mra_in_bwd_stats.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, i32,
                                      f32, p]
     lib.mra_in_bwd_finalize.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
     lib.mra_in_bwd_apply.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, i32,
                                      f32, p]
-    for fn in (lib.mra_in_stats, lib.mra_in_finalize, lib.mra_in_apply,
+    for fn in (lib.mra_in_stats, lib.mra_in_apply, lib.mra_in_slab,
                lib.mra_in_bwd_stats, lib.mra_in_bwd_finalize, lib.mra_in_bwd_apply):
         fn.restype = ctypes.c_int
     lib.mra_cuda_error_string.argtypes = [ctypes.c_int]
@@ -332,46 +371,60 @@ def instance_norm_stats(x: torch.Tensor, segments: int) -> Tuple[torch.Tensor, t
     return part_mean, part_m2
 
 
-def instance_norm_finalize(part_mean: torch.Tensor, part_m2: torch.Tensor, voxels: int,
-                           eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-segment partials (N, S, C) -> mean, rstd (N, C) float32."""
-    if part_mean.device.type == "cpu":
-        return finalize_plain(part_mean, part_m2, voxels, eps)
-    _check_cuda(part_mean, "instance_norm_finalize")
-    if part_mean.dim() != 3:
-        raise ValueError("instance_norm_finalize: partials must be (N, S, C)")
-    n, s, c = part_mean.shape
-    for t in (part_mean, part_m2):
-        _check_stats(t, (n, s, c), part_mean.device, "instance_norm_finalize")
-    mean = torch.empty((n, c), device=part_mean.device, dtype=torch.float32)
-    rstd = torch.empty_like(mean)
-    err = _lib().mra_in_finalize(part_mean.data_ptr(), part_m2.data_ptr(),
-                                 mean.data_ptr(), rstd.data_ptr(), n, voxels, c, s,
-                                 eps, _stream(part_mean))
-    _raise_on(err, "instance_norm_finalize")
-    LAUNCHES["instance_norm_finalize"] += 1
-    return mean, rstd
-
-
-def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
-                        act: str = "none", negative_slope: float = 0.2) -> torch.Tensor:
-    """act((x - mean) * rstd) in x's dtype and layout."""
+def instance_norm_apply(x: torch.Tensor, part_mean: torch.Tensor, part_m2: torch.Tensor,
+                        act: str = "none", negative_slope: float = 0.2, eps: float = EPS
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge the stats kernel's (N, S, C) partials into mean and rstd (N, C)
+    float32, and return (act((x - mean) * rstd) in x's dtype and layout,
+    mean, rstd)."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
-        return apply_plain(x, mean, rstd, act, negative_slope)
+        mean, rstd = finalize_plain(part_mean, part_m2, math.prod(x.shape[2:]), eps)
+        return apply_plain(x, mean, rstd, act, negative_slope), mean, rstd
     n, v, c = _check_volume(x, "instance_norm_apply")
-    for t in (mean, rstd):
-        _check_stats(t, (n, c), x.device, "instance_norm_apply")
-    vec = vector_width(x)
-    segments = num_segments(n, v, c, vec)
+    if part_mean.dim() != 3 or part_mean.shape[0] != n or part_mean.shape[2] != c:
+        raise ValueError(f"instance_norm_apply: partials must be ({n}, S, {c}), got "
+                         f"{tuple(part_mean.shape)}")
+    segments = part_mean.shape[1]
+    for t in (part_mean, part_m2):
+        _check_stats(t, (n, segments, c), x.device, "instance_norm_apply")
+    mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
+    rstd = torch.empty_like(mean)
     y = torch.empty_like(x, memory_format=torch.channels_last_3d)
-    err = _lib().mra_in_apply(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), y.data_ptr(),
-                              n, v, c, segments, _DTYPE_CODES[x.dtype], vec, ACTS[act],
+    err = _lib().mra_in_apply(x.data_ptr(), part_mean.data_ptr(), part_m2.data_ptr(),
+                              mean.data_ptr(), rstd.data_ptr(), y.data_ptr(), n, v, c, segments,
+                              _DTYPE_CODES[x.dtype], vector_width(x), ACTS[act], eps,
                               negative_slope, _stream(x))
     _raise_on(err, "instance_norm_apply")
     LAUNCHES["instance_norm_apply"] += 1
-    return y
+    return y, mean, rstd
+
+
+def instance_norm_slab(x: torch.Tensor, act: str = "none", negative_slope: float = 0.2,
+                       eps: float = EPS
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The one-launch forward: (y in x's dtype and layout, mean, rstd (N, C)
+    float32). On CUDA x must pass ``uses_slab`` and lie 16-byte aligned."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return slab_plain(x, act, negative_slope, eps)
+    n, v, c = _check_volume(x, "instance_norm_slab")
+    if not uses_slab(x.shape, x.dtype) or x.data_ptr() % 16:
+        raise ValueError(f"instance_norm_slab: {x.dtype} {tuple(x.shape)} is no whole number "
+                         f"of {SLAB_CHUNK}-byte channel chunks, does not fit {SLAB_BYTES} bytes "
+                         f"of shared memory at {SLAB_CHUNK} bytes a voxel, or is not 16-byte "
+                         f"aligned")
+    mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
+    rstd = torch.empty_like(mean)
+    y = torch.empty_like(x, memory_format=torch.channels_last_3d)
+    err = _lib().mra_in_slab(x.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                             n, v, c, _DTYPE_CODES[x.dtype], ACTS[act], eps, negative_slope,
+                             _stream(x))
+    _raise_on(err, "instance_norm_slab")
+    LAUNCHES["instance_norm_slab"] += 1
+    return y, mean, rstd
 
 
 def instance_norm_bwd_stats(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
@@ -443,16 +496,21 @@ def instance_norm_bwd_apply(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor
     return dx
 
 
+def instance_norm_two_pass(x: torch.Tensor, act: str = "none", negative_slope: float = 0.2,
+                           eps: float = EPS):
+    """The two-launch forward, stats -> apply (with the merge): on CUDA two
+    launches, on the CPU the plain versions. Returns (y, mean, rstd)."""
+    part_mean, part_m2 = instance_norm_stats(x, forward_segments(x))
+    return instance_norm_apply(x, part_mean, part_m2, act, negative_slope, eps)
+
+
 def instance_norm_act_fwd(x: torch.Tensor, act: str = "none", negative_slope: float = 0.2,
                           eps: float = EPS):
-    """The kernel path, stats -> finalize -> apply: three launches on CUDA,
-    the three plain versions on the CPU. Returns (y, mean, rstd)."""
-    n, c = x.shape[:2]
-    voxels = math.prod(x.shape[2:])
-    segments = num_segments(n, voxels, c, vector_width(x))
-    part_mean, part_m2 = instance_norm_stats(x, segments)
-    mean, rstd = instance_norm_finalize(part_mean, part_m2, voxels, eps)
-    return instance_norm_apply(x, mean, rstd, act, negative_slope), mean, rstd
+    """The kernel path: one slab launch where ``uses_slab`` holds, else the
+    two-pass kernels; each route's plain versions on the CPU. Returns (y,
+    mean, rstd)."""
+    route = instance_norm_slab if uses_slab(x.shape, x.dtype) else instance_norm_two_pass
+    return route(x, act, negative_slope, eps)
 
 
 def instance_norm_act_fused(x: torch.Tensor, act: str = "none",

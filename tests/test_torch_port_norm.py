@@ -5,8 +5,9 @@ The JAX side runs as its own tests run it: the XLA ``instance_norm_act`` and
 ``instance_norm``, and the Pallas ``instance_norm_act_tpu`` in interpret mode.
 Two port paths are held against them: ``instance_norm_act`` (the plain
 version the CPU takes) and ``instance_norm_act_fused`` on CPU tensors, which
-runs the plain versions of the three kernels (segment stats, Chan merge,
-apply): the arithmetic the CUDA kernels implement."""
+runs the plain versions of the kernels of the shape's route (the slab
+kernel, or segment stats then the apply with its Chan merge): the arithmetic
+the CUDA kernels implement."""
 import numpy as np
 import pytest
 import torch
@@ -103,16 +104,18 @@ def test_segment_stats_merge_to_full_stats():
     for segments in (1, 2, 7, voxels, voxels + 9):
         pm, pq = kern.instance_norm_stats(x, segments)
         assert pm.shape == pq.shape == (2, segments, 8)
-        m, r = kern.instance_norm_finalize(pm, pq, voxels)
+        _, m, r = kern.instance_norm_apply(x, pm, pq)
         torch.testing.assert_close(m, mean, atol=1e-6, rtol=1e-5)
         torch.testing.assert_close(r, rstd, atol=1e-6, rtol=1e-5)
 
 
 def test_num_segments_fills_the_card():
-    # batch-8 trunk: 1024 (n, c) rows of 4096 voxels; batch-1 stem: 32 rows of 262k
-    assert 8 * kern.num_segments(8, 16 ** 3, 128, 8) >= 132 * 2
-    assert kern.num_segments(1, 64 ** 3, 32, 8) >= 132 * 4
-    assert kern.num_segments(1, 8, 32, 8) == 1
+    # batch-8 trunk: 1024 (n, c) rows of 4096 voxels; batch-1 stem: 32 rows of
+    # 262k; for the backward's block target and the forward's
+    for target in (kern._TARGET_BLOCKS, kern._FWD_TARGET_BLOCKS):
+        assert 8 * kern.num_segments(8, 16 ** 3, 128, 8, target) >= 132 * 2
+        assert kern.num_segments(1, 64 ** 3, 32, 8, target) >= 132 * 4
+        assert kern.num_segments(1, 8, 32, 8, target) == 1
 
 
 def test_cpu_tensor_launches_no_kernel():
@@ -125,7 +128,7 @@ def test_cpu_tensor_launches_no_kernel():
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unknown activation"):
-        kern.instance_norm_apply(torch.zeros(1, 8, 2, 2, 2), torch.zeros(1, 8),
-                                 torch.ones(1, 8), act="gelu")
+        kern.instance_norm_apply(torch.zeros(1, 8, 2, 2, 2), torch.zeros(1, 1, 8),
+                                 torch.ones(1, 1, 8), act="gelu")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kern.instance_norm_stats(torch.zeros(1, 8, 2, 2, 2, device="meta"), 1)
