@@ -9,24 +9,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the nvcc build of every kernel source under
    mra_gan_tpu_torch/ops/kernels/csrc/ (one nvcc per source, in parallel);
 2. every CUDA kernel against its plain PyTorch version on the card, in
-   bfloat16 and float32: the forward kernels of each shape's route (the
-   slab kernel where K.uses_slab holds, else stats then apply) at every
-   instance-norm shape of the decode path (batch 8, the short last batch
-   of 3, and the whole-volume single pass), and the forward and the three
-   backward kernels at every norm shape of the train step at batch 1 and 8
-   (the generator at 2B and B, the PatchGAN at B and 2B), plus small shapes
-   for leaky_relu, tanh and C = 6 and the largest slab instance at C = 128;
-   each timed beside its plain version, the library yardsticks
-   (F.instance_norm + activation and its autograd backward, torch.var_mean
-   for the statistics) and the memory bound, and at each slab shape beside
-   the two-pass kernels;
+   bfloat16 and float32, on each shape's route (K.uses_slab: the slab
+   kernel, forward or backward, else stats then apply, forward or
+   backward): the forward kernels at every instance-norm shape of the
+   decode path (batch 8, the short last batch of 3, and the whole-volume
+   single pass), forward and backward at every norm shape of the train
+   step at batch 1 and 8 (the generator at 2B and B, the PatchGAN at B and
+   2B), plus small shapes for leaky_relu, tanh and C = 6 and the largest
+   slab instance at C = 128; each timed beside its plain version, the
+   library yardsticks (F.instance_norm + activation and its autograd
+   backward, torch.var_mean for the statistics) and the memory bound, at
+   each slab shape beside the two-pass kernels, and at each two-pass
+   backward shape in bfloat16 at several segment targets (BWD_TARGETS);
 3. cuDNN conv3d / conv_transpose3d at the generator's shapes, NCDHW against
    channels_last_3d;
 4. the resnet_6blocks generator at ngf=32, batch 8, 64^3, weights from a
    seeded numpy tree in the JAX layout through state_dict_from_jax: kernel
    norms against plain norms in bfloat16 and (TF32 off) float32, and the
    exact launches of each forward kernel per forward that uses_slab gives
-   (13 slab, 4 stats, 4 apply), none of a backward one;
+   (13 slab, 4 stats, 4 apply), none of a backward one (nor in phases 5-6);
 5. the sliding-window decode of a 128x256x256 volume (147 patches in 19
    batches, Gaussian blend; 19 x those launches), then the single-pass
    whole-volume forward of the same volume (17 stats, 17 apply, no slab);
@@ -36,9 +37,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    reference default (bench.py:193-198: two resnet_6blocks generators, two
    3-layer PatchGANs, ngf = ndf = 32, LSGAN, pool 50, Adam 2e-4 / 0.5, bf16
    over f32 parameters, 64^3 patches) at batch 1 and 8: s/step, pairs/s,
-   peak memory, the exact forward launches per step (4 x 13 + 12 slab, 16
-   stats, 16 apply) and 80 of each backward kernel, the gradient
-   relayouts, finite losses, and one profiled step by kernel class;
+   peak memory, the exact launches per step (forward: 4 x 13 + 12 slab, 16
+   stats, 16 apply; backward: 64 bwd slab, 16 bwd stats, 16 bwd apply),
+   the gradient relayouts, finite losses, and one profiled step by kernel
+   class;
 8. step 0 at batch 1 through the kernels and through the plain norms, in
    float32 (TF32 off) and bf16, each against a float64 step
    (phase_train_parity states the bars).
@@ -88,6 +90,9 @@ MERGE_OPS = 12  # Chan merge per partial (the apply's prologue)
 ACT_GRAD_OPS = {"none": 0, "relu": 1, "leaky_relu": 1, "tanh": 10}
 BWD_STATS_OPS = 6  # z (sub, mul), g' (mul), two sums, g'z (mul) + act'
 BWD_APPLY_OPS = 7  # z (sub, mul), g' (mul), sub, fma, mul + act'
+# block targets at which the two-pass backward is also timed, with
+# K.num_segments alone (no merge bound, K.backward_segments)
+BWD_TARGETS = (132 * 2, 132 * 3, 132 * 4, 132 * 8)
 
 
 def check(cond: bool, what: str) -> None:
@@ -392,11 +397,14 @@ def forward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
 
 
 def backward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
-    """The three backward kernels against their plain versions at one shape,
-    the whole kernel backward against the plain step-by-step backward
+    """The backward kernels of the shape's route (K.uses_slab: the bwd slab
+    kernel, or bwd stats then bwd apply) against their plain versions at one
+    shape, the whole kernel backward against the plain step-by-step backward
     (instance_norm_act_bwd_plain, JAX _in_vjp_bwd) and against float32, then
     timed beside the plain versions, the library yardstick (autograd of
-    F.instance_norm + activation) and the bounds."""
+    F.instance_norm + activation) and the bounds. At a slab shape the
+    two-pass backward is timed on the same input too; at a two-pass shape in
+    bfloat16, the two-pass kernels at each of BWD_TARGETS."""
     import torch
     import torch.nn.functional as F
 
@@ -406,31 +414,66 @@ def backward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
     v = math.prod(shape[2:])
     es = x.element_size()
     bf16 = dtype == torch.bfloat16
+    slab = K.uses_slab(shape, dtype)
     _, mean, rstd = K.instance_norm_act_fwd(x, act, 0.2)
-    seg = K.num_segments(n, v, c, K.pair_width(x, g))
+    seg = K.backward_segments(x, g)
+    big = x.numel() * es >= 100e6
+    iters = 10 if big else 30
+    part_bytes = 2 * n * seg * c * 4
+    stat_bytes = 2 * n * c * 4
+    ops = ACT_GRAD_OPS[act]
 
-    pg, pgz = K.instance_norm_bwd_stats(x, g, mean, rstd, seg, act, 0.2)
-    rg, rgz = K.bwd_stats_plain(x, g, mean, rstd, seg, act, 0.2)
-    # float32 sums of one segment's terms in two orders, against the largest partial
-    scale = max(float(rg.abs().max()), float(rgz.abs().max()), 1e-30)
-    err_stats = max(float((pg - rg).abs().max()), float((pgz - rgz).abs().max()))
-    check(err_stats <= 1e-5 * scale, f"bwd_stats {label} {shape} {dtype}: {err_stats:.3g} "
-          f"against partials up to {scale:.3g}")
-    gm, gzm = K.instance_norm_bwd_finalize(pg, pgz, v)
-    fgm, fgzm = K.bwd_finalize_plain(pg, pgz, v)
-    err_fin = max(float((gm - fgm).abs().max()), float((gzm - fgzm).abs().max()))
-    check(torch.allclose(gm, fgm, rtol=1e-5, atol=1e-7)
-          and torch.allclose(gzm, fgzm, rtol=1e-5, atol=1e-7),
-          f"bwd_finalize {label} {shape} {dtype}: {err_fin:.3g}")
-    dx = K.instance_norm_bwd_apply(x, g, mean, rstd, gm, gzm, act, 0.2)
-    dxa = K.bwd_apply_plain(x, g, mean, rstd, gm, gzm, act, 0.2)
-    dmax = float(dxa.float().abs().max())
-    err_apply = float((dx.float() - dxa.float()).abs().max())
-    # the same float32 arithmetic rounded once: 1 bf16 ulp of the largest
-    # |dx|, or 1e-5 of it in f32
-    check(dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last_3d)
-          and err_apply <= (BF16_ULP if bf16 else 1e-5) * dmax,
-          f"bwd_apply {label} {shape} {dtype}: {err_apply:.3g}, max|dx| {dmax:.3g}")
+    def dx_close(name, dx, ref):
+        # the same float32 arithmetic rounded once: 1 bf16 ulp of the
+        # largest |dx|, or 1e-5 of it in f32
+        dmax = float(ref.float().abs().max())
+        err = float((dx.float() - ref.float()).abs().max())
+        check(dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last_3d)
+              and err <= (BF16_ULP if bf16 else 1e-5) * dmax,
+              f"{name} {label} {shape} {dtype}: {err:.3g}, max|dx| {dmax:.3g}")
+        return err
+
+    t, p, bounds, errs = {}, {}, {}, {}
+    if slab:
+        dx = K.instance_norm_bwd_slab(x, g, mean, rstd, act, 0.2)
+        errs["instance_norm_bwd_slab"] = dx_close(
+            "bwd_slab", dx, K.bwd_slab_plain(x, g, mean, rstd, act, 0.2))
+        t["instance_norm_bwd_slab"] = device_ms(
+            lambda: K.instance_norm_bwd_slab(x, g, mean, rstd, act, 0.2), iters)
+        p["instance_norm_bwd_slab"] = device_ms(
+            lambda: K.bwd_slab_plain(x, g, mean, rstd, act, 0.2), iters)
+        bounds["instance_norm_bwd_slab"] = max(
+            (3 * x.numel() * es + stat_bytes) / bw,
+            (BWD_STATS_OPS + BWD_APPLY_OPS + 2 * ops) * x.numel() / flops)
+    else:
+        pg, pgz = K.instance_norm_bwd_stats(x, g, mean, rstd, seg, act, 0.2)
+        rg, rgz = K.bwd_stats_plain(x, g, mean, rstd, seg, act, 0.2)
+        # float32 sums of one segment's terms in two orders, against the largest partial
+        scale = max(float(rg.abs().max()), float(rgz.abs().max()), 1e-30)
+        errs["instance_norm_bwd_stats"] = max(float((pg - rg).abs().max()),
+                                              float((pgz - rgz).abs().max()))
+        check(errs["instance_norm_bwd_stats"] <= 1e-5 * scale,
+              f"bwd_stats {label} {shape} {dtype}: {errs['instance_norm_bwd_stats']:.3g} "
+              f"against partials up to {scale:.3g}")
+        dx = K.instance_norm_bwd_apply(x, g, mean, rstd, pg, pgz, act, 0.2)
+        gm, gzm = K.bwd_finalize_plain(pg, pgz, v)
+        errs["instance_norm_bwd_apply"] = dx_close(
+            "bwd_apply", dx, K.bwd_apply_plain(x, g, mean, rstd, gm, gzm, act, 0.2))
+        t["instance_norm_bwd_stats"] = device_ms(
+            lambda: K.instance_norm_bwd_stats(x, g, mean, rstd, seg, act, 0.2), iters)
+        t["instance_norm_bwd_apply"] = device_ms(
+            lambda: K.instance_norm_bwd_apply(x, g, mean, rstd, pg, pgz, act, 0.2), iters)
+        p["instance_norm_bwd_stats"] = device_ms(
+            lambda: K.bwd_stats_plain(x, g, mean, rstd, seg, act, 0.2), 3, 1)
+        p["instance_norm_bwd_apply"] = device_ms(
+            lambda: K.bwd_apply_plain(x, g, mean, rstd, *K.bwd_finalize_plain(pg, pgz, v),
+                                      act, 0.2), iters)
+        bounds["instance_norm_bwd_stats"] = max(
+            (2 * x.numel() * es + stat_bytes + part_bytes) / bw,
+            (BWD_STATS_OPS + ops) * x.numel() / flops)
+        bounds["instance_norm_bwd_apply"] = max(
+            (3 * x.numel() * es + stat_bytes + part_bytes) / bw,
+            ((BWD_APPLY_OPS + ops) * x.numel() + 2 * n * seg * c) / flops)
 
     dk = K.instance_norm_act_bwd_fused(x, g, mean, rstd, act, 0.2).float()
     dp = K.instance_norm_act_bwd_plain(x, g, mean, rstd, act, 0.2).float()
@@ -449,66 +492,56 @@ def backward_case(K, label, shape, act, dtype, bw, flops, results, gen) -> None:
               f"{float(diff.max()):.3g} of max|dx|; vs f32 kernel {err_k:.3g} plain {err_p:.3g}")
     else:
         check(float(diff.max()) <= 1e-5, f"bwd {label} {shape} f32: {float(diff.max()):.3g}")
+    errs["instance_norm_act_bwd"] = float((dk - dp).abs().max())
 
-    big = x.numel() * es >= 100e6
-    iters = 10 if big else 30
-    t = {
-        "instance_norm_bwd_stats": device_ms(
-            lambda: K.instance_norm_bwd_stats(x, g, mean, rstd, seg, act, 0.2), iters),
-        "instance_norm_bwd_finalize": device_ms(
-            lambda: K.instance_norm_bwd_finalize(pg, pgz, v), iters),
-        "instance_norm_bwd_apply": device_ms(
-            lambda: K.instance_norm_bwd_apply(x, g, mean, rstd, gm, gzm, act, 0.2), iters),
-        "instance_norm_act_bwd": device_ms(
-            lambda: K.instance_norm_act_bwd_fused(x, g, mean, rstd, act, 0.2), iters),
-    }
-    bwd_dispatch = dispatch_ms(
+    t["instance_norm_act_bwd"] = device_ms(
         lambda: K.instance_norm_act_bwd_fused(x, g, mean, rstd, act, 0.2), iters)
-    p = {
-        "instance_norm_bwd_stats": device_ms(
-            lambda: K.bwd_stats_plain(x, g, mean, rstd, seg, act, 0.2), 3, 1),
-        "instance_norm_bwd_finalize": device_ms(lambda: K.bwd_finalize_plain(pg, pgz, v), iters),
-        "instance_norm_bwd_apply": device_ms(
-            lambda: K.bwd_apply_plain(x, g, mean, rstd, gm, gzm, act, 0.2), iters),
-        "instance_norm_act_bwd": device_ms(
-            lambda: K.instance_norm_act_bwd_plain(x, g, mean, rstd, act, 0.2), iters),
-    }
+    p["instance_norm_act_bwd"] = device_ms(
+        lambda: K.instance_norm_act_bwd_plain(x, g, mean, rstd, act, 0.2), iters)
+    extra = {"route": "slab" if slab else "two_pass",
+             "dispatch_ms": dispatch_ms(
+                 lambda: K.instance_norm_act_bwd_fused(x, g, mean, rstd, act, 0.2), iters),
+             "vs_plain_mean": float(diff.mean()), "vs_plain_max": float(diff.max()),
+             "vs_f32_kernel": err_k, "vs_f32_plain": err_p}
+    if slab:
+        extra["two_pass_ms"] = device_ms(
+            lambda: K.instance_norm_bwd_two_pass(x, g, mean, rstd, act, 0.2), iters)
+    elif bf16:
+        # the two-pass backward at other segment counts than K.backward_segments
+        vec = K.pair_width(x, g)
+        extra["targets_ms"] = {}
+        for target in BWD_TARGETS:
+            s = K.num_segments(n, v, c, vec, target)
+
+            def two_pass(s=s):
+                sums = K.instance_norm_bwd_stats(x, g, mean, rstd, s, act, 0.2)
+                K.instance_norm_bwd_apply(x, g, mean, rstd, *sums, act, 0.2)
+
+            extra["targets_ms"][target] = {"segments": s, "ms": device_ms(two_pass, iters)}
     xl = x.detach().requires_grad_()
     yl = lib_act(act)(F.instance_norm(xl))
     lib = device_ms(lambda: torch.autograd.grad(yl, xl, g, retain_graph=True), iters)
     del yl, xl
-    part_bytes = 2 * n * seg * c * 4
-    stat_bytes = 2 * n * c * 4
-    ops = ACT_GRAD_OPS[act]
-    bounds = {
-        "instance_norm_bwd_stats": max((2 * x.numel() * es + stat_bytes + part_bytes) / bw,
-                                       (BWD_STATS_OPS + ops) * x.numel() / flops),
-        "instance_norm_bwd_finalize": max((part_bytes + stat_bytes) / bw,
-                                          2 * n * seg * c / flops),
-        "instance_norm_bwd_apply": max((3 * x.numel() * es + 2 * stat_bytes) / bw,
-                                       (BWD_APPLY_OPS + ops) * x.numel() / flops),
-        "instance_norm_act_bwd": max(3 * x.numel() * es / bw,
-                                     (BWD_STATS_OPS + BWD_APPLY_OPS + 2 * ops) * x.numel()
-                                     / flops),
-    }
-    errs = {"instance_norm_bwd_stats": err_stats, "instance_norm_bwd_finalize": err_fin,
-            "instance_norm_bwd_apply": err_apply,
-            "instance_norm_act_bwd": float((dk - dp).abs().max())}
+    bounds["instance_norm_act_bwd"] = max(
+        3 * x.numel() * es / bw, (BWD_STATS_OPS + BWD_APPLY_OPS + 2 * ops) * x.numel() / flops)
     dname = "bf16" if bf16 else "f32"
     for k in t:
+        whole = k in ("instance_norm_act_bwd", "instance_norm_bwd_slab")
         results[k]["shapes"].append({
             "path": label, "shape": list(shape), "dtype": dname, "act": act,
-            "segments": seg, "ms": t[k], "plain_ms": p[k],
-            "library_ms": lib if k == "instance_norm_act_bwd" else None,
-            **({"dispatch_ms": bwd_dispatch,
-                "vs_plain_mean": float(diff.mean()), "vs_plain_max": float(diff.max()),
-                "vs_f32_kernel": err_k, "vs_f32_plain": err_p}
-               if k == "instance_norm_act_bwd" else {}),
+            "segments": None if slab else seg, "ms": t[k], "plain_ms": p[k],
+            "library_ms": lib if whole else None,
+            **(extra if k == "instance_norm_act_bwd" else {}),
             "bound_ms": bounds[k] * 1e3, "max_abs_err": errs[k]})
-    print(f"[bwd]     {label:6s} {str(shape):28s} {dname} {act:10s} S={seg:5d} "
-          f"bwd {t['instance_norm_act_bwd']:.4f} ms (stats {t['instance_norm_bwd_stats']:.4f}, "
-          f"fin {t['instance_norm_bwd_finalize']:.4f}, apply {t['instance_norm_bwd_apply']:.4f}) "
-          f"dispatch {bwd_dispatch:.4f} plain {p['instance_norm_act_bwd']:.4f} lib {lib:.4f} "
+    parts = ", ".join(f"{k.replace('instance_norm_bwd_', '')} {t[k]:.4f}"
+                      for k in t if k != "instance_norm_act_bwd")
+    more = f" two_pass {extra['two_pass_ms']:.4f}" if slab else ""
+    more += "".join(f" [{tg}: S={r['segments']} {r['ms']:.4f}]"
+                    for tg, r in extra.get("targets_ms", {}).items())
+    print(f"[bwd]     {label:6s} {str(shape):28s} {dname} {act:10s} "
+          f"{'slab' if slab else f'S={seg}':7s} bwd {t['instance_norm_act_bwd']:.4f} ms "
+          f"({parts}){more} dispatch {extra['dispatch_ms']:.4f} "
+          f"plain {p['instance_norm_act_bwd']:.4f} lib {lib:.4f} "
           f"bound {bounds['instance_norm_act_bwd'] * 1e3:.4f} ms  vs plain mean "
           f"{float(diff.mean()):.3g} max {float(diff.max()):.3g}", flush=True)
 
@@ -533,7 +566,7 @@ def phase_kernels(K, bw: float, flops: float, results: dict) -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for case in cases:
         forward_case(K, *case, bw, flops, results, gen)
-        if case[0] in ("small", "odd_c"):
+        if case[0] in ("small", "odd_c", "boundary"):
             backward_case(K, *case, bw, flops, results, gen)
     torch.cuda.empty_cache()
 
@@ -551,10 +584,12 @@ def phase_train_kernels(K, bw: float, flops: float, results: dict) -> None:
 
 def with_wholes(launches: dict) -> dict:
     """Launch counts with the two whole-norm entries of the report added:
-    one forward per slab or apply launch, one backward per bwd apply."""
+    one forward per slab or apply launch, one backward per bwd slab or bwd
+    apply launch."""
     return {**launches,
             "instance_norm_act": launches["instance_norm_slab"] + launches["instance_norm_apply"],
-            "instance_norm_act_bwd": launches["instance_norm_bwd_apply"]}
+            "instance_norm_act_bwd": (launches["instance_norm_bwd_slab"]
+                                      + launches["instance_norm_bwd_apply"])}
 
 
 def generator_norms(n: int, spatial) -> list:
@@ -580,15 +615,23 @@ def forward_launches(K, shapes, dtype) -> dict:
             "instance_norm_apply": len(shapes) - slab}
 
 
+def backward_launches(K, shapes, dtype) -> dict:
+    """Each backward kernel's launches for norms of these shapes: one bwd
+    slab launch where K.uses_slab holds, one bwd stats and one bwd apply
+    elsewhere."""
+    slab = sum(K.uses_slab(s, dtype) for s in shapes)
+    return {"instance_norm_bwd_slab": slab, "instance_norm_bwd_stats": len(shapes) - slab,
+            "instance_norm_bwd_apply": len(shapes) - slab}
+
+
 def times(counts: dict, k: int) -> dict:
     return {name: n * k for name, n in counts.items()}
 
 
-def launched(K, forward: dict, backward: int) -> bool:
-    """Every forward norm kernel launched as often as ``forward`` says and
-    every backward one ``backward`` times since the counters were zeroed."""
-    return (all(K.LAUNCHES[k] == forward[k] for k in K.FORWARD)
-            and all(K.LAUNCHES[k] == backward for k in K.BACKWARD))
+def launched(K, want: dict) -> bool:
+    """Every norm kernel, forward and backward, launched as often as
+    ``want`` says (0 where it names none) since the counters were zeroed."""
+    return all(K.LAUNCHES[k] == want.get(k, 0) for k in K.FORWARD + K.BACKWARD)
 
 
 def phase_conv_formats() -> list:
@@ -646,7 +689,7 @@ def phase_generator(K, tree) -> None:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         want = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), dtype)
-        check(launched(K, want, 0), f"launches per forward {K.LAUNCHES}, want {want}, "
+        check(launched(K, want), f"launches per forward {K.LAUNCHES}, want {want}, "
               f"no backward")
         with plain_norms():
             yp = gen(x)
@@ -674,7 +717,7 @@ def phase_generator(K, tree) -> None:
 # multi_tensor_apply_kernel and the backward norm kernels contain the names
 # of forward norm kernels)
 PROFILE_CLASSES = (
-    ("norm_bwd", ("bwd_stats_kernel", "bwd_finalize_kernel", "bwd_apply_kernel")),
+    ("norm_bwd", ("bwd_slab_kernel", "bwd_stats_kernel", "bwd_apply_kernel")),
     ("optimizer", ("multi_tensor_apply",)),
     ("norm", ("slab_kernel", "stats_kernel", "apply_kernel")),
     ("copy", ("memcpy", "memset", "copy_kernel")),
@@ -752,7 +795,7 @@ def phase_decode(K, tree, results: dict) -> dict:
     secs = [time.perf_counter() - t0]
     launches = dict(K.LAUNCHES)
     per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
-    check(launched(K, times(per_forward, n_batches), 0),
+    check(launched(K, times(per_forward, n_batches)),
           f"{n_batches} x {per_forward} launches per decode, no backward: {launches}")
     check(out.shape == VOLUME and out.dtype == np.float32 and bool(np.isfinite(out).all()),
           "decode output finite float32 of the volume's shape")
@@ -778,7 +821,7 @@ def phase_decode(K, tree, results: dict) -> dict:
     sp_secs = [time.perf_counter() - t0]
     sp_launches = dict(K.LAUNCHES)
     want = forward_launches(K, generator_norms(1, VOLUME), torch.bfloat16)
-    check(launched(K, want, 0), f"single pass launches {sp_launches}, want {want}")
+    check(launched(K, want), f"single pass launches {sp_launches}, want {want}, no backward")
     check(sp.shape == VOLUME and bool(np.isfinite(sp).all()), "single-pass output finite")
     t0 = time.perf_counter()
     single_pass_apply(gen, vol)
@@ -833,8 +876,8 @@ def phase_cli(K, tree, workdir: Path) -> None:
     secs = time.perf_counter() - t0
     check(failed == [], f"CLI skipped {failed}")
     per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
-    check(launched(K, times(per_forward, batches), 0),
-          f"CLI launches {K.LAUNCHES}, want {batches} x {per_forward}")
+    check(launched(K, times(per_forward, batches)),
+          f"CLI launches {K.LAUNCHES}, want {batches} x {per_forward}, no backward")
     for i, shp in enumerate(shapes):
         src = nifti.load(workdir / "in" / f"v{i}.nii.gz")
         got = nifti.load(workdir / "out" / f"v{i}.nii.gz")
@@ -890,11 +933,12 @@ def phase_train(K, results: dict) -> dict:
         secs = (time.perf_counter() - t0) / timed
         launches = dict(K.LAUNCHES)
         relayouts = K.GRAD_RELAYOUTS["count"] / timed
-        per_step = forward_launches(
-            K, 4 * generator_norms(batch, PATCH) + 4 * patchgan_norms(batch), cfg.dtype)
-        check(launched(K, times(per_step, timed), NORMS_PER_STEP * timed),
-              f"train b{batch}: {per_step} forward and {NORMS_PER_STEP} of each backward "
-              f"launch per step: {launches} over {timed} steps")
+        norms = 4 * generator_norms(batch, PATCH) + 4 * patchgan_norms(batch)
+        check(len(norms) == NORMS_PER_STEP, f"{len(norms)} norms per step")
+        per_step = {**forward_launches(K, norms, cfg.dtype),
+                    **backward_launches(K, norms, cfg.dtype)}
+        check(launched(K, times(per_step, timed)),
+              f"train b{batch}: {per_step} launches per step: {launches} over {timed} steps")
         losses = {k: float(v) for k, v in metrics.items()}
         check(len(losses) == 10 and all(math.isfinite(v) for v in losses.values()),
               f"train b{batch}: finite losses {losses}")
@@ -1054,11 +1098,16 @@ def main(argv=None) -> int:
                                 "stats kernel's partials in its prologue"},
         "instance_norm_act": {"replaces": f"{pallas}:108", "note": "the whole forward (_fwd): "
                               "one slab launch or stats + apply; launches = forward norms"},
+        "instance_norm_bwd_slab": {"replaces": f"{pallas}:137", "note": "_bwd_sum_kernel "
+                                   "(:137) and _bwd_apply_kernel (:155) in one launch where "
+                                   "K.uses_slab holds; library_ms: autograd backward of "
+                                   "F.instance_norm + activation"},
         "instance_norm_bwd_stats": {"replaces": f"{pallas}:137"},
-        "instance_norm_bwd_finalize": {"replaces": f"{pallas}:137"},
-        "instance_norm_bwd_apply": {"replaces": f"{pallas}:155"},
-        "instance_norm_act_bwd": {"replaces": f"{pallas}:167", "note": "the three backward "
-                                  "launches together (_bwd); launches = backward norms"},
+        "instance_norm_bwd_apply": {"replaces": f"{pallas}:155", "note": "with the merge of the "
+                                    "bwd stats kernel's partial sums in its prologue"},
+        "instance_norm_act_bwd": {"replaces": f"{pallas}:167", "note": "the whole backward "
+                                  "(_bwd): one bwd slab launch or bwd stats + bwd apply; "
+                                  "launches = backward norms"},
     }
     for k, r in results.items():
         r.update(name=k, route="cuda", source=src, bound_by="bytes", shapes=[])
@@ -1081,10 +1130,9 @@ def main(argv=None) -> int:
         backward = "bwd" in k
         # forward kernels: the decode's batch-8 stem shape (the decode is
         # their first main path); backward kernels: the batch-8 train step's
-        # largest norm
-        # largest norm; the slab kernel at the trunk's 128 channels, its largest
+        # largest norm; the slab kernels at the trunk's 128 channels, their largest
         path, n = ("G b8", 2 * max(TRAIN_BATCHES)) if backward else ("b8", DECODE_BATCH)
-        width = 4 * NGF if k == "instance_norm_slab" else NGF
+        width = 4 * NGF if k in ("instance_norm_slab", "instance_norm_bwd_slab") else NGF
         head = next(s for s in r["shapes"] if s["path"] == path and s["shape"][:2] == [n, width]
                     and s["dtype"] == "bf16")
         train_head = next(s for s in r["shapes"] if s["path"] == "G b8"

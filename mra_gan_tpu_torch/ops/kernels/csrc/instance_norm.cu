@@ -4,8 +4,8 @@
 // Replaces the TPU Pallas kernels of mra_gan_tpu/ops/pallas/instance_norm.py:
 //   _sum_kernel       (:86)  per-(n, c) statistics  -> slab_kernel, or stats_kernel
 //   _apply_kernel     (:100) normalise + activation -> slab_kernel, or apply_kernel
-//   _bwd_sum_kernel   (:137) sums of g' and g'z     -> bwd_stats_kernel + bwd_finalize_kernel
-//   _bwd_apply_kernel (:155) the input gradient     -> bwd_apply_kernel
+//   _bwd_sum_kernel   (:137) sums of g' and g'z     -> bwd_slab_kernel, or bwd_stats_kernel
+//   _bwd_apply_kernel (:155) the input gradient     -> bwd_slab_kernel, or bwd_apply_kernel
 // y = act((x - mean) * rsqrt(var + eps)), act in {none, relu, leaky_relu, tanh},
 // with the variance CENTRED (as mra_gan_tpu/ops/norm.py:_in_fwd_core), not the
 // Pallas kernel's E[x^2] - E[x]^2, which cancels when |mean| >> std.
@@ -49,18 +49,38 @@
 // Backward (the analytic VJP, mra_gan_tpu/ops/norm.py:_in_vjp_bwd):
 //   g' = g * act'(z),  dx = rstd * (g' - mean(g') - z * mean(g' z)),
 // with z recomputed from x and the saved (mean, rstd): no activation is
-// stored. Bound: memory again, x + g in and dx out at the least, and two
-// passes over x and g as on the TPU:
-//   4. bwd_stats_kernel reads x and g once on the forward's (S, N, chunk)
-//      grid and writes (N, S, C) f32 partial sums of g' and g'z (plain sums:
-//      nothing cancels here the way E[x^2] - E[x]^2 does);
-//   5. bwd_finalize_kernel adds the S partials per (n, c) and divides by V;
-//   6. bwd_apply_kernel reads x and g again and writes dx, all in f32 and
-//      rounded once to g's dtype (the Pallas form, not the XLA one, which
-//      rounds at every step).
-// z is formed by one function, normalize(), in the forward's slab_kernel and
-// apply_kernel and in both backward kernels, so a relu or leaky_relu mask at z ~ 0 is
-// the same in the two passes; act'(z) is taken at z >= 0, as in JAX.
+// stored. The sums of g' and g'z are plain f32 sums (nothing cancels here
+// the way E[x^2] - E[x]^2 does), and dx is formed in f32 and rounded once to
+// g's dtype (the Pallas form, not the XLA one, which rounds at every step).
+// Bound: memory again, x + g in and dx out at the least. The same two routes
+// as the forward, on the same predicate (uses_slab), so a norm's forward
+// and backward always take the same one:
+//
+// One launch where the forward's slab fits:
+//   bwd_slab_kernel: one block per (n, 32-byte channel chunk) instance, on
+//   slab_kernel's grid and block, copies x's slab into shared memory with
+//   cp.async, and g's for as many voxels as the rest of the 224 KiB holds
+//   (all of an 8^3 or 7^3 instance, 3/4 of a 16^3 one). Pass 1 sums g' and
+//   g'z; pass 2 writes dx. x and g of a 16^3 instance would take 256 KiB,
+//   more than a block may have, so the g that is not staged is streamed
+//   twice (kUnroll loads in flight); the second read follows the first from
+//   the same block, and the g in flight on the whole card (at most 32 KiB a
+//   16^3 instance, one instance per SM) fits in the 50 MB L2, so device
+//   memory sees x + g + dx: the bound's traffic. Staging what fits was
+//   faster on the H100 than streaming all of g, at every slab shape of the
+//   path; more loads in flight (8, 16) or 512 threads a block were not.
+//
+// Two launches elsewhere:
+//   1. bwd_stats_kernel reads x and g once on the (S, N, chunk) grid, with
+//      kUnroll independent 16-byte loads of each per step, and writes (N, S,
+//      C) f32 partial sums of g' and g'z;
+//   2. bwd_apply_kernel adds the S partials of its (n, channels) in its
+//      prologue (every block in the same order, so all agree bit for bit),
+//      divides by V, then reads x and g again and writes dx.
+//
+// z is formed by one function, normalize(), in every kernel, forward and
+// backward, so a relu or leaky_relu mask at z ~ 0 is the same in all
+// passes; act'(z) is taken at z >= 0, as in JAX.
 //
 // Plain C interface for ctypes; every launch goes on the caller's stream and
 // returns cudaGetLastError() so that the wrapper can raise on a refused launch.
@@ -74,11 +94,10 @@
 namespace {
 
 constexpr int kThreads = 256;   // stats and apply blocks (the wrapper's _THREADS)
-// stats and apply: independent 16-byte loads per thread and step (8 was
-// slower for stats on the H100: more registers, fewer resident blocks)
+// independent 16-byte loads per thread and step, of x and of g in the
+// backward (8 was slower for stats on the H100: more registers, fewer
+// resident blocks)
 constexpr int kUnroll = 4;
-constexpr int kFinX = 32;       // bwd_finalize: channels per block
-constexpr int kFinY = 32;       // bwd_finalize: segment lanes per block
 constexpr int kSlabThreads = 256;  // 128, 512 and 1024 were slower on the H100
 // Dynamic shared memory for one slab (the wrapper's SLAB_BYTES): 224 KiB of
 // the 227 KiB a block may have, the rest for the slab kernel's static sums.
@@ -208,6 +227,36 @@ __device__ __forceinline__ float act_grad(float z, float slope) {
     return 1.f - t * t;
   }
   return 1.f;
+}
+
+// Fold one pack's g' = g act'(z) into s[0, VEC) and g'z into s[VEC, 2 VEC).
+template <int ACT, typename T, int VEC>
+__device__ __forceinline__ void add_grad_terms(float* s, const Pack<T, VEC>& xp,
+                                               const Pack<T, VEC>& gp, const float* mu,
+                                               const float* rs, float slope) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float z = normalize(to_float(xp.v[i]), mu[i], rs[i]);
+    const float gq = to_float(gp.v[i]) * act_grad<ACT>(z, slope);
+    s[i] += gq;
+    s[VEC + i] += gq * z;
+  }
+}
+
+// dx of one pack from the means gm of g' and gzm of g'z, in f32, rounded once.
+template <int ACT, typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> input_grad(const Pack<T, VEC>& xp, const Pack<T, VEC>& gp,
+                                                   const float* mu, const float* rs,
+                                                   const float* gm, const float* gzm,
+                                                   float slope) {
+  Pack<T, VEC> out;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float z = normalize(to_float(xp.v[i]), mu[i], rs[i]);
+    const float gq = to_float(gp.v[i]) * act_grad<ACT>(z, slope);
+    out.v[i] = from_float<T>(rs[i] * (gq - gm[i] - z * gzm[i]));
+  }
+  return out;
 }
 
 // grid (S, N, ceil(G / blockDim.x)), block (gx, R) with G = C / VEC channel
@@ -461,6 +510,103 @@ slab_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ mean
   }
 }
 
+// Plain sums over the R = blockDim.y voxel lanes of a (gx, R) block, each
+// thread holding K floats; smem holds gx * R * K floats. merge_lanes's tree:
+// lane 0 ends with the whole in its registers and in slot tx of smem, read
+// after a __syncthreads().
+template <int K>
+__device__ __forceinline__ void sum_lanes(float* s, float* smem) {
+  const int gx = blockDim.x, R = blockDim.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int slot = ty * gx + tx;
+#pragma unroll
+  for (int k = 0; k < K; ++k) smem[slot * K + k] = s[k];
+  for (int off = 1; off < R; off <<= 1) {
+    __syncthreads();
+    if ((ty & (2 * off - 1)) == 0 && ty + off < R) {
+      const int o = (ty + off) * gx + tx;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        s[k] += smem[o * K + k];
+        smem[slot * K + k] = s[k];
+      }
+    }
+  }
+}
+
+// grid (C / (kSlabPacks VEC) chunks, N), block kSlabThreads, dynamic shared
+// memory (V + VG) * kSlabChunk bytes: x's slab as slab_kernel's, then g's
+// slab for the last VG voxels. Thread t owns pack t % kSlabPacks of voxels
+// t / kSlabPacks + k * lanes, and reads back from shared memory only what it
+// copied there itself.
+template <typename T, int VEC, int ACT>
+__global__ void __launch_bounds__(kSlabThreads)
+bwd_slab_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                const float* __restrict__ mean, const float* __restrict__ rstd,
+                T* __restrict__ dx, int V, int VG, int C, float slope) {
+  extern __shared__ __align__(16) unsigned char slab_raw[];
+  __shared__ float red[2 * VEC * kSlabWarps * kSlabPacks];
+  using P = Pack<T, VEC>;
+  P* slab = reinterpret_cast<P*>(slab_raw);
+  P* gslab = slab + V * kSlabPacks;  // g of voxel v >= v_staged at gslab[v - v_staged]
+  constexpr int kLanes = kSlabThreads / kSlabPacks;
+  const int h = threadIdx.x % kSlabPacks, lane = threadIdx.x / kSlabPacks;
+  const int64_t n = blockIdx.y;
+  const int c0 = (blockIdx.x * kSlabPacks + h) * VEC;
+  const int64_t base = n * (int64_t)V * C + c0;
+  const T* gp = g + base;
+  const int v_staged = V - VG;
+
+  for (int v = lane; v < V; v += kLanes) {
+    cp_async16(&slab[v * kSlabPacks + h], x + base + (int64_t)v * C);
+    if (v >= v_staged) cp_async16(&gslab[(v - v_staged) * kSlabPacks + h], gp + (int64_t)v * C);
+  }
+  float mu[VEC], rs[VEC], s[2 * VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mu[i] = mean[n * C + c0 + i];
+    rs[i] = rstd[n * C + c0 + i];
+    s[i] = s[VEC + i] = 0.f;
+  }
+  cp_async_wait_all();
+  auto gload = [&](int v) -> P {
+    if (v >= v_staged) return gslab[(v - v_staged) * kSlabPacks + h];
+    return *reinterpret_cast<const P*>(gp + (int64_t)v * C);
+  };
+
+  // pass 1: the sums of g' and g'z, kUnroll loads of g in flight
+  int v = lane;
+  for (; v + (kUnroll - 1) * kLanes < V; v += kUnroll * kLanes) {
+    P gk[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) gk[u] = gload(v + u * kLanes);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      add_grad_terms<ACT>(s, slab[(v + u * kLanes) * kSlabPacks + h], gk[u], mu, rs, slope);
+  }
+  for (; v < V; v += kLanes)
+    add_grad_terms<ACT>(s, slab[v * kSlabPacks + h], gload(v), mu, rs, slope);
+  slab_sum<2 * VEC>(s, red);
+#pragma unroll
+  for (int i = 0; i < 2 * VEC; ++i) s[i] /= (float)V;
+
+  // pass 2: g again (from L2 where not staged), x from shared memory, dx out
+  T* dp = dx + base;
+  v = lane;
+  for (; v + (kUnroll - 1) * kLanes < V; v += kUnroll * kLanes) {
+    P gk[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) gk[u] = gload(v + u * kLanes);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      *reinterpret_cast<P*>(dp + (int64_t)(v + u * kLanes) * C) = input_grad<ACT>(
+          slab[(v + u * kLanes) * kSlabPacks + h], gk[u], mu, rs, s, s + VEC, slope);
+  }
+  for (; v < V; v += kLanes)
+    *reinterpret_cast<P*>(dp + (int64_t)v * C) =
+        input_grad<ACT>(slab[v * kSlabPacks + h], gload(v), mu, rs, s, s + VEC, slope);
+}
+
 // Same grid and block as stats_kernel; shared memory 2 * VEC floats a thread.
 template <typename T, int VEC, int ACT>
 __global__ void __launch_bounds__(kThreads)
@@ -469,6 +615,7 @@ bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  float* __restrict__ part_g, float* __restrict__ part_gz,
                  int64_t V, int C, int S, float slope) {
   extern __shared__ float smem[];
+  using P = Pack<T, VEC>;
   const int G = C / VEC;
   const int gx = blockDim.x, R = blockDim.y;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -477,9 +624,9 @@ bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int64_t n = blockIdx.y;
   const int64_t v0 = seg_begin(s, V, S), v1 = seg_begin(s + 1, V, S);
 
-  float sg[VEC], sgz[VEC];
+  float sum[2 * VEC];  // g' then g'z
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) sg[i] = sgz[i] = 0.f;
+  for (int i = 0; i < 2 * VEC; ++i) sum[i] = 0.f;
   if (grp < G) {
     float mu[VEC], rs[VEC];
 #pragma unroll
@@ -487,121 +634,100 @@ bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
       mu[i] = mean[n * C + grp * VEC + i];
       rs[i] = rstd[n * C + grp * VEC + i];
     }
-    const int64_t base = n * V * C + (int64_t)grp * VEC;
-    for (int64_t v = v0 + ty; v < v1; v += R) {
-      const Pack<T, VEC> xin = *reinterpret_cast<const Pack<T, VEC>*>(x + base + v * C);
-      const Pack<T, VEC> gin = *reinterpret_cast<const Pack<T, VEC>*>(g + base + v * C);
+    const T* xp = x + n * V * C + (int64_t)grp * VEC;
+    const T* gp = g + n * V * C + (int64_t)grp * VEC;
+    int64_t v = v0 + ty;
+    for (; v + (kUnroll - 1) * R < v1; v += kUnroll * R) {  // kUnroll loads of each in flight
+      P xk[kUnroll], gk[kUnroll];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float z = normalize(to_float(xin.v[i]), mu[i], rs[i]);
-        const float gp = to_float(gin.v[i]) * act_grad<ACT>(z, slope);
-        sg[i] += gp;
-        sgz[i] += gp * z;
+      for (int u = 0; u < kUnroll; ++u) {
+        xk[u] = *reinterpret_cast<const P*>(xp + (v + u * R) * C);
+        gk[u] = *reinterpret_cast<const P*>(gp + (v + u * R) * C);
       }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) add_grad_terms<ACT>(sum, xk[u], gk[u], mu, rs, slope);
     }
+    for (; v < v1; v += R)
+      add_grad_terms<ACT>(sum, *reinterpret_cast<const P*>(xp + v * C),
+                          *reinterpret_cast<const P*>(gp + v * C), mu, rs, slope);
   }
 
-  // The stats kernel's tree over the R voxel lanes, with plain sums.
-  float* s_g = smem;
-  float* s_gz = s_g + gx * R * VEC;
-  const int slot = ty * gx + tx;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    s_g[slot * VEC + i] = sg[i];
-    s_gz[slot * VEC + i] = sgz[i];
-  }
-  for (int off = 1; off < R; off <<= 1) {
-    __syncthreads();
-    if ((ty & (2 * off - 1)) == 0 && ty + off < R) {
-      const int o = (ty + off) * gx + tx;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        sg[i] += s_g[o * VEC + i];
-        sgz[i] += s_gz[o * VEC + i];
-        s_g[slot * VEC + i] = sg[i];
-        s_gz[slot * VEC + i] = sgz[i];
-      }
-    }
-  }
+  sum_lanes<2 * VEC>(sum, smem);
   if (ty == 0 && grp < G) {
     const int64_t o = (n * S + s) * C + (int64_t)grp * VEC;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      part_g[o + i] = sg[i];
-      part_gz[o + i] = sgz[i];
+      part_g[o + i] = sum[i];
+      part_gz[o + i] = sum[VEC + i];
     }
   }
 }
 
-// grid (ceil(C / kFinX), N), block (kFinX, kFinY).
-__global__ void __launch_bounds__(kFinX * kFinY)
-bwd_finalize_kernel(const float* __restrict__ part_g, const float* __restrict__ part_gz,
-                    float* __restrict__ gmean, float* __restrict__ gzmean,
-                    int64_t V, int C, int S) {
-  __shared__ float s_g[kFinY][kFinX], s_z[kFinY][kFinX];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * kFinX + tx;
-  const int64_t n = blockIdx.y;
-  float a = 0.f, b = 0.f;
-  if (c < C) {
-    for (int s = ty; s < S; s += kFinY) {
-      const int64_t o = (n * S + s) * C + c;
-      a += part_g[o];
-      b += part_gz[o];
-    }
-  }
-  s_g[ty][tx] = a;
-  s_z[ty][tx] = b;
-  for (int off = 1; off < kFinY; off <<= 1) {
-    __syncthreads();
-    if ((ty & (2 * off - 1)) == 0) {
-      a += s_g[ty + off][tx];
-      b += s_z[ty + off][tx];
-      s_g[ty][tx] = a;
-      s_z[ty][tx] = b;
-    }
-  }
-  if (ty == 0 && c < C) {
-    gmean[n * C + c] = a / (float)V;
-    gzmean[n * C + c] = b / (float)V;
-  }
-}
-
-// Same grid and block as apply_kernel.
+// Same grid, block and shared memory as bwd_stats_kernel; part_g, part_gz
+// are its (N, S, C) partials on this grid.
 template <typename T, int VEC, int ACT>
 __global__ void __launch_bounds__(kThreads)
 bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  const float* __restrict__ mean, const float* __restrict__ rstd,
-                 const float* __restrict__ gmean, const float* __restrict__ gzmean,
+                 const float* __restrict__ part_g, const float* __restrict__ part_gz,
                  T* __restrict__ dx, int64_t V, int C, int S, float slope) {
+  extern __shared__ float smem[];
+  using P = Pack<T, VEC>;
   const int G = C / VEC;
-  const int grp = blockIdx.z * blockDim.x + threadIdx.x;
-  if (grp >= G) return;
+  const int gx = blockDim.x, R = blockDim.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int grp = blockIdx.z * gx + tx;
   const int s = blockIdx.x;
   const int64_t n = blockIdx.y;
-  const int64_t v0 = seg_begin(s, V, S), v1 = seg_begin(s + 1, V, S);
-  float mu[VEC], rs[VEC], gm[VEC], gzm[VEC];
+
+  // The merge: lane ty adds partials ty, ty + R, ... in order, then the
+  // lanes' tree. Every block of (n, channels) does the same, in the same order.
+  float m[2 * VEC];  // mean(g') then mean(g'z)
+#pragma unroll
+  for (int i = 0; i < 2 * VEC; ++i) m[i] = 0.f;
+  if (grp < G) {
+    for (int j = ty; j < S; j += R) {
+      const int64_t o = (n * S + j) * C + (int64_t)grp * VEC;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        m[i] += part_g[o + i];
+        m[VEC + i] += part_gz[o + i];
+      }
+    }
+  }
+  sum_lanes<2 * VEC>(m, smem);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2 * VEC; ++i) m[i] = smem[tx * 2 * VEC + i] / (float)V;
+  if (grp >= G) return;
+
+  float mu[VEC], rs[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    const int64_t o = n * C + grp * VEC + i;
-    mu[i] = mean[o];
-    rs[i] = rstd[o];
-    gm[i] = gmean[o];
-    gzm[i] = gzmean[o];
+    mu[i] = mean[n * C + grp * VEC + i];
+    rs[i] = rstd[n * C + grp * VEC + i];
   }
-  const int64_t base = n * V * C + (int64_t)grp * VEC;
-  for (int64_t v = v0 + threadIdx.y; v < v1; v += blockDim.y) {
-    const Pack<T, VEC> xin = *reinterpret_cast<const Pack<T, VEC>*>(x + base + v * C);
-    const Pack<T, VEC> gin = *reinterpret_cast<const Pack<T, VEC>*>(g + base + v * C);
-    Pack<T, VEC> out;
+  const int64_t v0 = seg_begin(s, V, S), v1 = seg_begin(s + 1, V, S);
+  const T* xp = x + n * V * C + (int64_t)grp * VEC;
+  const T* gp = g + n * V * C + (int64_t)grp * VEC;
+  T* dp = dx + n * V * C + (int64_t)grp * VEC;
+  int64_t v = v0 + ty;
+  for (; v + (kUnroll - 1) * R < v1; v += kUnroll * R) {  // kUnroll loads of each in flight
+    P xk[kUnroll], gk[kUnroll];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float z = normalize(to_float(xin.v[i]), mu[i], rs[i]);
-      const float gp = to_float(gin.v[i]) * act_grad<ACT>(z, slope);
-      out.v[i] = from_float<T>(rs[i] * (gp - gm[i] - z * gzm[i]));
+    for (int u = 0; u < kUnroll; ++u) {
+      xk[u] = *reinterpret_cast<const P*>(xp + (v + u * R) * C);
+      gk[u] = *reinterpret_cast<const P*>(gp + (v + u * R) * C);
     }
-    *reinterpret_cast<Pack<T, VEC>*>(dx + base + v * C) = out;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      *reinterpret_cast<P*>(dp + (v + u * R) * C) =
+          input_grad<ACT>(xk[u], gk[u], mu, rs, m, m + VEC, slope);
   }
+  for (; v < v1; v += R)
+    *reinterpret_cast<P*>(dp + v * C) =
+        input_grad<ACT>(*reinterpret_cast<const P*>(xp + v * C),
+                        *reinterpret_cast<const P*>(gp + v * C), mu, rs, m, m + VEC, slope);
 }
 
 struct Geometry {
@@ -758,34 +884,49 @@ int mra_in_bwd_stats(const void* x, const void* g, const void* mean, const void*
   });
 }
 
-// part_g, part_gz (N, S, C) -> gmean, gzmean (N, C), all float32.
-int mra_in_bwd_finalize(const void* part_g, const void* part_gz, void* gmean, void* gzmean,
-                        int64_t N, int64_t V, int C, int S, void* stream) {
-  if (!valid(N, V, C, S, 1)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((C + kFinX - 1) / kFinX), (unsigned)N);
-  const dim3 block(kFinX, kFinY);
-  bwd_finalize_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_g), static_cast<const float*>(part_gz),
-      static_cast<float*>(gmean), static_cast<float*>(gzmean), V, C, S);
-  return (int)cudaGetLastError();
-}
-
-// x, g, dx (N, V, C) in `dtype`; mean, rstd, gmean, gzmean (N, C) float32.
+// x, g, dx (N, V, C) in `dtype`; mean, rstd (N, C) float32; part_g,
+// part_gz (N, S, C) float32 from mra_in_bwd_stats with the same S.
 int mra_in_bwd_apply(const void* x, const void* g, const void* mean, const void* rstd,
-                     const void* gmean, const void* gzmean, void* dx, int64_t N, int64_t V,
+                     const void* part_g, const void* part_gz, void* dx, int64_t N, int64_t V,
                      int C, int S, int dtype, int vec, int act, float slope, void* stream) {
   if (!valid(N, V, C, S, vec)) return (int)cudaErrorInvalidValue;
   return dispatch(dtype, vec, act, [&](auto t, auto v, auto a) {
     MRA_KERNEL_TYPES(t, v, a);
     const Geometry geo = geometry<VEC>(N, C, S);
+    const size_t smem = (size_t)geo.threads * 2 * VEC * sizeof(float);
     bwd_apply_kernel<T, VEC, ACT>
-        <<<geo.grid, geo.block, 0, static_cast<cudaStream_t>(stream)>>>(
+        <<<geo.grid, geo.block, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const T*>(x), static_cast<const T*>(g),
             static_cast<const float*>(mean), static_cast<const float*>(rstd),
-            static_cast<const float*>(gmean), static_cast<const float*>(gzmean),
+            static_cast<const float*>(part_g), static_cast<const float*>(part_gz),
             static_cast<T*>(dx), V, C, S, slope);
     return (int)cudaGetLastError();
   });
+}
+
+// x, g, dx (N, V, C) in `dtype`, 16-byte aligned; mean, rstd (N, C)
+// float32. mra_in_slab's grid and limits; g is staged for as many voxels
+// as the shared memory that x's slab leaves free holds.
+int mra_in_bwd_slab(const void* x, const void* g, const void* mean, const void* rstd, void* dx,
+                    int64_t N, int64_t V, int C, int dtype, int act, float slope, void* stream) {
+  const int es = dtype == DT_BF16 ? 2 : 4;
+  if (!valid(N, V, C, 1, 1) || (C * es) % kSlabChunk != 0 || V * kSlabChunk > kSlabBytes)
+    return (int)cudaErrorInvalidValue;
+  const int64_t vg = V < kSlabBytes / kSlabChunk - V ? V : kSlabBytes / kSlabChunk - V;
+  auto f = [&](auto t, auto v, auto a) {
+    MRA_KERNEL_TYPES(t, v, a);
+    static const cudaError_t attr = prefer_shared(bwd_slab_kernel<T, VEC, ACT>, kSlabBytes);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((unsigned)(C / (kSlabPacks * VEC)), (unsigned)N);
+    bwd_slab_kernel<T, VEC, ACT><<<grid, kSlabThreads, (size_t)(V + vg) * kSlabChunk,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const float*>(mean),
+        static_cast<const float*>(rstd), static_cast<T*>(dx), (int)V, (int)vg, C, slope);
+    return (int)cudaGetLastError();
+  };
+  if (dtype == DT_BF16) return with_act<__nv_bfloat16, 8>(act, f);
+  if (dtype == DT_F32) return with_act<float, 4>(act, f);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -5,25 +5,29 @@ Port of mra_gan_tpu/ops/pallas/instance_norm.py (``_fwd`` :108, ``_bwd``
 :167, ``instance_norm_act_tpu`` :196); the kernels' design is described in
 ``csrc/instance_norm.cu``. Six kernels, one wrapper each:
 
-- ``instance_norm_slab``         x -> act((x - mean) * rstd), mean, rstd in one
+- ``instance_norm_slab``      x -> act((x - mean) * rstd), mean, rstd in one
   launch, for an instance that fits in shared memory (``uses_slab``)
-- ``instance_norm_stats``        x -> per-segment (mean, M2) partials (N, S, C)
-- ``instance_norm_apply``        x, partials -> act((x - mean) * rstd), mean, rstd
-- ``instance_norm_bwd_stats``    x, g, mean, rstd -> per-segment sums of
-  g' = g * act'(z) and g' z (N, S, C)
-- ``instance_norm_bwd_finalize`` those sums -> mean(g'), mean(g' z) (N, C)
-- ``instance_norm_bwd_apply``    -> dx = rstd * (g' - mean(g') - z mean(g' z))
+- ``instance_norm_stats``     x -> per-segment (mean, M2) partials (N, S, C)
+- ``instance_norm_apply``     x, partials -> act((x - mean) * rstd), mean, rstd
+- ``instance_norm_bwd_slab``  x, g, mean, rstd -> dx = rstd * (g' - mean(g') -
+  z mean(g' z)) with g' = g * act'(z), in one launch where ``uses_slab`` holds
+- ``instance_norm_bwd_stats`` x, g, mean, rstd -> per-segment sums of g' and
+  g' z (N, S, C)
+- ``instance_norm_bwd_apply`` x, g, mean, rstd, those sums -> dx
 
-The forward (``instance_norm_act_fwd``) takes one of two routes, picked by
-``uses_slab`` from the shape and dtype alone: the slab kernel where one (n,
-32-byte channel chunk) instance fits in SLAB_BYTES of shared memory, else
-stats then apply (``instance_norm_two_pass``).
+Forward and backward each take one of two routes, picked by ``uses_slab``
+from the shape and dtype alone, so a norm's two directions take the same
+one: where one (n, 32-byte channel chunk) instance fits in SLAB_BYTES of
+shared memory, one launch (``instance_norm_slab``, ``instance_norm_bwd_slab``);
+else two, the second merging the first's partials in its prologue
+(``instance_norm_two_pass``: stats then apply; ``instance_norm_bwd_two_pass``:
+bwd stats then bwd apply).
 
 A wrapper given a CPU tensor runs its plain version; given a CUDA tensor it
 launches its kernel or raises (wrong dtype, shape or layout, failed build,
 refused launch). Each launch adds one to ``LAUNCHES[<wrapper name>]``;
 ``instance_norm_act_bwd_fused`` adds one to ``GRAD_RELAYOUTS["count"]`` for
-each gradient it had to copy into channels_last_3d.
+each gradient it had to copy into a fresh channels_last_3d tensor.
 
 ``instance_norm_act_plain`` and ``instance_norm_act_bwd_plain`` are the plain
 versions of the whole function and of its gradient, step by step as
@@ -44,17 +48,19 @@ EPS = 1e-5
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256          # stats/apply block size, kThreads in the .cu
-_TARGET_BLOCKS = 132 * 8  # backward: about 8 resident blocks on each of the H100's 132 SMs
-# Forward: half that. Each apply block merges all S partials of its channels,
-# and fewer, longer segments were faster at every two-pass shape on the H100.
+# Blocks the two-pass kernels aim at, at most: one wave on the H100's 132
+# SMs. Each apply block merges all S partials of its channels, so fewer,
+# longer segments were faster than several waves; and a grid a few blocks
+# past a wave waits a whole block's time for those few (the bwd kernels' 77-78
+# registers a thread leave room for three 256-thread blocks an SM, 396 in all).
 _FWD_TARGET_BLOCKS = 132 * 4
+_TARGET_BLOCKS = 132 * 3  # backward
 _MIN_VOXELS_PER_LANE = 4
 SLAB_BYTES = 224 * 1024  # kSlabBytes in the .cu: one instance's shared memory
 SLAB_CHUNK = 32          # kSlabChunk in the .cu: bytes of channels per voxel in one instance
 
 FORWARD = ("instance_norm_slab", "instance_norm_stats", "instance_norm_apply")
-BACKWARD = ("instance_norm_bwd_stats", "instance_norm_bwd_finalize",
-            "instance_norm_bwd_apply")
+BACKWARD = ("instance_norm_bwd_slab", "instance_norm_bwd_stats", "instance_norm_bwd_apply")
 LAUNCHES = {k: 0 for k in FORWARD + BACKWARD}
 GRAD_RELAYOUTS = {"count": 0}
 
@@ -221,7 +227,8 @@ def bwd_stats_plain(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
 
 def bwd_finalize_plain(part_g: torch.Tensor, part_gz: torch.Tensor,
                        voxels: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Segment sums (N, S, C) -> mean(g'), mean(g' z) (N, C)."""
+    """Segment sums (N, S, C) -> mean(g'), mean(g' z) (N, C): the merge in
+    the bwd apply kernel's prologue."""
     return part_g.sum(1) / voxels, part_gz.sum(1) / voxels
 
 
@@ -232,6 +239,17 @@ def bwd_apply_plain(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     dtype."""
     z, gp = _z_and_gp(x, g, mean, rstd, act, negative_slope)
     return (_bcast(rstd) * (gp - _bcast(gmean) - z * _bcast(gzmean))).to(g.dtype)
+
+
+def bwd_slab_plain(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor, act: str = "none",
+                   negative_slope: float = 0.2) -> torch.Tensor:
+    """The bwd slab kernel's arithmetic: the float32 sums of g' and g' z over
+    each whole instance divided by V, then dx in float32, rounded once to g's
+    dtype (the two-pass plain versions at one segment)."""
+    part_g, part_gz = bwd_stats_plain(x, g, mean, rstd, 1, act, negative_slope)
+    gmean, gzmean = bwd_finalize_plain(part_g, part_gz, math.prod(x.shape[2:]))
+    return bwd_apply_plain(x, g, mean, rstd, gmean, gzmean, act, negative_slope)
 
 
 # ---------------------------------------------------------------------------
@@ -253,22 +271,23 @@ def pair_width(x: torch.Tensor, g: torch.Tensor) -> int:
 
 
 def uses_slab(shape, dtype: torch.dtype) -> bool:
-    """The forward's route: True where C is a whole number of SLAB_CHUNK-byte
-    chunks and one (n, chunk) instance, V voxels of SLAB_CHUNK bytes, fits in
-    SLAB_BYTES of shared memory (the 16^3, 8^3 and 7^3 norms of the path);
-    False sends the norm to the two-pass kernels."""
+    """The route, forward and backward: True where C is a whole number of
+    SLAB_CHUNK-byte chunks and one (n, chunk) instance, V voxels of
+    SLAB_CHUNK bytes, fits in SLAB_BYTES of shared memory (the 16^3, 8^3 and
+    7^3 norms of the path); False sends the norm to the two-pass kernels."""
     return shape[1] * dtype.itemsize % SLAB_CHUNK == 0 and math.prod(shape[2:]) * SLAB_CHUNK <= SLAB_BYTES
 
 
 def num_segments(n: int, voxels: int, c: int, vec: int,
                  target: int = _TARGET_BLOCKS) -> int:
-    """Voxel segments per sample: about ``target`` blocks in all, but at
-    least _MIN_VOXELS_PER_LANE voxels per thread lane."""
+    """Voxel segments per sample: at most ``target`` blocks in all (one
+    segment where n * chunks passes it), and at least _MIN_VOXELS_PER_LANE
+    voxels per thread lane."""
     groups = c // vec
     gx = min(groups, _THREADS)
     lanes = _THREADS // gx
     chunks = -(-groups // gx)
-    want = -(-target // (n * chunks))
+    want = max(1, target // (n * chunks))
     most = max(1, voxels // (lanes * _MIN_VOXELS_PER_LANE))
     return max(1, min(want, most))
 
@@ -277,6 +296,20 @@ def forward_segments(x: torch.Tensor) -> int:
     """The two-pass forward's segment count for x."""
     n, c = x.shape[:2]
     return num_segments(n, math.prod(x.shape[2:]), c, vector_width(x), _FWD_TARGET_BLOCKS)
+
+
+def backward_segments(x: torch.Tensor, g: torch.Tensor) -> int:
+    """The two-pass backward's segment count for x and g: ``num_segments``,
+    but at most sqrt(V * itemsize / 8). Each bwd apply block reads all S
+    partial sums of its channels (8 bytes a channel each) besides its own
+    V / S voxels of x and g (2 * itemsize bytes a channel each); the bound
+    keeps the first under half of the second. Without it the 64^3 and 32^3
+    backwards at batch 1 and 2 took several times the segments and ran
+    slower on the H100."""
+    n, c = x.shape[:2]
+    voxels = math.prod(x.shape[2:])
+    most = max(1, math.isqrt(voxels * x.element_size() // 8))
+    return min(num_segments(n, voxels, c, pair_width(x, g)), most)
 
 
 # ---------------------------------------------------------------------------
@@ -295,11 +328,11 @@ def _lib() -> ctypes.CDLL:
     lib.mra_in_slab.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, f32, f32, p]
     lib.mra_in_bwd_stats.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, i32,
                                      f32, p]
-    lib.mra_in_bwd_finalize.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
     lib.mra_in_bwd_apply.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, i32,
                                      f32, p]
+    lib.mra_in_bwd_slab.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, f32, p]
     for fn in (lib.mra_in_stats, lib.mra_in_apply, lib.mra_in_slab,
-               lib.mra_in_bwd_stats, lib.mra_in_bwd_finalize, lib.mra_in_bwd_apply):
+               lib.mra_in_bwd_stats, lib.mra_in_bwd_apply, lib.mra_in_bwd_slab):
         fn.restype = ctypes.c_int
     lib.mra_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mra_cuda_error_string.restype = ctypes.c_char_p
@@ -452,47 +485,61 @@ def instance_norm_bwd_stats(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor
     return part_g, part_gz
 
 
-def instance_norm_bwd_finalize(part_g: torch.Tensor, part_gz: torch.Tensor,
-                               voxels: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-segment sums (N, S, C) -> mean(g'), mean(g' z) (N, C) float32."""
-    if part_g.device.type == "cpu":
-        return bwd_finalize_plain(part_g, part_gz, voxels)
-    _check_cuda(part_g, "instance_norm_bwd_finalize")
-    if part_g.dim() != 3:
-        raise ValueError("instance_norm_bwd_finalize: partials must be (N, S, C)")
-    n, s, c = part_g.shape
-    for t in (part_g, part_gz):
-        _check_stats(t, (n, s, c), part_g.device, "instance_norm_bwd_finalize")
-    gmean = torch.empty((n, c), device=part_g.device, dtype=torch.float32)
-    gzmean = torch.empty_like(gmean)
-    err = _lib().mra_in_bwd_finalize(part_g.data_ptr(), part_gz.data_ptr(), gmean.data_ptr(),
-                                     gzmean.data_ptr(), n, voxels, c, s, _stream(part_g))
-    _raise_on(err, "instance_norm_bwd_finalize")
-    LAUNCHES["instance_norm_bwd_finalize"] += 1
-    return gmean, gzmean
-
-
 def instance_norm_bwd_apply(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
-                            rstd: torch.Tensor, gmean: torch.Tensor, gzmean: torch.Tensor,
+                            rstd: torch.Tensor, part_g: torch.Tensor, part_gz: torch.Tensor,
                             act: str = "none", negative_slope: float = 0.2) -> torch.Tensor:
-    """dx = rstd * (g' - mean(g') - z mean(g' z)) in g's dtype and x's layout."""
+    """Merge the bwd stats kernel's (N, S, C) sums into mean(g') and
+    mean(g' z), and return dx = rstd * (g' - mean(g') - z mean(g' z)) in g's
+    dtype and x's layout."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
+        gmean, gzmean = bwd_finalize_plain(part_g, part_gz, math.prod(x.shape[2:]))
         return bwd_apply_plain(x, g, mean, rstd, gmean, gzmean, act, negative_slope)
     n, v, c = _check_volume(x, "instance_norm_bwd_apply")
     _check_grad(g, x, "instance_norm_bwd_apply")
-    for t in (mean, rstd, gmean, gzmean):
+    for t in (mean, rstd):
         _check_stats(t, (n, c), x.device, "instance_norm_bwd_apply")
-    vec = pair_width(x, g)
-    segments = num_segments(n, v, c, vec)
+    if part_g.dim() != 3 or part_g.shape[0] != n or part_g.shape[2] != c:
+        raise ValueError(f"instance_norm_bwd_apply: partials must be ({n}, S, {c}), got "
+                         f"{tuple(part_g.shape)}")
+    segments = part_g.shape[1]
+    for t in (part_g, part_gz):
+        _check_stats(t, (n, segments, c), x.device, "instance_norm_bwd_apply")
     dx = torch.empty_like(x, memory_format=torch.channels_last_3d)
     err = _lib().mra_in_bwd_apply(x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                                  gmean.data_ptr(), gzmean.data_ptr(), dx.data_ptr(), n, v, c,
-                                  segments, _DTYPE_CODES[x.dtype], vec, ACTS[act],
+                                  part_g.data_ptr(), part_gz.data_ptr(), dx.data_ptr(), n, v, c,
+                                  segments, _DTYPE_CODES[x.dtype], pair_width(x, g), ACTS[act],
                                   negative_slope, _stream(x))
     _raise_on(err, "instance_norm_bwd_apply")
     LAUNCHES["instance_norm_bwd_apply"] += 1
+    return dx
+
+
+def instance_norm_bwd_slab(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                           rstd: torch.Tensor, act: str = "none",
+                           negative_slope: float = 0.2) -> torch.Tensor:
+    """The one-launch backward: dx in g's dtype and x's layout. On CUDA x
+    must pass ``uses_slab``, and x and g lie 16-byte aligned."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return bwd_slab_plain(x, g, mean, rstd, act, negative_slope)
+    n, v, c = _check_volume(x, "instance_norm_bwd_slab")
+    _check_grad(g, x, "instance_norm_bwd_slab")
+    for t in (mean, rstd):
+        _check_stats(t, (n, c), x.device, "instance_norm_bwd_slab")
+    if not uses_slab(x.shape, x.dtype) or x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError(f"instance_norm_bwd_slab: {x.dtype} {tuple(x.shape)} is no whole "
+                         f"number of {SLAB_CHUNK}-byte channel chunks, does not fit "
+                         f"{SLAB_BYTES} bytes of shared memory at {SLAB_CHUNK} bytes a voxel, "
+                         f"or x or g is not 16-byte aligned")
+    dx = torch.empty_like(x, memory_format=torch.channels_last_3d)
+    err = _lib().mra_in_bwd_slab(x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                                 dx.data_ptr(), n, v, c, _DTYPE_CODES[x.dtype], ACTS[act],
+                                 negative_slope, _stream(x))
+    _raise_on(err, "instance_norm_bwd_slab")
+    LAUNCHES["instance_norm_bwd_slab"] += 1
     return dx
 
 
@@ -519,20 +566,28 @@ def instance_norm_act_fused(x: torch.Tensor, act: str = "none",
     return instance_norm_act_fwd(x, act, negative_slope, eps)[0]
 
 
+def instance_norm_bwd_two_pass(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                               rstd: torch.Tensor, act: str = "none",
+                               negative_slope: float = 0.2) -> torch.Tensor:
+    """The two-launch backward, bwd stats -> bwd apply (with the merge): on
+    CUDA two launches, on the CPU the plain versions. Returns dx."""
+    part_g, part_gz = instance_norm_bwd_stats(x, g, mean, rstd, backward_segments(x, g), act,
+                                              negative_slope)
+    return instance_norm_bwd_apply(x, g, mean, rstd, part_g, part_gz, act, negative_slope)
+
+
 def instance_norm_act_bwd_fused(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
                                 rstd: torch.Tensor, act: str = "none",
                                 negative_slope: float = 0.2) -> torch.Tensor:
-    """The backward kernel path, bwd_stats -> bwd_finalize -> bwd_apply:
-    three launches on CUDA, the three plain versions on the CPU. A CUDA g
-    that is not channels_last_3d (autograd may hand one over, for example
-    from a replication pad's backward) is copied into that layout first, and
-    the copy counted in ``GRAD_RELAYOUTS``."""
-    if g.is_cuda and not g.is_contiguous(memory_format=torch.channels_last_3d):
-        g = g.contiguous(memory_format=torch.channels_last_3d)
+    """The backward kernel path: one bwd slab launch where ``uses_slab``
+    holds, else the two-pass backward kernels; each route's plain versions
+    on the CPU. A CUDA g that is not channels_last_3d (autograd may hand one
+    over, for example from a replication pad's backward) or not 16-byte
+    aligned is copied into a fresh channels_last_3d tensor first, and the
+    copy counted in ``GRAD_RELAYOUTS``."""
+    if g.is_cuda and (g.data_ptr() % 16
+                      or not g.is_contiguous(memory_format=torch.channels_last_3d)):
+        g = g.clone(memory_format=torch.channels_last_3d)
         GRAD_RELAYOUTS["count"] += 1
-    n, c = x.shape[:2]
-    voxels = math.prod(x.shape[2:])
-    segments = num_segments(n, voxels, c, pair_width(x, g))
-    part_g, part_gz = instance_norm_bwd_stats(x, g, mean, rstd, segments, act, negative_slope)
-    gmean, gzmean = instance_norm_bwd_finalize(part_g, part_gz, voxels)
-    return instance_norm_bwd_apply(x, g, mean, rstd, gmean, gzmean, act, negative_slope)
+    route = instance_norm_bwd_slab if uses_slab(x.shape, x.dtype) else instance_norm_bwd_two_pass
+    return route(x, g, mean, rstd, act, negative_slope)

@@ -111,10 +111,11 @@ def test_segment_stats_merge_to_full_stats():
 
 def test_num_segments_fills_the_card():
     # batch-8 trunk: 1024 (n, c) rows of 4096 voxels; batch-1 stem: 32 rows of
-    # 262k; for the backward's block target and the forward's
+    # 262k, enough voxels to reach the target; for the backward's block
+    # target and the forward's
     for target in (kern._TARGET_BLOCKS, kern._FWD_TARGET_BLOCKS):
         assert 8 * kern.num_segments(8, 16 ** 3, 128, 8, target) >= 132 * 2
-        assert kern.num_segments(1, 64 ** 3, 32, 8, target) >= 132 * 4
+        assert kern.num_segments(1, 64 ** 3, 32, 8, target) >= max(target, 132 * 3)
         assert kern.num_segments(1, 8, 32, 8, target) == 1
 
 

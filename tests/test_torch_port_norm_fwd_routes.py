@@ -19,7 +19,7 @@ from mra_gan_tpu.ops.norm import instance_norm_act as jax_instance_norm_act
 from mra_gan_tpu.ops.pallas.instance_norm import instance_norm_act_tpu
 from mra_gan_tpu_torch.ops.kernels import instance_norm as kern
 
-from torch_port_util import to_ncdhw, to_ndhwc
+from torch_port_util import SLAB, TWO_PASS, to_ncdhw, to_ndhwc
 
 ACTS = ("relu", "leaky_relu", "tanh", "none")
 SHAPE = (2, 6, 5, 7, 32)  # NDHWC: V = 210 voxels, C = 32
@@ -78,27 +78,6 @@ def test_merged_apply_matches_jax_and_finalize(act, extra):
         torch.testing.assert_close(rstd, fr, rtol=0, atol=0)
         for ref in (xla, pallas):
             np.testing.assert_allclose(to_ndhwc(y), ref, atol=1e-5, err_msg=str(segments))
-
-
-# Every full-width forward norm of the path (resnet_6blocks at ngf = 32 on
-# 64^3 patches and on the 128x256x256 volume, the 3-layer PatchGAN at
-# ndf = 32), written out: (N, C, D, H, W) -> route.
-SLAB = [
-    (8, 128, 16, 16, 16), (3, 128, 16, 16, 16), (16, 128, 16, 16, 16), (2, 128, 16, 16, 16),
-    (1, 128, 16, 16, 16),                                          # generator trunk
-    (1, 64, 16, 16, 16), (2, 64, 16, 16, 16), (8, 64, 16, 16, 16), (16, 64, 16, 16, 16),
-    (1, 128, 8, 8, 8), (2, 128, 8, 8, 8), (8, 128, 8, 8, 8), (16, 128, 8, 8, 8),
-    (1, 256, 7, 7, 7), (2, 256, 7, 7, 7), (8, 256, 7, 7, 7), (16, 256, 7, 7, 7),  # PatchGAN
-    (2, 128, 16, 16, 28),                                          # the largest at C = 128
-]
-TWO_PASS = [
-    (8, 32, 64, 64, 64), (3, 32, 64, 64, 64), (16, 32, 64, 64, 64), (2, 32, 64, 64, 64),
-    (1, 32, 64, 64, 64), (8, 64, 32, 32, 32), (3, 64, 32, 32, 32), (16, 64, 32, 32, 32),
-    (1, 64, 32, 32, 32),
-    (1, 32, 128, 256, 256), (1, 64, 64, 128, 128), (1, 128, 32, 64, 64),  # the single pass
-    (2, 6, 16, 16, 16),                                            # C = 6
-    (2, 128, 16, 16, 29),                                          # one row past the largest
-]
 
 
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))

@@ -1,6 +1,7 @@
 """The gradient of the port's instance norm (the ``InstanceNormAct`` autograd
 Function of mra_gan_tpu_torch/ops/norm.py, and the plain versions of its
-three backward CUDA kernels) against the JAX package's, on the CPU.
+backward CUDA kernels on the shape's route) against the JAX package's, on the
+CPU.
 
 The JAX side runs as its own tests run it: ``jax.vjp`` of the XLA
 ``instance_norm_act`` (its analytic custom VJP) and of the Pallas
@@ -52,8 +53,9 @@ def _port_grad(x, g, act, dtype=torch.float32):
 
 
 def _kernel_math_grad(x, g, act):
-    """The three backward kernels' plain versions (bwd stats, finalize,
-    apply) from the forward kernels' statistics."""
+    """The backward kernels' plain versions on the shape's route (bwd slab,
+    or bwd stats then the bwd apply with its merge) from the forward
+    kernels' statistics."""
     xt, gt = to_ncdhw(x), to_ncdhw(g)
     _, mean, rstd = kern.instance_norm_act_fwd(xt, act)
     return to_ndhwc(kern.instance_norm_act_bwd_fused(xt, gt, mean, rstd, act))
@@ -105,8 +107,10 @@ def test_relu_passes_the_gradient_where_z_is_zero():
 
 
 def test_backward_segment_sums_merge_to_full_sums():
-    """Per-segment sums of g' and g'z, merged, give the whole-volume means
-    for any segment count, empty segments included."""
+    """Per-segment sums of g' and g'z, merged as the bwd apply's prologue
+    merges them, give the whole-volume means for any segment count, empty
+    segments included; the bwd apply on those sums gives dx from those
+    means."""
     rs = np.random.RandomState(3)
     x = torch.from_numpy(rs.randn(2, 8, 3, 5, 7).astype(np.float32))
     g = torch.from_numpy(rs.randn(2, 8, 3, 5, 7).astype(np.float32))
@@ -118,9 +122,12 @@ def test_backward_segment_sums_merge_to_full_sums():
     for segments in (1, 2, 7, voxels, voxels + 9):
         pg, pgz = kern.instance_norm_bwd_stats(x, g, mean, rstd, segments, "leaky_relu")
         assert pg.shape == pgz.shape == (2, segments, 8)
-        got = kern.instance_norm_bwd_finalize(pg, pgz, voxels)
+        got = kern.bwd_finalize_plain(pg, pgz, voxels)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+        dx = kern.instance_norm_bwd_apply(x, g, mean, rstd, pg, pgz, "leaky_relu")
+        ref = kern.bwd_apply_plain(x, g, mean, rstd, *want, "leaky_relu")
+        torch.testing.assert_close(dx, ref, atol=1e-6 * float(ref.abs().max()), rtol=0)
 
 
 def test_cpu_training_launches_no_kernel():
@@ -138,7 +145,7 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     z = torch.zeros(1, 8, 2, 2, 2)
     with pytest.raises(ValueError, match="unknown activation"):
         kern.instance_norm_bwd_apply(z, z, torch.zeros(1, 8), torch.ones(1, 8),
-                                     torch.zeros(1, 8), torch.zeros(1, 8), act="gelu")
+                                     torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), act="gelu")
     meta = torch.zeros(1, 8, 2, 2, 2, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kern.instance_norm_bwd_stats(meta, meta, torch.zeros(1, 8), torch.ones(1, 8), 1)

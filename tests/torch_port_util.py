@@ -67,6 +67,28 @@ def numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+# Every full-width instance norm of the port's paths (resnet_6blocks at ngf = 32 on
+# 64^3 patches and on the 128x256x256 volume, the 3-layer PatchGAN at
+# ndf = 32), written out by the route that uses_slab gives it, forward and
+# backward alike: (N, C, D, H, W).
+SLAB = [
+    (8, 128, 16, 16, 16), (3, 128, 16, 16, 16), (16, 128, 16, 16, 16), (2, 128, 16, 16, 16),
+    (1, 128, 16, 16, 16),                                          # generator trunk
+    (1, 64, 16, 16, 16), (2, 64, 16, 16, 16), (8, 64, 16, 16, 16), (16, 64, 16, 16, 16),
+    (1, 128, 8, 8, 8), (2, 128, 8, 8, 8), (8, 128, 8, 8, 8), (16, 128, 8, 8, 8),
+    (1, 256, 7, 7, 7), (2, 256, 7, 7, 7), (8, 256, 7, 7, 7), (16, 256, 7, 7, 7),  # PatchGAN
+    (2, 128, 16, 16, 28),                                          # the largest at C = 128
+]
+TWO_PASS = [
+    (8, 32, 64, 64, 64), (3, 32, 64, 64, 64), (16, 32, 64, 64, 64), (2, 32, 64, 64, 64),
+    (1, 32, 64, 64, 64), (8, 64, 32, 32, 32), (3, 64, 32, 32, 32), (16, 64, 32, 32, 32),
+    (1, 64, 32, 32, 32),
+    (1, 32, 128, 256, 256), (1, 64, 64, 128, 128), (1, 128, 32, 64, 64),  # the single pass
+    (2, 6, 16, 16, 16),                                            # C = 6
+    (2, 128, 16, 16, 29),                                          # one row past the largest
+]
+
+
 # The small train-step configuration of the port's step tests (as
 # tests/test_torch_parity_step.py sizes its run): 16^3, ngf = ndf = 4,
 # a 2-layer PatchGAN, no pool, float32.
