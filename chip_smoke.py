@@ -43,7 +43,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    class;
 8. step 0 at batch 1 through the kernels and through the plain norms, in
    float32 (TF32 off) and bf16, each against a float64 step
-   (phase_train_parity states the bars).
+   (phase_train_parity states the bars);
+9. checkpoint and exact resume at phase 7's configuration, batch 1: 2
+   steps, CheckpointManager.save, 2 more; restore into a state made from
+   another seed and the same 2 steps, against the straight run bit for bit,
+   once with cuDNN's deterministic algorithms and once with
+   torch.use_deterministic_algorithms as well (phase_checkpoint states what
+   each must show); save and restore seconds and the files' bytes; the
+   saved latest_net_G_A.pth decoded through python -m mra_gan_tpu_torch.test.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line {"kernels": [...]} with each kernel's launches on its main path
@@ -80,6 +87,8 @@ TRAIN_LR = 2e-4
 NORMS_PER_STEP = 80  # 4 generator applies x 17 norms + 4 discriminator applies x 3
 TRAIN_WARMUP = 2
 TRAIN_TIMED_STEPS = (5, 3)  # at batch 1 and 8
+CKPT_STEPS = 2  # phase 9: steps before the save, and again after it
+CKPT_DECODE_SHAPE = (80, 72, 40)
 PAIRED_ACTS = ("leaky_relu", "tanh")
 BF16_ULP = 2.0 ** -8
 # f32 operations per element, for the operations bound
@@ -1051,6 +1060,258 @@ def phase_train_parity() -> dict:
     return report
 
 
+def norm_kernels_reproducible(K) -> list:
+    """Each norm kernel route, forward and backward, run twice on the same
+    input at every norm shape of the batch-1 train step in bf16: the names
+    of the shapes whose two results differ in any bit (the kernels merge
+    their partials in a fixed order, so none should)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    differ = []
+    for label, shape, act in train_norm_shapes():
+        if not label.endswith(f"b{min(TRAIN_BATCHES)}"):
+            continue
+        x = _volume(gen, shape, torch.bfloat16)
+        g = _volume(gen, shape, torch.bfloat16, 1.0, 0.0)
+        runs = []
+        for _ in range(2):
+            y, mean, rstd = K.instance_norm_act_fwd(x, act, 0.2)
+            runs.append((y, mean, rstd, K.instance_norm_act_bwd_fused(x, g, mean, rstd, act, 0.2)))
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            differ.append(f"{label} {shape} {act}")
+    return differ
+
+
+def library_calls_reproducible() -> dict:
+    """Two runs each, on one input, of the library calls of the batch-1
+    train step that are not this repo's kernels: the replication pad's
+    backward at the step's pad shapes, and cuDNN's conv forward, input
+    gradient and weight gradient at its conv shapes, in bf16 and
+    channels_last_3d. Returns {call: largest |difference|} (0.0 where the
+    two runs agree bit for bit), under whatever determinism settings are on."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.conv import conv3d, conv_transpose3d, replication_pad3d
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    b = min(TRAIN_BATCHES)
+
+    def vol(shape):
+        return _volume(gen, shape, torch.bfloat16, 1.0, 0.0)
+
+    def spread(fn) -> float:
+        first, second = fn(), fn()
+        return max(float((x - y).detach().abs().max()) for x, y in zip(first, second))
+
+    out = {}
+    for n, c, side, pad in ((2 * b, 4 * NGF, 16, 1), (b, 4 * NGF, 16, 1), (2 * b, NGF, 64, 3),
+                            (b, NGF, 64, 3), (b, 1, 64, 3)):
+        x = vol((n, c, side, side, side)).requires_grad_()
+        y = replication_pad3d(x, pad)
+        g = vol(tuple(y.shape))
+        out[f"replication_pad3d backward {tuple(x.shape)} pad {pad}"] = spread(
+            lambda: torch.autograd.grad(y, x, g, retain_graph=True))
+    for name, tr, xs, ws, stride, padding in (
+            ("stem c7", False, (2 * b, 1, 70, 70, 70), (NGF, 1, 7, 7, 7), 1, 0),
+            ("head c7", False, (2 * b, NGF, 70, 70, 70), (1, NGF, 7, 7, 7), 1, 0),
+            ("down1 c3s2", False, (2 * b, NGF, 64, 64, 64), (2 * NGF, NGF, 3, 3, 3), 2, 1),
+            ("trunk c3", False, (2 * b, 4 * NGF, 18, 18, 18), (4 * NGF, 4 * NGF, 3, 3, 3), 1, 0),
+            ("up2 ct3s2", True, (2 * b, 2 * NGF, 32, 32, 32), (2 * NGF, NGF, 3, 3, 3), 2, 1),
+            ("D c4s2", False, (2 * b, NDF, 32, 32, 32), (2 * NDF, NDF, 4, 4, 4), 2, 1)):
+        x = vol(xs).requires_grad_()
+        w = vol(ws).float().mul_(0.05).requires_grad_()
+        conv = conv_transpose3d if tr else conv3d
+        extra = (1,) if tr else ()
+        y = conv(x, w, None, stride, padding, *extra)
+        g = vol(tuple(y.shape))
+        out[f"cudnn {name} forward"] = spread(lambda: (conv(x, w, None, stride, padding, *extra),))
+        out[f"cudnn {name} dgrad, wgrad"] = spread(
+            lambda: torch.autograd.grad(y, (x, w), g, retain_graph=True))
+    return out
+
+
+def _max_diff(a, b) -> float:
+    """Largest |a - b| over two state_to_dict trees (0.0 when bit-equal)."""
+    import torch
+
+    if isinstance(a, dict):
+        return max((_max_diff(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)):
+        return max((_max_diff(x, y) for x, y in zip(a, b)), default=0.0)
+    if torch.is_tensor(a):
+        if torch.equal(a, b):
+            return 0.0
+        if not a.is_floating_point():
+            return math.inf
+        return float((a.double() - b.double()).abs().max())
+    return 0.0 if a == b else math.inf
+
+
+@contextlib.contextmanager
+def reproducible(all_algorithms: bool):
+    """cuDNN's deterministic algorithms, and with ``all_algorithms`` also
+    torch.use_deterministic_algorithms(True), which switches PyTorch's own
+    nondeterministic CUDA kernels to deterministic ones; the settings are put
+    back afterwards."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    if all_algorithms:
+        torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def resume_run(K, workdir: Path, step, cfg, inputs, per_steps) -> dict:
+    """CKPT_STEPS steps, save, CKPT_STEPS more (the straight run); restore
+    into a state made from another seed and the same CKPT_STEPS steps (the
+    resumed run). Checks the round trip bit for bit, the moments' layout
+    after the restore and each run's exact norm launches; returns the times,
+    the files' bytes and how far the resumed run lies from the straight one."""
+    import torch
+
+    from mra_gan_tpu_torch.checkpoint import CheckpointManager
+    from mra_gan_tpu_torch.checkpoint.manager import state_to_dict
+    from mra_gan_tpu_torch.models.cycle_gan import create_state
+
+    def run(state, batches, what):
+        K.reset_launches()
+        metrics = [step(state, a, b, TRAIN_LR)[1] for a, b in batches]
+        torch.cuda.synchronize()
+        check(launched(K, per_steps), f"checkpoint {what}: launches {dict(K.LAUNCHES)}, want "
+              f"{per_steps} over {CKPT_STEPS} steps")
+        return [{k: v.float().cpu() for k, v in m.items()} for m in metrics]
+
+    state = create_state(cfg, SEED, PATCH, DEVICE)
+    run(state, inputs[:CKPT_STEPS], "first steps")
+    mgr = CheckpointManager(workdir, "smoke")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(CKPT_STEPS, state)
+    save_s = time.perf_counter() - t0
+    at_save = state_to_dict(state)
+    sizes = {p.name: p.stat().st_size for p in sorted(mgr.root.iterdir())}
+    straight = run(state, inputs[CKPT_STEPS:], "straight run")
+    straight_state = state_to_dict(state)
+    del state
+
+    fresh = create_state(cfg, SEED + 1, PATCH, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.restore(CKPT_STEPS, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    round_trip = _max_diff(state_to_dict(fresh), at_save)
+    check(round_trip == 0.0, f"checkpoint round trip: the restored state differs from the "
+          f"saved one by {round_trip}")
+    layouts = [v.is_contiguous(memory_format=torch.channels_last_3d)
+               for opt in (fresh.opt_g, fresh.opt_d) for s in opt.state.values()
+               for v in s.values() if torch.is_tensor(v) and v.dim() == 5]
+    check(len(layouts) > 0 and all(layouts), f"5-D Adam moments channels_last_3d after the "
+          f"restore: {sum(layouts)} of {len(layouts)}")
+    resumed = run(fresh, inputs[CKPT_STEPS:], "resumed run")
+    resumed_state = state_to_dict(fresh)
+    del fresh
+    torch.cuda.empty_cache()
+    metrics_diff = _max_diff(straight, resumed)
+    state_diff = _max_diff(straight_state, resumed_state)
+    return {"save_s": save_s, "restore_s": restore_s, "bytes": sizes,
+            "g_a": at_save["nets"]["g_a"], "bit_equal": metrics_diff == 0.0 and state_diff == 0.0,
+            "metrics_max_diff": metrics_diff, "state_max_diff": state_diff}
+
+
+def phase_checkpoint(K, workdir: Path) -> dict:
+    """Checkpoint and exact resume at the train step's reference default
+    (train_config, bf16, batch 1): resume_run twice, first with cuDNN's
+    deterministic algorithms alone, then with torch.use_deterministic_algorithms
+    on as well (``reproducible``), each held to its round trip, layouts and
+    launches. The second must be bit-equal in every parameter, Adam state,
+    pool, generator state and metric. Where the first is not, the library
+    calls of the step that are not this repo's kernels are run twice
+    (library_calls_reproducible) and one of them must differ, to name the
+    cause; the norm kernels are run twice at every batch-1 norm shape
+    (norm_kernels_reproducible) and must agree. Then latest_net_G_A.pth
+    decodes a small volume through ``python -m mra_gan_tpu_torch.test`` in a
+    process of its own."""
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch import test as cli
+    from mra_gan_tpu_torch.data import nifti
+    from mra_gan_tpu_torch.models.cycle_gan import make_train_step
+
+    cfg = train_config(torch.bfloat16)
+    batch = min(TRAIN_BATCHES)
+    inputs = [train_inputs(batch, SEED + 300 + k) for k in range(2 * CKPT_STEPS)]
+    norms = 4 * generator_norms(batch, PATCH) + 4 * patchgan_norms(batch)
+    per_steps = times({**forward_launches(K, norms, cfg.dtype),
+                       **backward_launches(K, norms, cfg.dtype)}, CKPT_STEPS)
+    step = make_train_step(cfg)
+    runs = {}
+    for mode, every in (("cudnn_deterministic", False), ("deterministic_algorithms", True)):
+        with reproducible(every):
+            runs[mode] = resume_run(K, workdir / mode, step, cfg, inputs, per_steps)
+        r = runs[mode]
+        print(f"[checkpoint] {mode}: save (epoch + latest, {len(r['bytes'])} files, "
+              f"{sum(r['bytes'].values()) / 1e6:.1f} MB) {r['save_s']:.3f} s; restore "
+              f"{r['restore_s']:.3f} s; resumed vs straight after {CKPT_STEPS} steps: "
+              f"{'bit-equal' if r['bit_equal'] else 'NOT bit-equal'} (metrics max |diff| "
+              f"{r['metrics_max_diff']:.3g}, state {r['state_max_diff']:.3g})", flush=True)
+    with reproducible(False):
+        kernels_differ = norm_kernels_reproducible(K)
+        calls = library_calls_reproducible()
+    print(f"[checkpoint] norm kernels run twice differ at {kernels_differ or 'no shape'}; "
+          f"library calls run twice, largest |diff|: {calls}", flush=True)
+    check(not kernels_differ, f"norm kernels not bit-reproducible at {kernels_differ}")
+    check(runs["deterministic_algorithms"]["bit_equal"],
+          "resumed run bit-equal to the straight one with deterministic algorithms")
+    culprits = sorted(k for k, v in calls.items() if v > 0)
+    check(runs["cudnn_deterministic"]["bit_equal"] or culprits,
+          "a resume that is not bit-equal under cuDNN's deterministic algorithms with no "
+          "library call found that differs between two runs")
+    sizes = runs["cudnn_deterministic"]["bytes"]
+    print(f"[checkpoint] ckpt_{CKPT_STEPS}.pt {sizes[f'ckpt_{CKPT_STEPS}.pt'] / 1e6:.1f} MB, "
+          f"{CKPT_STEPS}_net_*.pth "
+          f"{sum(v for k, v in sizes.items() if k.startswith(f'{CKPT_STEPS}_net_')) / 1e6:.1f} MB",
+          flush=True)
+
+    # the decode CLI on the run's latest generator, as a user would call it
+    ck = workdir / "cudnn_deterministic"
+    rng = np.random.RandomState(SEED)
+    data = (rng.rand(*CKPT_DECODE_SHAPE) * 300).astype(np.float32)
+    nifti.save(nifti.NiftiImage(data=data, affine=np.diag([0.8, 0.8, 1.5, 1.0])),
+               workdir / "ckpt_in.nii.gz")
+    args = ["--image", str(workdir / "ckpt_in.nii.gz"), "--result", str(workdir / "ckpt_out.nii"),
+            "--checkpoints_dir", str(ck), "--name", "smoke", "--ngf", str(NGF),
+            "--which_epoch", "latest", "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mra_gan_tpu_torch.test", *args],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=300)
+    decode_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"decode CLI on latest_net_G_A.pth: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    out = nifti.load(workdir / "ckpt_out.nii")
+    check(out.data.shape == CKPT_DECODE_SHAPE and bool(np.isfinite(out.data).all()),
+          "decoded volume finite, of the input's shape")
+    saved_g_a = runs["cudnn_deterministic"]["g_a"]
+    gen = cli.load_generator(cli.parse(args))
+    check(all(torch.equal(v.cpu(), saved_g_a[k]) for k, v in gen.net.state_dict().items()),
+          "latest_net_G_A.pth holds the saved g_a")
+    print(f"[checkpoint] latest_net_G_A.pth decoded {CKPT_DECODE_SHAPE} through the CLI in "
+          f"{decode_s:.2f} s (a process of its own)", flush=True)
+    for r in runs.values():
+        del r["g_a"]
+    return {"runs": runs, "steps": CKPT_STEPS, "launches_per_run": per_steps,
+            "library_calls_twice_max_diff": calls, "decode_cli_s": decode_s}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1124,6 +1385,8 @@ def main(argv=None) -> int:
         phase_cli(K, tree, Path(tmp))
     train = phase_train(K, results)
     parity = phase_train_parity()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        ckpt = phase_checkpoint(K, Path(tmp))
 
     kernels = []
     for k, r in results.items():
@@ -1155,7 +1418,7 @@ def main(argv=None) -> int:
                          "bound_ms": train_head["bound_ms"],
                          "library_ms": train_head["library_ms"]},
             **({"note": r["note"]} if "note" in r else {})})
-    summary = {"decode": decode, "train": train, "train_parity": parity,
+    summary = {"decode": decode, "train": train, "train_parity": parity, "checkpoint": ckpt,
                "conv_formats": conv_rows, "seconds": time.perf_counter() - t_start}
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,11 +1,15 @@
 """Network weights in the reference's torch state-dict layout (counterpart of
-mra_gan_tpu/checkpoint/io.py:211,276,487,549).
+mra_gan_tpu/checkpoint/io.py:196-288,487,549).
 
 - ``state_dict_from_jax``: the JAX param tree (numpy arrays) -> a state dict
   that strict-loads into the port's generator or PatchGAN discriminator; the
   same transposes as the JAX package's ``save_torch_network``.
 - ``load_jax_nets``: a whole JAX CycleGAN state's ``g_params`` and
   ``d_params`` (numpy) into the port's four networks.
+- ``reference_state_dict`` / ``save_reference_pth``: a port network -> the
+  reference's state dict, with the InstanceNorm running-stat buffers its
+  strict load requires; the file ``save_torch_network`` writes for the same
+  weights.
 - ``load_reference_pth``: a reference (or ``convert_checkpoint.py
   --to_torch``) ``{epoch}_net_G_A.pth`` -> strict-loaded into a generator,
   after dropping DataParallel ``module.`` prefixes and the dead InstanceNorm
@@ -25,34 +29,43 @@ _RUNNING_STATS = (".running_mean", ".running_var", ".num_batches_tracked")
 
 
 def resnet_layout(n_blocks: int, use_dropout: bool) -> list:
-    """(JAX param path, torch key base) of every conv of a ResnetGenerator,
-    in registration order (the port's copy of ``_resnet_layout``). The
-    residual blocks' second conv sits at conv_block.6 with dropout and .5
-    without."""
+    """(JAX param path, torch key base, key base of the norm after the conv
+    or None) of every conv of a ResnetGenerator, in registration order (the
+    port's copy of ``_resnet_layout``). The residual blocks' second conv
+    sits at conv_block.6 with dropout and .5 without; each norm sits right
+    after its conv."""
     c2 = 6 if use_dropout else 5
-    ents = [(("Conv3D_0",), "model.1"), (("Conv3D_1",), "model.4"),
-            (("Conv3D_2",), "model.7")]
+    ents = [(("Conv3D_0",), "model.1", "model.2"), (("Conv3D_1",), "model.4", "model.5"),
+            (("Conv3D_2",), "model.7", "model.8")]
     for i in range(n_blocks):
         b = f"model.{10 + i}.conv_block"
-        ents.append(((f"ResnetBlock3D_{i}", "Conv3D_0"), f"{b}.1"))
-        ents.append(((f"ResnetBlock3D_{i}", "Conv3D_1"), f"{b}.{c2}"))
+        ents.append(((f"ResnetBlock3D_{i}", "Conv3D_0"), f"{b}.1", f"{b}.2"))
+        ents.append(((f"ResnetBlock3D_{i}", "Conv3D_1"), f"{b}.{c2}", f"{b}.{c2 + 1}"))
     base = 10 + n_blocks
-    ents += [(("ConvTranspose3D_0",), f"model.{base}"),
-             (("ConvTranspose3D_1",), f"model.{base + 3}"),
-             (("Conv3D_3",), f"model.{base + 7}")]
+    ents += [(("ConvTranspose3D_0",), f"model.{base}", f"model.{base + 1}"),
+             (("ConvTranspose3D_1",), f"model.{base + 3}", f"model.{base + 4}"),
+             (("Conv3D_3",), f"model.{base + 7}", None)]
     return ents
 
 
 def nlayer_d_layout(n_layers: int) -> list:
-    """(JAX param path, torch key base) of every conv of an
-    NLayerDiscriminator (the port's copy of ``_nlayer_d_layout``): model.0,
-    then one [conv, norm, lrelu] triple per layer from model.2 on, then the
-    head."""
-    ents = [(("Conv3D_0",), "model.0")]
+    """(JAX param path, torch key base, norm key base or None) of every conv
+    of an NLayerDiscriminator (the port's copy of ``_nlayer_d_layout``):
+    model.0, then one [conv, norm, lrelu] triple per layer from model.2 on,
+    then the head."""
+    ents = [(("Conv3D_0",), "model.0", None)]
     for n in range(1, n_layers + 1):  # the middles and the stride-1 layer
-        ents.append(((f"Conv3D_{n}",), f"model.{3 * n - 1}"))
-    ents.append(((f"Conv3D_{n_layers + 1}",), f"model.{3 * n_layers + 2}"))
+        ents.append(((f"Conv3D_{n}",), f"model.{3 * n - 1}", f"model.{3 * n}"))
+    ents.append(((f"Conv3D_{n_layers + 1}",), f"model.{3 * n_layers + 2}", None))
     return ents
+
+
+def _resnet_blocks(arch: str) -> int:
+    n_blocks = {"resnet_6blocks": 6, "resnet_9blocks": 9}.get(arch)
+    if n_blocks is None:
+        raise NotImplementedError(f"arch {arch!r} is not ported yet; see ROADMAP "
+                                  f"Queue A, the rest of the zoo")
+    return n_blocks
 
 
 def _layout(tree: dict, arch: str, use_dropout: bool) -> list:
@@ -61,10 +74,7 @@ def _layout(tree: dict, arch: str, use_dropout: bool) -> list:
         if arch == "basic" and n_layers != 3:
             raise ValueError(f"'basic' has 3 layers, the params {n_layers}")
         return nlayer_d_layout(n_layers)
-    n_blocks = {"resnet_6blocks": 6, "resnet_9blocks": 9}.get(arch)
-    if n_blocks is None:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; see ROADMAP "
-                                  f"Queue A, the rest of the zoo")
+    n_blocks = _resnet_blocks(arch)
     found = sum(1 for k in tree if k.startswith("ResnetBlock3D_"))
     if found != n_blocks:
         raise ValueError(f"{arch} has {n_blocks} residual blocks, the params {found}")
@@ -81,7 +91,7 @@ def state_dict_from_jax(params_numpy: dict, arch: str = "resnet_6blocks",
     float32."""
     tree = params_numpy.get("params", params_numpy)
     sd = OrderedDict()
-    for path, key in _layout(tree, arch, use_dropout):
+    for path, key, _ in _layout(tree, arch, use_dropout):
         node = tree
         for p in path:
             node = node[p]
@@ -121,3 +131,44 @@ def load_reference_pth(path: Union[str, Path], net: nn.Module) -> nn.Module:
     device; the parameters keep their device and layout)."""
     net.load_state_dict(read_reference_pth(path), strict=True)
     return net
+
+
+def reference_state_dict(net: nn.Module, arch: str = "resnet_6blocks",
+                         use_dropout: bool = False) -> "OrderedDict[str, torch.Tensor]":
+    """``net``'s weights as the reference saves them: float32, contiguous,
+    on the CPU, in registration order, and after each conv that feeds a
+    norm that norm's ``running_mean`` (0), ``running_var`` (1) and
+    ``num_batches_tracked`` (0, int64). The reference's norms track running
+    statistics, so its strict load requires the buffers; they are dead
+    state at its inference, so fresh values are exact (JAX io.py:185-193,
+    556-560). ``arch`` and ``use_dropout`` name the layout as in
+    ``state_dict_from_jax``; the net's own keys must be exactly its convs'."""
+    if arch in ("n_layers", "basic"):
+        layout = nlayer_d_layout(3 if arch == "basic" else getattr(net, "n_layers", 0))
+    else:
+        layout = resnet_layout(_resnet_blocks(arch), use_dropout)
+    have = net.state_dict()
+    want = {f"{key}.{k}" for _, key, _ in layout for k in ("weight", "bias")}
+    if set(have) != want:
+        raise ValueError(f"{type(net).__name__} does not have the {arch!r} layout "
+                         f"(use_dropout={use_dropout}): unexpected "
+                         f"{sorted(set(have) - want)[:4]}, missing {sorted(want - set(have))[:4]}")
+    sd = OrderedDict()
+    for path, key, norm in layout:
+        w = have[key + ".weight"]
+        for k in ("weight", "bias"):
+            sd[f"{key}.{k}"] = have[f"{key}.{k}"].detach().to("cpu", torch.float32).clone(
+                memory_format=torch.contiguous_format)
+        if norm is not None:
+            cout = w.shape[1] if path[-1].startswith("ConvTranspose") else w.shape[0]
+            sd[norm + ".running_mean"] = torch.zeros(cout)
+            sd[norm + ".running_var"] = torch.ones(cout)
+            sd[norm + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def save_reference_pth(net: nn.Module, path: Union[str, Path], arch: str = "resnet_6blocks",
+                       use_dropout: bool = False) -> None:
+    """Write ``reference_state_dict(net, arch, use_dropout)`` to ``path``
+    with ``torch.save``: the reference's ``{epoch}_net_*.pth``."""
+    torch.save(reference_state_dict(net, arch, use_dropout), path)

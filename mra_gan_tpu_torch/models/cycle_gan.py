@@ -30,7 +30,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.dtypes import set_conv_precision
 from ..ops.losses import cor_coe_loss, gan_loss, l1_loss
-from .networks import define_d, define_g
+from .networks import Dropout, define_d, define_g
 
 _CL = torch.channels_last_3d
 
@@ -126,9 +126,13 @@ def pool_query(pool: ImagePool, images: torch.Tensor,
 @dataclasses.dataclass(eq=False)
 class CycleGANState:
     """The four networks, both Adam chains, both pools, the pools' random
-    generator and the step count. Unlike the JAX package's state it is
-    mutable: ``make_train_step``'s step updates it in place."""
+    generator (CPU), the dropout modules' generator (on ``device``), the step
+    count, and the configuration and patch shape the state was made for.
+    Unlike the JAX package's state it is mutable: ``make_train_step``'s step
+    updates it in place."""
 
+    cfg: CycleGANConfig
+    patch_shape: Tuple[int, int, int]
     g_a: nn.Module
     g_b: nn.Module
     d_a: nn.Module
@@ -138,6 +142,7 @@ class CycleGANState:
     pool_fake_a: ImagePool
     pool_fake_b: ImagePool
     generator: torch.Generator
+    dropout_generator: torch.Generator
     device: torch.device
     step: int = 0
 
@@ -157,8 +162,11 @@ def create_state(cfg: CycleGANConfig, seed: int = 0,
     """All four networks (weights drawn from ``seed`` on the CPU, in the
     order g_a, g_b, d_a, d_b), both optimizers and empty pools for
     ``patch_shape`` patches, on ``device`` (CUDA by default; channels_last_3d
-    there). Load trained or JAX weights into ``state.nets`` afterwards
-    (checkpoint.io.load_jax_nets)."""
+    there). The pools draw from the CPU generator that drew the weights, the
+    dropout modules (``no_dropout=False``) from a generator on ``device``
+    seeded with ``seed``. Load trained or JAX weights into ``state.nets``
+    afterwards (checkpoint.io.load_jax_nets), or a whole saved state with
+    ``checkpoint.CheckpointManager.restore``."""
     dev = resolve_device(device)
     set_conv_precision(cfg.dtype)
     gen = torch.Generator().manual_seed(seed)
@@ -167,13 +175,18 @@ def create_state(cfg: CycleGANConfig, seed: int = 0,
     if dev.type == "cuda":
         nets = [n.to(dev, memory_format=_CL) for n in nets]
     g_a, g_b, d_a, d_b = (n.train() for n in nets)
+    drop_gen = torch.Generator(device=dev).manual_seed(seed)
+    for m in itertools.chain(g_a.modules(), g_b.modules()):
+        if isinstance(m, Dropout):
+            m.generator = drop_gen
+    patch_shape = tuple(int(p) for p in patch_shape)
     return CycleGANState(
-        g_a=g_a, g_b=g_b, d_a=d_a, d_b=d_b,
+        cfg=cfg, patch_shape=patch_shape, g_a=g_a, g_b=g_b, d_a=d_a, d_b=d_b,
         opt_g=_adam(itertools.chain(g_a.parameters(), g_b.parameters()), cfg.beta1),
         opt_d=_adam(itertools.chain(d_a.parameters(), d_b.parameters()), cfg.beta1),
         pool_fake_a=ImagePool(cfg.pool_size, (cfg.input_nc, *patch_shape), cfg.dtype, dev),
         pool_fake_b=ImagePool(cfg.pool_size, (cfg.output_nc, *patch_shape), cfg.dtype, dev),
-        generator=gen, device=dev)
+        generator=gen, dropout_generator=drop_gen, device=dev)
 
 
 def _optimizer_step(opt: torch.optim.Adam, loss: torch.Tensor, lr: float) -> None:

@@ -101,6 +101,33 @@ class InstanceNormAct3d(nn.Module):
         return f"act={self.act!r}"
 
 
+class Dropout(nn.Module):
+    """``nn.Dropout`` that draws its mask from ``generator``, a
+    ``torch.Generator`` on the input's device that the train state owns
+    (``CycleGANState.dropout_generator``), so that a checkpoint holds the
+    draws and a resumed run drops the same voxels. With ``generator`` None
+    it draws from torch's global RNG. Identity in eval mode; no parameters,
+    so it keeps the reference's key layout.
+
+    The JAX package draws six independent masks per step from keys split off
+    the step's rng (mra_gan_tpu/models/cycle_gan.py:403-408); a JAX key
+    cannot be turned into a torch generator's stream, so the port's masks
+    are its own, and only its own resume is exact."""
+
+    def __init__(self, p: float = 0.5, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p, self.generator = p, generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=self.generator)
+        return x * (u >= self.p).to(x.dtype) * (1.0 / (1.0 - self.p))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
 def _conv_norm_act(conv: nn.Module, act: str = "relu") -> list:
     # [conv, norm, act] with the activation fused into the norm
     return [conv, InstanceNormAct3d(act), nn.Identity()]
@@ -120,7 +147,7 @@ class ResnetBlock3D(nn.Module):
         layers = [ReplicationPad3d(1),
                   *_conv_norm_act(Conv3d(dim, dim, 3, bias=use_bias, dead_bias=True))]
         if use_dropout:
-            layers.append(nn.Dropout(0.5))
+            layers.append(Dropout(0.5))
         layers += [ReplicationPad3d(1), Conv3d(dim, dim, 3, bias=use_bias, dead_bias=True),
                    InstanceNormAct3d("none")]
         self.conv_block = nn.Sequential(*layers)

@@ -1,9 +1,14 @@
 """Flags of the decode CLI (counterpart of mra_gan_tpu/options/test_options.py
-plus the base options the decode reads, base_options.py).
+and base_options.py:27-107, with the 'test' model's --model_suffix).
 
-Same flag names and defaults as the JAX package's ``TestOptions``, plus
-``--device``. Flags of paths that are not ported yet are accepted where the
-JAX CLI has them and refused by the CLI when set (see ROADMAP Queue A).
+Every flag of the JAX package's decode parser, with its default, plus
+``--device``. ``--suffix`` renames the run directory as the JAX parse does
+(base_options.py:145-146). Flags that a one-GPU decode has no use for
+(training data, loader, discriminator and seed flags, ``--gpu_ids``) are
+accepted and ignored, as the JAX decode ignores them; flags that select a
+path not ported yet (``--spatial_shard``, ``--data_parallel``,
+``--spatial_parallel``, ``--wire f32|f16``, a generator outside the resnets)
+are refused by the CLI when set, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--netG", type=str, default="resnet_6blocks",
                    help="generator: resnet_6blocks | resnet_9blocks")
     p.add_argument("--norm", type=str, default="instance", help="instance")
-    p.add_argument("--no_dropout", action="store_true",
+    p.add_argument("--no_dropout", action="store_true", default=True,
                    help="no dropout for the generator (the checkpoint's keys "
                         "decide the layout; dropout is off at inference)")
     p.add_argument("--init_type", type=str, default="normal",
@@ -71,8 +76,47 @@ def build_parser() -> argparse.ArgumentParser:
                         "dtype and downloads float32 (only 'exact' is ported)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="run on the GPU (default) or, explicitly, on the CPU")
+    p.add_argument("--suffix", default="", type=str,
+                   help="name suffix template: e.g. {model}_{netG}")
+    p.add_argument("--model", type=str, default="test", help="cycle_gan | test")
+    p.add_argument("--phase", type=str, default="test")
+    # unported paths: refused when set
+    p.add_argument("--spatial_shard", action="store_true",
+                   help="not ported (ROADMAP Queue A, parallelism)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="not ported (ROADMAP Queue A, parallelism)")
+    p.add_argument("--spatial_parallel", action="store_true",
+                   help="not ported (ROADMAP Queue A, parallelism)")
+    p.add_argument("--space_devices", type=int, default=0,
+                   help="with --spatial_parallel only")
+    # the JAX decode's parser holds these as well; a decode does not read them
+    ignored = p.add_argument_group("accepted and ignored (training, data loading, "
+                                   "devices, other networks)")
+    for flag, kw in (
+            ("--data_path", dict(type=str, default="./Data_folder/train/")),
+            ("--val_path", dict(type=str, default="./Data_folder/test/")),
+            ("--batch_size", dict(type=int, default=1)),
+            ("--dynet_sizes", dict(type=int, nargs=3, default=[128, 128, 64])),
+            ("--dynet_spacings", dict(type=float, nargs=3, default=[1.5, 1.5, 1.5])),
+            ("--min_pixel", dict(type=float, default=0.1)),
+            ("--drop_ratio", dict(type=float, default=0.0)),
+            ("--ndf", dict(type=int, default=32)),
+            ("--netD", dict(type=str, default="n_layers")),
+            ("--n_layers_D", dict(type=int, default=3)),
+            ("--gpu_ids", dict(default="0")),
+            ("--which_direction", dict(type=str, default="AtoB")),
+            ("--workers", dict(type=int, default=1)),
+            ("--verbose", dict(action="store_true")),
+            ("--pipeline", dict(type=str, default="monai", choices=["monai", "legacy"])),
+            ("--cache_dir", dict(type=str, default="")),
+            ("--num_samples", dict(type=int, default=2)),
+            ("--seed", dict(type=int, default=0))):
+        ignored.add_argument(flag, **kw)
     return p
 
 
 def parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    return build_parser().parse_args(argv)
+    opt = build_parser().parse_args(argv)
+    if opt.suffix:
+        opt.name = opt.name + "_" + opt.suffix.format(**vars(opt))
+    return opt

@@ -8,10 +8,12 @@ sliding-window decode on the GPU (or one whole-volume forward under
 original physical space.
 
 The generator comes from ``<checkpoints_dir>/<name>/<which_epoch>_net_G_A.pth``
-(``_B`` under --model_suffix _B): the reference's file naming, which the JAX
-package's ``convert_checkpoint.py --to_torch`` writes. With --image a
-directory, every .nii/.nii.gz in it is decoded into the --result directory
-with one loaded generator.
+(``_B`` under --model_suffix _B): the reference's file naming, which the
+port's ``CheckpointManager.save`` writes beside every checkpoint, and
+``convert_checkpoint.py --to_torch`` (either package's) from a checkpoint.
+With --image a directory, every .nii/.nii.gz in it is decoded into the
+--result directory with one loaded generator; a volume that fails is
+reported and skipped, and the rest still decode.
 """
 from __future__ import annotations
 
@@ -110,13 +112,24 @@ def inference(opt: argparse.Namespace, gen: GenerateFn, save: bool = True) -> ni
     return result
 
 
+def refuse_unported(opt: argparse.Namespace) -> None:
+    """NotImplementedError, naming its ROADMAP item, for a flag that selects
+    a path the port does not have yet (an unported --netG or --norm raises
+    where the generator is built)."""
+    for flag in ("spatial_shard", "data_parallel", "spatial_parallel"):
+        if getattr(opt, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet; see ROADMAP Queue A, "
+                                      f"parallelism")
+    if opt.wire != "exact":
+        raise NotImplementedError(f"--wire {opt.wire} is not ported yet; see ROADMAP "
+                                  f"Queue A, options and drivers")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     """Returns the names of the volumes skipped in directory mode; run as a
     script, the exit code is 1 if there were any."""
     opt = parse(argv)
-    if opt.wire != "exact":
-        raise NotImplementedError(f"--wire {opt.wire} is not ported yet; see ROADMAP "
-                                  f"Queue A, options and drivers")
+    refuse_unported(opt)
     gen = load_generator(opt)
     img_path = Path(opt.image)
     if not img_path.is_dir():
@@ -133,8 +146,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
         sub.image, sub.result = str(p), str(out_dir / p.name)
         try:
             inference(sub, gen)
-        except (OSError, ValueError) as e:
-            # one unreadable or unsupported volume; the rest can still decode
+        except Exception as e:
+            # one volume that cannot be read, decoded or written (a truncated
+            # file, an unsupported datatype, a CUDA OOM): report it and go on
+            # with the rest, as the JAX CLI does (test.py:252-258)
             print(f"SKIPPED {p.name}: {type(e).__name__}: {e}")
             failed.append(p.name)
     if failed:

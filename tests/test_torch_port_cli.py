@@ -1,8 +1,10 @@
 """The port's decode CLI (``python -m mra_gan_tpu_torch.test``) on synthetic
 NIfTIs, against the JAX package's ``test.inference`` with the same weights,
 and the import guard of the port package."""
+import argparse
 import importlib.util
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +17,7 @@ from mra_gan_tpu.checkpoint import save_torch_network
 from mra_gan_tpu.models.cycle_gan import CycleGANConfig
 from mra_gan_tpu_torch import test as port_cli
 from mra_gan_tpu_torch.data import nifti
+from mra_gan_tpu_torch.options.test_options import build_parser
 
 from torch_port_util import jax_forward, jax_generator
 
@@ -66,7 +69,6 @@ def test_single_file_matches_jax_cli(setup, tmp_path):
     np.testing.assert_allclose(got.affine, src.affine, atol=1e-6)
 
     opt = port_cli.parse(_args(root, image, out))
-    opt.spatial_shard = opt.data_parallel = False
     cfg = CycleGANConfig(ngf=4)
     ref = _jax_cli().inference(opt, loaded=(cfg, jax_forward(jnet, params), params, jnet),
                                save=False)
@@ -92,6 +94,74 @@ def test_unported_wire_is_refused(setup, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main(_args(root, root / "in" / "0.nii.gz", tmp_path / "o.nii",
                             "--wire", "f16"))
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--spatial_shard"], "parallelism"), (["--data_parallel"], "parallelism"),
+    (["--spatial_parallel"], "parallelism"), (["--netG", "unet_128"], "the rest of the zoo"),
+], ids=["spatial_shard", "data_parallel", "spatial_parallel", "netG"])
+def test_unported_paths_are_refused(setup, tmp_path, flags, item):
+    root, _, _ = setup
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A, {item}"):
+        port_cli.main(_args(root, root / "in" / "0.nii.gz", tmp_path / "o.nii", *flags))
+    assert not (tmp_path / "o.nii").exists()
+
+
+def _jax_decode_parser():
+    """The JAX decode CLI's parser: base and test options, and the 'test'
+    model's --model_suffix (its two-phase parse)."""
+    from mra_gan_tpu.models import get_option_setter
+    from mra_gan_tpu.options import TestOptions
+
+    parser = TestOptions().initialize(argparse.ArgumentParser())
+    return get_option_setter("test")(parser, False)
+
+
+def test_port_parser_accepts_every_jax_decode_flag_with_its_default():
+    jax_parser, port_parser = _jax_decode_parser(), build_parser()
+    names = {s for a in port_parser._actions for s in a.option_strings}
+    jax_actions = [a for a in jax_parser._actions if a.dest != "help"]
+    missing = {s for a in jax_actions for s in a.option_strings} - names
+    assert not missing, f"the port's decode parser lacks {sorted(missing)}"
+    for a in jax_actions:
+        assert port_parser.get_default(a.dest) == jax_parser.get_default(a.dest), a.dest
+
+
+def test_suffix_renames_the_run_directory_as_jax_does(setup, tmp_path):
+    """--suffix {netG} decodes from <checkpoints_dir>/run_resnet_6blocks, the
+    name the JAX parse gives; flags a one-GPU decode has no use for are
+    accepted and ignored."""
+    from mra_gan_tpu.options import TestOptions
+
+    root, _, _ = setup
+    ck = tmp_path / "ck"
+    (ck / "run_resnet_6blocks").mkdir(parents=True)
+    shutil.copy(root / "ck" / "run" / "latest_net_G_A.pth", ck / "run_resnet_6blocks")
+    args = ["--image", str(root / "in" / "1.nii.gz"), "--result", str(tmp_path / "o.nii"),
+            "--checkpoints_dir", str(ck), "--name", "run", "--suffix", "{netG}"]
+    jax_opt = TestOptions().parse(args)
+    port_opt = port_cli.parse(args)
+    assert port_opt.name == jax_opt.name == "run_resnet_6blocks"
+    ignored = ["--gpu_ids", "0,1", "--seed", "3", "--workers", "4", "--verbose", "--model",
+               "cycle_gan", "--phase", "val", "--batch_size", "2", "--netD", "pixel"]
+    assert port_cli.main([*args, "--device", "cpu", *SMALL, *ignored]) == []
+    assert nifti.load(tmp_path / "o.nii").data.shape == (18, 21, 15)
+
+
+def test_directory_mode_skips_unreadable_volumes(setup, tmp_path):
+    """An empty file and a truncated .nii.gz beside good volumes: the good
+    ones decode, the bad ones are reported as skipped, and the exit code is 1."""
+    root, _, _ = setup
+    src = tmp_path / "in"
+    shutil.copytree(root / "in", src)
+    (src / "empty.nii").write_bytes(b"")
+    whole = (root / "in" / "0.nii.gz").read_bytes()
+    (src / "truncated.nii.gz").write_bytes(whole[: len(whole) // 2])
+    proc = _run(["-m", "mra_gan_tpu_torch.test", *_args(root, src, tmp_path / "out")])
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert "SKIPPED empty.nii" in proc.stdout and "SKIPPED truncated.nii.gz" in proc.stdout
+    assert "2/4 volumes skipped" in proc.stdout
+    assert sorted(os.listdir(tmp_path / "out")) == ["0.nii.gz", "1.nii.gz"]
 
 
 def _run(code_or_args, **kw):

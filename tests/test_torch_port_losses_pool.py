@@ -20,6 +20,8 @@ from mra_gan_tpu.ops import losses as jl
 from mra_gan_tpu_torch.models.cycle_gan import ImagePool, pool_query
 from mra_gan_tpu_torch.ops import losses as pl
 
+from torch_port_util import jax_draws
+
 SHAPE = (2, 1, 6, 6, 6)
 
 
@@ -69,16 +71,6 @@ def test_l1_and_cor_coe_losses_match_jax():
     assert pl.l1_loss(bf, bf).dtype == torch.float32
 
 
-def _jax_draws(rng, batch: int, size: int):
-    """The (p, slot) pairs that JAX pool_query draws from ``rng``."""
-    p, slot = [], []
-    for key in jax.random.split(rng, batch):
-        k1, k2 = jax.random.split(key)
-        p.append(float(jax.random.uniform(k1)))
-        slot.append(int(jax.random.randint(k2, (), 0, size)))
-    return p, slot
-
-
 def test_pool_matches_jax_image_for_image():
     """Pool of 3, batches of 2, eight queries: filling, swapping and passing
     through all happen, and every returned image and the pool's contents
@@ -93,7 +85,7 @@ def test_pool_matches_jax_image_for_image():
         imgs = rs.uniform(-1, 1, (batch, 4, 4, 4, 1)).astype(np.float32)
         rng = jax.random.PRNGKey(100 + q)
         jpool, want = query(jpool, jnp.asarray(imgs), rng)
-        p, slot = _jax_draws(rng, batch, size)
+        p, slot = jax_draws(rng, batch, size)
         full_before = pool.count >= size
         got = pool_query(pool, torch.from_numpy(np.moveaxis(imgs, -1, 1).copy()),
                          draws=(p, slot))

@@ -125,6 +125,25 @@ def jax_state_dicts(g_params, d_params) -> dict:
     return out
 
 
+def jax_draws(rng, batch: int, size: int):
+    """The (p, slot) pairs that JAX ``pool_query`` draws from ``rng``, one
+    per image, for the port's ``pool_query(..., draws=...)``."""
+    p, slot = [], []
+    for key in jax.random.split(rng, batch):
+        k1, k2 = jax.random.split(key)
+        p.append(float(jax.random.uniform(k1)))
+        slot.append(int(jax.random.randint(k2, (), 0, size)))
+    return p, slot
+
+
+def jax_step_pool_draws(rng, batch: int, size: int) -> dict:
+    """The port's ``pool_draws`` for a JAX ``make_train_step`` step taken
+    with ``rng``: the step splits it into (dropout, pool a, pool b) keys."""
+    _, k_pool_a, k_pool_b = jax.random.split(rng, 3)
+    return {"fake_a": jax_draws(k_pool_a, batch, size),
+            "fake_b": jax_draws(k_pool_b, batch, size)}
+
+
 def dead_bias_keys(net) -> set:
     """State-dict keys of the biases the port detaches (norm-dead)."""
     return {f"{name}.bias" for name, m in net.named_modules()
