@@ -50,7 +50,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    once with cuDNN's deterministic algorithms and once with
    torch.use_deterministic_algorithms as well (phase_checkpoint states what
    each must show); save and restore seconds and the files' bytes; the
-   saved latest_net_G_A.pth decoded through python -m mra_gan_tpu_torch.test.
+   saved latest_net_G_A.pth decoded through python -m mra_gan_tpu_torch.test;
+10. the serving daemon (python -m mra_gan_tpu_torch.serve --once, in process)
+   on 4 synthetic 128x256x256 .nii.gz volumes and one truncated file: 4
+   served, the truncated one in failed.log, each output bit-equal to an
+   in-process decode, exactly 4 x phase 5's forward launches per volume and
+   no backward; served s/volume, one volume's read and write seconds; then
+   the directory decode CLI (read ahead, writes behind) on the same volumes
+   against the serial sum read + decode + write;
+11. the training driver (python -m mra_gan_tpu_torch.train, in process) at
+   the reference default with --no_lsgan (LSGAN, phase 7's step) over 4
+   synthetic 128x256x256 image/label pairs: batch 1 for 2 epochs (cold,
+   then warm cache) and batch 8 with 4 workers, the losses read back every
+   step, and one batch-1 epoch reading them back once; finite loss lines,
+   the checkpoint files, exactly steps x phase 7's launches per step; per
+   epoch the steady s/step, its data-wait share and pairs/s beside phase 7's;
+   under torch.use_deterministic_algorithms(True), 1 epoch then
+   --continue_train --epoch_count 2 bit-equal to 2 straight epochs (step lr
+   policy, 2 samples a volume); and the PatchLoader's own pairs/s, cold and
+   warm, at workers 1 and 4.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line {"kernels": [...]} with each kernel's launches on its main path
@@ -1312,6 +1330,323 @@ def phase_checkpoint(K, workdir: Path) -> dict:
             "library_calls_twice_max_diff": calls, "decode_cli_s": decode_s}
 
 
+SERVE_VOLUMES = 4
+DRIVER_PAIRS = 4  # image/label pairs of the VOLUME shape
+DRIVER_SAMPLES = 8  # --num_samples: 32 pairs an epoch
+DRIVER_SKIP = 2  # first steps of each epoch left out of the steady state
+RESUME_SAMPLES = 2  # --num_samples of the resume check (8 steps an epoch)
+
+
+def _write_volumes(paths_and_data) -> float:
+    """Write (path, NiftiImage) pairs with one thread each (gzip releases
+    the GIL); returns the seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mra_gan_tpu_torch.data import nifti
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max(1, len(paths_and_data))) as ex:
+        for f in [ex.submit(nifti.save, img, path) for path, img in paths_and_data]:
+            f.result()
+    return time.perf_counter() - t0
+
+
+def _decode_args(ck: Path, *extra) -> list:
+    return ["--checkpoints_dir", str(ck), "--name", "smoke", "--ngf", str(NGF),
+            "--patch_size", *map(str, PATCH), "--stride_inplane", str(STRIDE),
+            "--stride_layer", str(STRIDE), "--decode_batch", str(DECODE_BATCH),
+            "--device", DEVICE, *extra]
+
+
+def phase_serve(K, tree, decode: dict, workdir: Path) -> dict:
+    """The serving daemon (python -m mra_gan_tpu_torch.serve, in process,
+    --once) over SERVE_VOLUMES synthetic VOLUME .nii.gz files and one
+    truncated file, with a .pth of phase 4's tree: every good volume served,
+    the truncated one in failed.log, each output bit-equal to an in-process
+    inference of its file, and exactly SERVE_VOLUMES x phase 5's forward
+    launches per volume, no backward. Then the directory decode CLI on the
+    same volumes, against the serial sum of read, decode and write."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch import serve
+    from mra_gan_tpu_torch import test as cli
+    from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
+    from mra_gan_tpu_torch.data import nifti
+    from mra_gan_tpu_torch.infer.sliding_window import patch_grid
+
+    ck = workdir / "ck" / "smoke"
+    ck.mkdir(parents=True)
+    torch.save(state_dict_from_jax(tree, "resnet_6blocks"), ck / "latest_net_G_A.pth")
+    watch, only, out, out_dir = (workdir / d for d in ("watch", "volumes", "served", "dir_out"))
+    watch.mkdir()
+    only.mkdir()
+    rng = np.random.default_rng(SEED)
+    aff = np.diag([0.8, 0.8, 1.5, 1.0])
+    names = [f"v{i}.nii.gz" for i in range(SERVE_VOLUMES)]
+    write_s = _write_volumes([
+        (watch / n, nifti.NiftiImage(data=rng.random(VOLUME, np.float32) * 300, affine=aff))
+        for n in names])
+    whole = (watch / names[0]).read_bytes()
+    (watch / "truncated.nii.gz").write_bytes(whole[: len(whole) // 3])
+    for n in names:
+        (only / n).hardlink_to(watch / n)
+    print(f"[serve] wrote {SERVE_VOLUMES} {VOLUME} .nii.gz volumes in {write_s:.2f} s "
+          f"({len(whole) / 1e6:.1f} MB each)", flush=True)
+
+    n_batches = -(-len(patch_grid(VOLUME, PATCH, (STRIDE,) * 3)) // DECODE_BATCH)
+    per_volume = times(forward_launches(K, generator_norms(DECODE_BATCH, PATCH),
+                                        torch.bfloat16), n_batches)
+    check(with_wholes({**per_volume, **dict.fromkeys(K.BACKWARD, 0)})
+          == decode["decode_launches"], "phase 5's launches per volume")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    served, failures = serve.main(["--watch", str(watch), "--result", str(out),
+                                   *_decode_args(workdir / "ck"), "--once",
+                                   "--poll_secs", "0.05"])
+    serve_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    check((served, failures) == (SERVE_VOLUMES, 1), f"served {served}, failures {failures}")
+    check("truncated.nii.gz" in (out / "failed.log").read_text(), "truncated file in failed.log")
+    check(launched(K, times(per_volume, SERVE_VOLUMES)),
+          f"daemon launches {launches}, want {SERVE_VOLUMES} x {per_volume}, no backward")
+
+    opt = serve.parse(["--watch", str(watch), "--result", str(out),
+                       *_decode_args(workdir / "ck")])
+    gen = cli.load_generator(opt)
+    for n in names:
+        sub = argparse.Namespace(**vars(opt))
+        sub.image = str(watch / n)
+        want = cli.inference(sub, gen, save=False)
+        got = nifti.load(out / n)
+        check(np.array_equal(got.data, want.data) and np.array_equal(got.affine, want.affine),
+              f"served {n} bit-equal to an in-process inference")
+    t0 = time.perf_counter()
+    img = nifti.load(watch / names[0])
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nifti.save(img, workdir / "write_probe.nii.gz")
+    one_write_s = time.perf_counter() - t0
+    decode_s = float(np.median(decode["decode_s"]))
+    serial_s = SERVE_VOLUMES * (read_s + decode_s + one_write_s)
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    failed = cli.main(["--image", str(only), "--result", str(out_dir),
+                       *_decode_args(workdir / "ck")])
+    dir_s = time.perf_counter() - t0
+    check(failed == [], f"directory CLI skipped {failed}")
+    check(launched(K, times(per_volume, SERVE_VOLUMES)),
+          f"directory CLI launches {dict(K.LAUNCHES)}, want {SERVE_VOLUMES} x {per_volume}")
+    for n in names:
+        check(np.array_equal(nifti.load(out_dir / n).data, nifti.load(out / n).data),
+              f"directory CLI {n} bit-equal to the daemon's")
+    print(f"[serve] daemon: {SERVE_VOLUMES} volumes in {serve_s:.3f} s wall, "
+          f"{serve_s / SERVE_VOLUMES:.3f} s/volume (IO included); one volume's read "
+          f"{read_s:.3f} s, write {one_write_s:.3f} s; phase 5 decode {decode_s:.4f} s; "
+          f"launches {launches}", flush=True)
+    print(f"[serve] directory CLI: {SERVE_VOLUMES} volumes in {dir_s:.3f} s "
+          f"({dir_s / SERVE_VOLUMES:.3f} s/volume) against the serial sum read + decode + "
+          f"write {serial_s:.3f} s ({serial_s / SERVE_VOLUMES:.3f} s/volume)", flush=True)
+    return {"volumes": SERVE_VOLUMES, "serve_s": serve_s,
+            "serve_s_per_volume": serve_s / SERVE_VOLUMES, "read_s": read_s,
+            "write_s": one_write_s, "decode_s": decode_s, "dir_cli_s": dir_s,
+            "serial_sum_s": serial_s, "launches": launches,
+            "gzip_bytes_per_volume": len(whole)}
+
+
+def _driver_data(root: Path) -> None:
+    """DRIVER_PAIRS image/label pairs of the VOLUME shape: an ellipsoid of
+    random intensities in a zero background (the foreground crop's box), the
+    label a scaled copy of its image inside it, on a flipped affine (the RAS
+    reorientation)."""
+    import numpy as np
+
+    from mra_gan_tpu_torch.data import nifti
+
+    axes = [np.linspace(-1, 1, n, dtype=np.float32) for n in VOLUME]
+    inside = ((axes[0][:, None, None] / 0.9) ** 2 + (axes[1][None, :, None] / 0.8) ** 2
+              + (axes[2][None, None, :] / 0.85) ** 2) <= 1.0
+    aff = np.diag([-0.8, 0.8, 1.5, 1.0])
+    rng = np.random.default_rng(SEED + 11)
+    pairs = []
+    for i in range(DRIVER_PAIRS):
+        img = np.where(inside, rng.random(VOLUME, np.float32) * 80 + 10, np.float32(0))
+        pairs += [(root / "images" / f"{i}.nii.gz", nifti.NiftiImage(data=img, affine=aff)),
+                  (root / "labels" / f"{i}.nii.gz",
+                   nifti.NiftiImage(data=np.where(inside, img * 0.7 + 5, np.float32(0)),
+                                    affine=aff))]
+    for sub in ("images", "labels"):
+        (root / sub).mkdir(parents=True)
+    secs = _write_volumes(pairs)
+    print(f"[driver] wrote {DRIVER_PAIRS} {VOLUME} image/label pairs in {secs:.2f} s",
+          flush=True)
+
+
+def _loss_lines_finite(log: Path) -> int:
+    """The count of loss lines in ``log``; fails on a value that is not finite."""
+    n = 0
+    for line in log.read_text().splitlines():
+        if not line.startswith("(epoch:"):
+            continue
+        vals = line.split(") ", 1)[1].split()
+        nums = [float(v) for v in vals[1::2]]
+        check(len(nums) == 10 and all(math.isfinite(v) for v in nums),
+              f"loss line finite: {line}")
+        n += 1
+    return n
+
+
+def _epoch_rates(records: list, batch: int) -> list:
+    """Per epoch: the steady state's s/step (the StepTimer's data wait plus
+    the step up to its read-back, the first DRIVER_SKIP steps left out), the
+    data wait's share of it, and pairs/s. Where the losses were not read
+    back every step, the timer cannot split a step, and s/step is the
+    epoch's wall time over its steps (data share None)."""
+    out = []
+    for r in records:
+        if len(r["comp_s"]) != len(r["data_s"]):
+            s_step = r["wall_s"] / r["steps"]
+            out.append({"epoch": r["epoch"], "steps": r["steps"], "wall_s": r["wall_s"],
+                        "s_per_step": s_step, "data_share": None,
+                        "pairs_per_s": batch / s_step, "first_step_s": r["data_s"][0]})
+            continue
+        skip = min(DRIVER_SKIP, len(r["data_s"]) - 1)
+        data, comp = r["data_s"][skip:], r["comp_s"][skip:]
+        total = sum(data) + sum(comp)
+        s_step = total / len(data)
+        out.append({"epoch": r["epoch"], "steps": r["steps"], "wall_s": r["wall_s"],
+                    "s_per_step": s_step, "data_share": sum(data) / total,
+                    "pairs_per_s": batch / s_step, "first_step_s": r["data_s"][0] + r["comp_s"][0]})
+    return out
+
+
+def phase_driver(K, train: dict, results: dict, workdir: Path) -> dict:
+    """The training driver (python -m mra_gan_tpu_torch.train, in process)
+    at the reference default over DRIVER_PAIRS synthetic VOLUME pairs: run 1
+    at batch 1 (LSGAN, 2 epochs, cold then warm cache), run 2 at batch 8 and
+    4 workers, both reading the losses back every step (--print_freq 1),
+    and a batch-1 epoch reading them back once; each held to finite loss
+    lines, its checkpoint files and exactly steps x phase 7's launches per
+    step. Then, under
+    torch.use_deterministic_algorithms(True), 1 epoch followed by
+    --continue_train --epoch_count 2 against 2 straight epochs, bit for bit.
+    Last, the PatchLoader's own pairs/s, cold and warm, at workers 1 and 4."""
+    import torch
+
+    from mra_gan_tpu_torch import train as driver
+    from mra_gan_tpu_torch.checkpoint.manager import state_to_dict
+    from mra_gan_tpu_torch.data.dataset import (PatchLoader, UnpairedVolumeDataset,
+                                                flush_cache_writes)
+
+    data = workdir / "data"
+    _driver_data(data)
+    cfg_dtype = torch.bfloat16
+    common = ["--data_path", str(data), "--ngf", str(NGF), "--ndf", str(NDF),
+              "--patch_size", *map(str, PATCH), "--no_lsgan", "--device", DEVICE,
+              "--seed", str(SEED)]
+    warm = ["--cache_dir", str(workdir / "ck" / "b1" / "cache")]
+    pairs = DRIVER_PAIRS * DRIVER_SAMPLES
+    runs = {}
+    for tag, batch, print_freq, extra in (
+            ("b1", 1, 1, ["--workers", "2", "--niter", "1", "--niter_decay", "1",
+                          "--save_epoch_freq", "1"]),
+            ("b8", 8, 1, ["--workers", "4", "--niter", "2", "--niter_decay", "0", *warm]),
+            # batch 1 with the losses read back once an epoch, not every step
+            ("b1_quiet", 1, pairs, ["--workers", "2", "--niter", "1", "--niter_decay", "0",
+                                    *warm])):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = driver.main([*common, "--batch_size", str(batch), "--checkpoints_dir",
+                           str(workdir / "ck"), "--name", tag, "--num_samples",
+                           str(DRIVER_SAMPLES), *extra, "--print_freq", str(print_freq)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        steps = sum(r["steps"] for r in out["epochs"])
+        check(steps == len(out["epochs"]) * pairs // batch, f"driver {tag}: {steps} steps")
+        norms = 4 * generator_norms(batch, PATCH) + 4 * patchgan_norms(batch)
+        per_step = {**forward_launches(K, norms, cfg_dtype),
+                    **backward_launches(K, norms, cfg_dtype)}
+        check(launched(K, times(per_step, steps)),
+              f"driver {tag}: launches {launches}, want {steps} x {per_step}")
+        run = workdir / "ck" / tag
+        n_lines = _loss_lines_finite(run / "loss_log.txt")
+        want_lines = sum(k * batch % print_freq == 0 for k in range(1, steps + 1))
+        check(n_lines == want_lines, f"driver {tag}: {n_lines} loss lines for {steps} steps")
+        epochs = [str(r["epoch"]) for r in out["epochs"]]
+        saved = (epochs if tag == "b1" else []) + ["latest"]
+        check(all((run / f"ckpt_{e}.pt").exists() and (run / f"{e}_net_G_A.pth").exists()
+                  for e in saved) and (run / "opt.txt").exists(),
+              f"driver {tag}: checkpoint files {saved}")
+        rates = _epoch_rates(out["epochs"], batch)
+        phase7 = train[f"b{batch}"]["s_per_step"]
+        for r in rates:
+            how = (f"steady {r['s_per_step']:.4f} s/step ({r['pairs_per_s']:.2f} pairs/s), "
+                   f"data wait {r['data_share']:.1%}, first step {r['first_step_s']:.3f} s"
+                   if r["data_share"] is not None else
+                   f"{r['s_per_step']:.4f} s/step over the epoch ({r['pairs_per_s']:.2f} "
+                   f"pairs/s), one read-back")
+            print(f"[driver] {tag} epoch {r['epoch']}: {r['steps']} steps in {r['wall_s']:.2f} "
+                  f"s; {how}; phase 7 {phase7:.4f} s/step ({batch / phase7:.2f} pairs/s)",
+                  flush=True)
+        runs[tag] = {"batch": batch, "steps": steps, "wall_s": wall, "launches": launches,
+                     "epochs": rates, "phase7_s_per_step": phase7}
+        for k, n in with_wholes(launches).items():
+            results[k].setdefault("launches_driver_per_step", {})[tag] = n / steps
+        del out
+        torch.cuda.empty_cache()
+
+    # exact resume through the driver: the step policy keeps the lr of an
+    # epoch independent of --niter, so 1 epoch then a second resumed equals
+    # 2 straight epochs
+    resume = ["--batch_size", "1", "--num_samples", str(RESUME_SAMPLES), "--workers", "2",
+              "--lr_policy", "step", "--lr_decay_iters", "1", "--niter_decay", "0",
+              "--print_freq", "1", *warm]
+    with reproducible(True):
+        t0 = time.perf_counter()
+        straight = driver.main([*common, *resume, "--checkpoints_dir", str(workdir / "ck"),
+                                "--name", "straight", "--niter", "2"])
+        driver.main([*common, *resume, "--checkpoints_dir", str(workdir / "ck"),
+                     "--name", "resumed", "--niter", "1"])
+        resumed = driver.main([*common, *resume, "--checkpoints_dir", str(workdir / "ck"),
+                               "--name", "resumed", "--niter", "2", "--continue_train",
+                               "--epoch_count", "2"])
+        resume_s = time.perf_counter() - t0
+    diff = _max_diff(state_to_dict(straight["state"]), state_to_dict(resumed["state"]))
+    print(f"[driver] 1 epoch + --continue_train --epoch_count 2 against 2 straight epochs "
+          f"({straight['state'].step} steps, deterministic algorithms): "
+          f"{'bit-equal' if diff == 0.0 else f'NOT bit-equal (max |diff| {diff:.3g})'} "
+          f"in {resume_s:.1f} s", flush=True)
+    check(diff == 0.0 and resumed["state"].step == straight["state"].step,
+          "driver resume bit-equal to the straight run")
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+    loader = {}
+    for workers in (1, 4):
+        ds = UnpairedVolumeDataset(data, patch_size=PATCH, num_samples=DRIVER_SAMPLES,
+                                   cache_dir=str(workdir / f"loader_cache_w{workers}"),
+                                   seed=SEED)
+        pl = PatchLoader(ds, batch_size=1, shuffle=True, workers=workers)
+        row = {}
+        for temp, epoch in (("cold", 1), ("warm", 2)):
+            t0 = time.perf_counter()
+            n = sum(a.shape[0] for a, _ in pl.epoch(epoch))
+            row[temp] = n / (time.perf_counter() - t0)
+            flush_cache_writes()
+        loader[f"w{workers}"] = row
+        print(f"[driver] PatchLoader, {workers} worker(s), {n} pairs an epoch: cold "
+              f"{row['cold']:.2f} pairs/s, warm {row['warm']:.2f} pairs/s", flush=True)
+    return {"runs": runs, "resume_bit_equal": diff == 0.0, "resume_s": resume_s,
+            "loader_pairs_per_s": loader}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1387,6 +1722,10 @@ def main(argv=None) -> int:
     parity = phase_train_parity()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         ckpt = phase_checkpoint(K, Path(tmp))
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        serving = phase_serve(K, tree, decode, Path(tmp))
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        train_driver = phase_driver(K, train, results, Path(tmp))
 
     kernels = []
     for k, r in results.items():
@@ -1413,13 +1752,15 @@ def main(argv=None) -> int:
             "launches_single_pass": r["launches_single_pass"],
             "launches_train": r["launches_train"],
             "launches_train_per_step": r["launches_train_per_step"],
+            "launches_driver_per_step": r["launches_driver_per_step"],
             "train_at": {"shape": train_head["shape"], "ms": train_head["ms"],
                          "plain_ms": train_head["plain_ms"],
                          "bound_ms": train_head["bound_ms"],
                          "library_ms": train_head["library_ms"]},
             **({"note": r["note"]} if "note" in r else {})})
     summary = {"decode": decode, "train": train, "train_parity": parity, "checkpoint": ckpt,
-               "conv_formats": conv_rows, "seconds": time.perf_counter() - t_start}
+               "serve": serving, "train_driver": train_driver, "conv_formats": conv_rows,
+               "seconds": time.perf_counter() - t_start}
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(

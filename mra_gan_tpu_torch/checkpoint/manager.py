@@ -13,12 +13,20 @@ device. Each ``save`` also writes the reference's per-network files
 is. Every file is written under a temporary name and then renamed over the
 old one, so a crash mid-save leaves the previous ``latest`` whole.
 
-``restore`` is strict, as the JAX package's template restore is: a config
-field, the patch shape, or a tensor's shape that disagrees with the state
-restored into raises ValueError naming it, and nothing of the state changes.
-The JAX package falls back to resetting a pool whose layout differs
-(single-chip cell layout against the spatial step's plain one, :55-150);
-the port stores its pools in one layout only, so it has no such fallback.
+``restore`` loads the saved tensors into a state built from the live
+configuration, as the JAX driver restores its saved tree into a state made
+from the flags (train.py:172-178). It refuses, with a ValueError naming the
+first misfit and leaving the state untouched, only what the state's tensors
+cannot take: a network field (channels, widths, architectures, norm,
+dropout), the patch shape, the pool size, or a tensor's shape. The
+objective (``gan_mode``, the lambdas), ``beta1`` and the compute dtype are
+the live state's: the saved pool images are cast to its dtype, and Adam
+keeps its live betas. A dropout generator saved on another device type is
+refused only where the configuration builds dropout; without dropout it is
+never drawn from, and the live one is kept. The JAX package falls back to
+resetting a pool whose layout differs (single-chip cell layout against the
+spatial step's plain one, :55-150); the port stores its pools in one layout
+only, so it has no such fallback.
 """
 from __future__ import annotations
 
@@ -34,6 +42,11 @@ from ..models.cycle_gan import CycleGANConfig, CycleGANState
 from .io import reference_state_dict
 
 FORMAT = "mra_gan_tpu_torch.cycle_gan_state/1"
+# The config fields that decide the state's tensors: the networks' and the
+# pools'. The others (the objective, beta1, the init, the compute dtype) are
+# taken from the live state on restore.
+STRUCTURE_FIELDS = ("input_nc", "output_nc", "ngf", "ndf", "net_g", "net_d", "n_layers_d",
+                    "norm", "no_dropout", "pool_size")
 # (reference file suffix, state attribute)
 NET_FILES = (("G_A", "g_a"), ("G_B", "g_b"), ("D_A", "d_a"), ("D_B", "d_b"))
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
@@ -128,10 +141,10 @@ def _check(raw: dict, state: CycleGANState) -> None:
         raise ValueError(f"not a checkpoint of this format: format {raw.get('format')!r}, "
                          f"expected {FORMAT!r}")
     live = config_to_dict(state.cfg)
-    for k in sorted(set(live) | set(raw["config"])):
-        if raw["config"].get(k) != live.get(k):
+    for k in STRUCTURE_FIELDS:
+        if raw["config"].get(k) != live[k]:
             raise ValueError(f"checkpoint config field {k!r} is {raw['config'].get(k)!r}, "
-                             f"this state's {live.get(k)!r}")
+                             f"this state's {live[k]!r}")
     if tuple(raw["patch_shape"]) != tuple(state.patch_shape):
         raise ValueError(f"checkpoint patch_shape is {tuple(raw['patch_shape'])}, this "
                          f"state's {tuple(state.patch_shape)}")
@@ -155,7 +168,7 @@ def _check(raw: dict, state: CycleGANState) -> None:
     if raw["generator"].numel() != state.generator.get_state().numel():
         raise ValueError("checkpoint generator state does not fit this state's pool generator")
     drop = raw["dropout_generator"]
-    if drop["device"] != state.dropout_generator.device.type:
+    if not state.cfg.no_dropout and drop["device"] != state.dropout_generator.device.type:
         raise ValueError(f"checkpoint dropout_generator is a {drop['device']} generator, this "
                          f"state's a {state.dropout_generator.device.type} one: a generator's "
                          f"state does not carry over between device types")
@@ -198,9 +211,10 @@ class CheckpointManager:
 
     def restore(self, epoch, state: CycleGANState) -> CycleGANState:
         """Load ``ckpt_{epoch}.pt`` into ``state`` (made by ``create_state``
-        with the same config and patch shape, any seed), on its device, and
-        return it: ``make_train_step(cfg)``'s step goes on from it as from
-        the state that was saved."""
+        with the same networks, pool size and patch shape, any seed), on its
+        device, and return it: ``make_train_step(state.cfg)``'s step goes on
+        from it as from the state that was saved, under the live objective,
+        beta1 and dtype."""
         raw = self.restore_raw(epoch)
         _check(raw, state)
         with torch.no_grad():
@@ -208,14 +222,19 @@ class CheckpointManager:
                 net.load_state_dict(raw["nets"][name], strict=True)
             for name in ("opt_g", "opt_d"):
                 opt = getattr(state, name)
+                betas = [g["betas"] for g in opt.param_groups]
                 opt.load_state_dict(raw[name])
+                for g, b in zip(opt.param_groups, betas):  # the live beta1
+                    g["betas"] = b
                 relayout_optimizer_state(opt)
             for name in ("pool_fake_a", "pool_fake_b"):
                 pool = getattr(state, name)
-                pool.images.copy_(raw[name]["images"])
+                pool.images.copy_(raw[name]["images"])  # cast to the live dtype
                 pool.count = int(raw[name]["count"])
         state.generator.set_state(raw["generator"])
-        state.dropout_generator.set_state(raw["dropout_generator"]["state"])
+        drop = raw["dropout_generator"]
+        if drop["device"] == state.dropout_generator.device.type:
+            state.dropout_generator.set_state(drop["state"])
         state.step = int(raw["step"])
         return state
 

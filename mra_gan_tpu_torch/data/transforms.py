@@ -1,14 +1,17 @@
-"""Host-side preprocessing for inference (numpy/scipy).
+"""Host-side preprocessing (numpy/scipy).
 
 The port's own copy of the functions of mra_gan_tpu/data/transforms.py that
-the decode CLI uses (:83,97,103,265,282,302): the legacy 0-255 rescale, the
-[-1, 1] tanh range and back, spacing resample, resample onto a reference
-grid, and pad-to-patch-size. The arithmetic is unchanged; keep the two in
-step.
+the decode CLI and the training data pipeline use: orientation to RAS, the
+z-score, the foreground crop and the pos/neg-weighted patch starts of the
+monai chain (:32-540); the legacy 0-255 rescale, the [-1, 1] tanh range and
+back, spacing resample, resample onto a reference grid, pad-to-patch-size
+and the rejection-sampled crop. The arithmetic is unchanged; keep the two in
+step. Random draws take an explicit np.random.Generator, so that the same
+generator gives the JAX package's draws.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 from scipy import ndimage
@@ -82,3 +85,213 @@ def pad_to_size(data: np.ndarray, size: Sequence[int], mode: str = "constant",
         return data
     kw = {"constant_values": constant_values} if mode == "constant" else {}
     return np.pad(data, pads, mode=mode, **kw)
+
+
+def orientation_codes(affine: np.ndarray) -> str:
+    """Closest axis codes (e.g. 'RAS', 'LPS') of an affine's voxel axes."""
+    codes = []
+    pos = "RAS"
+    neg = "LPI"
+    for col in range(3):
+        v = affine[:3, col]
+        ax = int(np.argmax(np.abs(v)))
+        codes.append(pos[ax] if v[ax] >= 0 else neg[ax])
+    return "".join(codes)
+
+
+def to_ras(img: NiftiImage) -> NiftiImage:
+    """Reorient voxels so axes run R, A, S (the MONAI Orientationd('RAS')
+    equivalent, reference train.py:37). Pure permutation+flip; updates the
+    affine so physical space is unchanged."""
+    aff = img.affine
+    perm = [0, 0, 0]
+    flip = [False, False, False]
+    taken = set()
+    for col in range(3):
+        v = aff[:3, col]
+        order = np.argsort(-np.abs(v))
+        ax = next(int(a) for a in order if int(a) not in taken)
+        taken.add(ax)
+        perm[ax] = col
+        flip[ax] = v[ax] < 0
+    data = np.transpose(img.data, perm + list(range(3, img.data.ndim)))
+    new_aff = np.eye(4)
+    new_aff[:, :3] = aff[:, perm]
+    new_aff[:, 3] = aff[:, 3]
+    for ax in range(3):
+        if flip[ax]:
+            data = np.flip(data, axis=ax)
+            new_aff[:, ax] = -new_aff[:, ax]
+            new_aff[:3, 3] += aff[:3, perm[ax]] * (img.data.shape[perm[ax]] - 1)
+    return NiftiImage(data=np.ascontiguousarray(data), affine=new_aff, descrip=img.descrip)
+
+
+def zscore_normalize(data: np.ndarray, nonzero: bool = False) -> np.ndarray:
+    """MONAI NormalizeIntensityd equivalent (reference train.py:38)."""
+    x = data.astype(np.float32)
+    sel = x[x != 0] if nonzero else x
+    std = sel.std()
+    return (x - sel.mean()) / (std if std > 0 else 1.0)
+
+
+def crop_foreground(
+    image: np.ndarray,
+    label: Optional[np.ndarray] = None,
+    threshold: float = 0.0,
+    margin: int = 0,
+) -> Tuple[np.ndarray, Optional[np.ndarray], Tuple[slice, ...]]:
+    """Crop to the bounding box of image > threshold (MONAI CropForegroundd
+    equivalent, reference train.py:41)."""
+    mask = image > threshold
+    if not mask.any():
+        sl = tuple(slice(0, s) for s in image.shape[:3])
+        return image, label, sl
+    slices = []
+    for ax in range(3):
+        other = tuple(i for i in range(mask.ndim) if i != ax)
+        prof = mask.any(axis=other)
+        idx = np.where(prof)[0]
+        lo = max(0, int(idx[0]) - margin)
+        hi = min(image.shape[ax], int(idx[-1]) + 1 + margin)
+        slices.append(slice(lo, hi))
+    sl = tuple(slices)
+    out_img = image[sl]
+    out_lbl = label[sl] if label is not None else None
+    return out_img, out_lbl, sl
+
+
+class _CountedMask:
+    """Uniform sampling of true-voxel coordinates from a 3-D bool mask
+    without materializing the full index list (np.argwhere of a dense
+    128^3 mask is a ~50 MB build per call; this is one counting pass plus
+    a per-draw slab-local argwhere). nth_true(r) returns the r-th true
+    voxel in C order — identical to argwhere(mask)[r]."""
+
+    def __init__(self, mask: np.ndarray):
+        self.mask = mask
+        self.slab_cum = np.cumsum(
+            np.count_nonzero(mask.reshape(mask.shape[0], -1), axis=1))
+        self.count = int(self.slab_cum[-1]) if len(self.slab_cum) else 0
+
+    def nth_true(self, r: int) -> Tuple[int, int, int]:
+        z = int(np.searchsorted(self.slab_cum, r, side="right"))
+        prev = int(self.slab_cum[z - 1]) if z else 0
+        within = np.argwhere(self.mask[z])
+        yx = within[r - prev]
+        return (z, int(yx[0]), int(yx[1]))
+
+
+def rand_crop_starts_by_pos_neg(
+    image: np.ndarray,
+    label: np.ndarray,
+    patch_size: Sequence[int],
+    rng: np.random.Generator,
+    num_samples: int = 2,
+    pos: float = 20.0,
+    neg: float = 0.0,
+    image_threshold: float = -1.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Like rand_crop_by_pos_neg but returns (padded_image, padded_label,
+    starts[n,3]) so callers can gather all patches in one (native,
+    multi-threaded) pass instead of slicing per sample."""
+    patch = [int(p) for p in patch_size]
+    image = pad_to_size(image, patch)
+    label = pad_to_size(label, patch)
+    shape = image.shape[:3]
+    # Counted lazy sampling instead of materializing argwhere index arrays:
+    # a full-volume foreground list is ~50 MB and was ~85% of the cold
+    # loader's time, and with the default pos=20/neg=0 the negative class is
+    # only ever consulted when the label has no positive voxel at all. Draw
+    # sequence is unchanged: same rng calls, and _CountedMask selects the
+    # r-th true voxel in the same C order argwhere used.
+    pos_cls = _CountedMask(label[..., 0] > 0 if label.ndim > 3 else label > 0)
+    neg_cls: Optional[_CountedMask] = None
+    p_pos = pos / (pos + neg) if (pos + neg) > 0 else 1.0
+    starts = np.empty((num_samples, 3), np.int64)
+    half_lo = [p // 2 for p in patch]
+    for i in range(num_samples):
+        take_pos = rng.random() < p_pos
+        src = pos_cls
+        if not (take_pos and pos_cls.count):
+            if neg_cls is None:
+                neg_cls = _CountedMask(
+                    (image[..., 0] if image.ndim > 3 else image)
+                    > image_threshold)
+            src = neg_cls
+        if src.count == 0:
+            center = [rng.integers(half_lo[a], shape[a] - (patch[a] - half_lo[a]) + 1)
+                      for a in range(3)]
+        else:
+            center = src.nth_true(int(rng.integers(src.count)))
+        starts[i] = [int(np.clip(center[a] - half_lo[a], 0, shape[a] - patch[a]))
+                     for a in range(3)]
+    return image, label, starts
+
+
+def rand_crop_by_pos_neg(
+    image: np.ndarray,
+    label: np.ndarray,
+    patch_size: Sequence[int],
+    rng: np.random.Generator,
+    num_samples: int = 2,
+    pos: float = 20.0,
+    neg: float = 0.0,
+    image_threshold: float = -1.0,
+) -> list:
+    """MONAI RandCropByPosNegLabeld equivalent (reference train.py:42):
+    sample patch centers at label-positive voxels with probability
+    pos/(pos+neg) (here 1.0), else at image>threshold voxels; fall back to
+    uniform centers when the requested class is empty."""
+    patch = [int(p) for p in patch_size]
+    image, label, starts = rand_crop_starts_by_pos_neg(
+        image, label, patch, rng, num_samples, pos, neg, image_threshold)
+    out = []
+    for s in starts:
+        sl = tuple(slice(int(s[a]), int(s[a]) + patch[a]) for a in range(3))
+        out.append((image[sl], label[sl]))
+    return out
+
+
+def random_crop_start(
+    image: np.ndarray,
+    label: np.ndarray,
+    patch_size: Sequence[int],
+    rng: np.random.Generator,
+    drop_ratio: float = 0.0,
+    min_pixel: int = 1,
+    max_attempts: int = 100,
+) -> np.ndarray:
+    """Start offset of one legacy rejection-sampled crop over the
+    already-padded (image, label). The rejection test reads label views
+    only — no patch copies."""
+    patch = [int(p) for p in patch_size]
+    shape = image.shape[:3]
+    for _ in range(max_attempts):
+        start = [rng.integers(0, shape[a] - patch[a] + 1) for a in range(3)]
+        sl = tuple(slice(start[a], start[a] + patch[a]) for a in range(3))
+        if np.count_nonzero(label[sl]) >= min_pixel or rng.random() <= drop_ratio:
+            break
+    return np.asarray(start, np.int64)
+
+
+def random_crop(
+    image: np.ndarray,
+    label: np.ndarray,
+    patch_size: Sequence[int],
+    rng: np.random.Generator,
+    drop_ratio: float = 0.0,
+    min_pixel: int = 1,
+    max_attempts: int = 100,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Legacy rejection-sampling RandomCrop (reference
+    utils/NiftiDataset.py:1013-1110): uniform random crops, re-drawn while
+    the label patch has fewer than ``min_pixel`` non-zero voxels, each
+    rejection kept anyway with probability ``drop_ratio``. Attempt-bounded
+    (host-side loop; the unbounded reference loop can spin forever)."""
+    patch = [int(p) for p in patch_size]
+    image = pad_to_size(image, patch)
+    label = pad_to_size(label, patch)
+    s = random_crop_start(image, label, patch, rng, drop_ratio, min_pixel,
+                          max_attempts)
+    sl = tuple(slice(int(s[a]), int(s[a]) + patch[a]) for a in range(3))
+    return image[sl], label[sl]

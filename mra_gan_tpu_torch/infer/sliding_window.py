@@ -10,7 +10,7 @@ reference's "+0.01 after dividing" bias is not reproduced, as in the JAX
 package."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,14 +50,22 @@ def patch_grid(shape: Sequence[int], patch: Sequence[int], strides: Sequence[int
 @torch.inference_mode()
 def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64, 64),
                              stride_inplane: int = 32, stride_layer: int = 32,
-                             blend: str = "gaussian", batch: int = 4) -> np.ndarray:
+                             blend: str = "gaussian", batch: int = 4,
+                             transfer_dtype: torch.dtype = torch.float32,
+                             input_transfer_dtype: Optional[torch.dtype] = None) -> np.ndarray:
     """volume: (X, Y, Z) float32 in the generator's input range, mapped to the
     generator's (D, H, W); stride_inplane covers X and Y, stride_layer Z, like
     the reference. generate_fn: a models.cycle_gan.GenerateFn, (B, 1, px, py,
-    pz) -> same shape. The volume goes to the device once, in the generator's
-    compute dtype (exact: the generator's first op casts to it anyway), and
-    the result comes back once, float32 (X, Y, Z). The last batch may be
-    short; instance norm is per sample, so that changes nothing."""
+    pz) -> same shape. The volume goes to the device once and the result
+    comes back once, float32 (X, Y, Z) on the host. The last batch may be
+    short; instance norm is per sample, so that changes nothing.
+
+    The two dtypes set only the precision on the wire (JAX
+    sliding_window.py:56-86); the blending is float32 on the device.
+    ``input_transfer_dtype`` is the upload's, by default the generator's
+    compute dtype, which is exact: the generator's first op casts to it
+    anyway. ``transfer_dtype`` is the download's: float32 is exact, float16
+    rounds the [-1, 1] result to about 5e-4."""
     if blend not in ("gaussian", "uniform"):
         raise ValueError(f"unknown blend {blend!r}")
     patch = tuple(int(p) for p in patch_size)
@@ -65,7 +73,8 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
     dev = generate_fn.device
     vshape = volume.shape
     padded = [max(v, p) for v, p in zip(vshape, patch)]
-    host = torch.from_numpy(np.ascontiguousarray(volume, np.float32)).to(generate_fn.dtype)
+    in_dtype = generate_fn.dtype if input_transfer_dtype is None else input_transfer_dtype
+    host = torch.from_numpy(np.ascontiguousarray(volume, np.float32)).to(in_dtype)
     vol = host.to(dev)
     vol = F.pad(vol, [x for v, p in reversed(list(zip(vshape, padded))) for x in (0, p - v)])
 
@@ -83,4 +92,5 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
             acc[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += o
             wsum[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += win
     out = acc / wsum.clamp_min(1e-8)
-    return out[:vshape[0], :vshape[1], :vshape[2]].cpu().numpy()
+    out = out[:vshape[0], :vshape[1], :vshape[2]].to(transfer_dtype)
+    return out.cpu().numpy().astype(np.float32, copy=False)

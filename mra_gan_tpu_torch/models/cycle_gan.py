@@ -60,6 +60,24 @@ class CycleGANConfig:
     beta1: float = 0.5
     dtype: torch.dtype = torch.float32
 
+    @staticmethod
+    def modify_commandline_options(parser, is_train: bool):
+        """The CycleGAN's own flags and default overrides, injected by the
+        options layer's two-phase parse (JAX cycle_gan.py:80)."""
+        parser.set_defaults(no_dropout=True)
+        if is_train:
+            parser.add_argument("--lambda_A", type=float, default=10.0,
+                                help="weight for cycle loss (A -> B -> A)")
+            parser.add_argument("--lambda_B", type=float, default=10.0,
+                                help="weight for cycle loss (B -> A -> B)")
+            parser.add_argument("--lambda_identity", type=float, default=0.5,
+                                help="identity mapping loss weight factor")
+            parser.add_argument("--lambda_co_A", type=float, default=2.0,
+                                help="weight for correlation coefficient loss (A -> B)")
+            parser.add_argument("--lambda_co_B", type=float, default=2.0,
+                                help="weight for correlation coefficient loss (B -> A)")
+        return parser
+
     def build_generator(self, which: str = "g_a",
                         generator: Optional[torch.Generator] = None) -> nn.Module:
         """g_a maps domain A (input_nc channels) to B (output_nc), g_b back.

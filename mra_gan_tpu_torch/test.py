@@ -12,17 +12,27 @@ The generator comes from ``<checkpoints_dir>/<name>/<which_epoch>_net_G_A.pth``
 port's ``CheckpointManager.save`` writes beside every checkpoint, and
 ``convert_checkpoint.py --to_torch`` (either package's) from a checkpoint.
 With --image a directory, every .nii/.nii.gz in it is decoded into the
---result directory with one loaded generator; a volume that fails is
-reported and skipped, and the rest still decode.
+--result directory with one loaded generator, its host IO overlapped with
+the decode as the JAX CLI does (test.py:206-260): one IO thread reads the
+next volume while the current one decodes, the other writes the results
+behind it, at most four pending. A volume that cannot be read, decoded or
+written is reported and skipped, and the rest still decode.
+
+--wire sets the precision on the host-device wire of the sliding-window
+decode (JAX test.py:135-155): 'exact' uploads in the compute dtype and
+downloads float32, 'f32' is float32 both ways, 'f16' uploads in the compute
+dtype and downloads float16.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .checkpoint.io import read_reference_pth
 from .core.device import resolve_device
@@ -65,11 +75,26 @@ def load_generator(opt: argparse.Namespace) -> GenerateFn:
     return gen
 
 
-def inference(opt: argparse.Namespace, gen: GenerateFn, save: bool = True) -> nifti.NiftiImage:
-    """Decode the volume ``opt.image`` and, with ``save``, write it to
-    ``opt.result``."""
+# results written behind the decode at most, in directory mode and in the
+# serving daemon (each holds a whole float volume)
+MAX_PENDING_WRITES = 4
+# --wire: (download dtype, upload dtype or None for the compute dtype)
+WIRE = {"exact": (torch.float32, None), "f32": (torch.float32, torch.float32),
+        "f16": (torch.float16, None)}
+
+
+def inference(opt: argparse.Namespace, gen: Optional[GenerateFn] = None, img=None,
+              save_pool=None, save_futures=None, save: bool = True) -> nifti.NiftiImage:
+    """Decode ``opt.image`` (or ``img``, a NiftiImage already read) with
+    ``gen`` (loaded from ``opt`` when None) and return the result. With
+    ``save``, write it to ``opt.result``: in this thread, or, given
+    ``save_pool`` (an executor), as a task whose (path, future) pair is
+    appended to ``save_futures`` for the caller to collect."""
+    if gen is None:
+        gen = load_generator(opt)
     patch = tuple(int(p) for p in opt.patch_size)
-    img = nifti.load(opt.image)
+    if img is None:
+        img = nifti.load(opt.image)
     original = img
     work = nifti.NiftiImage(data=rescale_0_255(img.data), affine=img.affine)
     if opt.resample:
@@ -91,10 +116,12 @@ def inference(opt: argparse.Namespace, gen: GenerateFn, save: bool = True) -> ni
         out = single_pass_apply(gen, vol)
         mode = "single-pass"
     else:
+        down, up = WIRE[opt.wire]
         out = sliding_window_inference(vol, gen, patch_size=patch,
                                        stride_inplane=opt.stride_inplane,
                                        stride_layer=opt.stride_layer, blend=opt.blend,
-                                       batch=opt.decode_batch)
+                                       batch=opt.decode_batch, transfer_dtype=down,
+                                       input_transfer_dtype=up)
         mode = "sliding-window"
     print(f"{mode} decode: {time.perf_counter() - t0:.2f}s "
           f"({vol.shape} vol, {patch} patches, {gen.device})")
@@ -106,7 +133,9 @@ def inference(opt: argparse.Namespace, gen: GenerateFn, save: bool = True) -> ni
     result = nifti.NiftiImage(data=np.asarray(out, np.float32), affine=work.affine)
     if opt.resample:
         result = resample_to_reference(result, original, "bspline")
-    if save:
+    if save and save_pool is not None:
+        save_futures.append((opt.result, save_pool.submit(nifti.save, result, opt.result)))
+    elif save:
         nifti.save(result, opt.result)
         print(f"wrote {opt.result}")
     return result
@@ -120,9 +149,63 @@ def refuse_unported(opt: argparse.Namespace) -> None:
         if getattr(opt, flag):
             raise NotImplementedError(f"--{flag} is not ported yet; see ROADMAP Queue A, "
                                       f"parallelism")
-    if opt.wire != "exact":
-        raise NotImplementedError(f"--wire {opt.wire} is not ported yet; see ROADMAP "
-                                  f"Queue A, options and drivers")
+
+
+def decode_directory(opt: argparse.Namespace, gen: GenerateFn) -> List[str]:
+    """Decode every .nii/.nii.gz of the directory ``opt.image`` into the
+    directory ``opt.result`` under its own name; returns the names skipped.
+    Two IO threads overlap the host's work with the decode: one reads the
+    next volume while this one decodes, the other writes results behind it.
+    More than MAX_PENDING_WRITES writes in flight block the loop until the
+    oldest lands, since each holds a whole float volume."""
+    img_path, out_dir = Path(opt.image), Path(opt.result)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = sorted(p for p in img_path.iterdir() if p.name.endswith((".nii", ".nii.gz")))
+    if not files:
+        raise SystemExit(f"no .nii/.nii.gz files in {img_path}")
+    failed = []
+    save_futures = []
+
+    def finish_save(res_path, fut):
+        try:
+            fut.result()
+            print(f"wrote {res_path}")
+        except Exception as e:
+            print(f"FAILED WRITE {res_path}: {type(e).__name__}: {e}")
+            failed.append(Path(res_path).name)
+
+    def drain_saves(block: bool):
+        remaining = []
+        for res_path, fut in save_futures:
+            if not block and not fut.done():
+                remaining.append((res_path, fut))
+                continue
+            finish_save(res_path, fut)
+        while not block and len(remaining) > MAX_PENDING_WRITES:
+            finish_save(*remaining.pop(0))
+        save_futures[:] = remaining
+
+    with ThreadPoolExecutor(max_workers=2) as io_pool:
+        next_img, next_idx = io_pool.submit(nifti.load, str(files[0])), 0
+        for i, p in enumerate(files):
+            sub = argparse.Namespace(**vars(opt))
+            sub.image, sub.result = str(p), str(out_dir / p.name)
+            try:
+                img = next_img.result() if next_idx == i else nifti.load(str(p))
+                if i + 1 < len(files):
+                    next_img, next_idx = io_pool.submit(nifti.load, str(files[i + 1])), i + 1
+                inference(sub, gen, img=img, save_pool=io_pool, save_futures=save_futures)
+            except Exception as e:
+                # one volume that cannot be read or decoded (a truncated file,
+                # an unsupported datatype, a CUDA OOM): report it and go on
+                # with the rest, as the JAX CLI does (test.py:252-258)
+                print(f"SKIPPED {p.name}: {type(e).__name__}: {e}")
+                failed.append(p.name)
+            drain_saves(block=False)
+        drain_saves(block=True)
+    if failed:
+        print(f"{len(failed)}/{len(files)} volumes skipped: " + ", ".join(failed))
+    return failed
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[str]:
@@ -131,30 +214,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     opt = parse(argv)
     refuse_unported(opt)
     gen = load_generator(opt)
-    img_path = Path(opt.image)
-    if not img_path.is_dir():
+    if not Path(opt.image).is_dir():
         inference(opt, gen)
         return []
-    out_dir = Path(opt.result)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    files = sorted(p for p in img_path.iterdir() if p.name.endswith((".nii", ".nii.gz")))
-    if not files:
-        raise SystemExit(f"no .nii/.nii.gz files in {img_path}")
-    failed = []
-    for p in files:
-        sub = argparse.Namespace(**vars(opt))
-        sub.image, sub.result = str(p), str(out_dir / p.name)
-        try:
-            inference(sub, gen)
-        except Exception as e:
-            # one volume that cannot be read, decoded or written (a truncated
-            # file, an unsupported datatype, a CUDA OOM): report it and go on
-            # with the rest, as the JAX CLI does (test.py:252-258)
-            print(f"SKIPPED {p.name}: {type(e).__name__}: {e}")
-            failed.append(p.name)
-    if failed:
-        print(f"{len(failed)}/{len(files)} volumes skipped: " + ", ".join(failed))
-    return failed
+    return decode_directory(opt, gen)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,196 @@
+"""Training CLI: ``python -m mra_gan_tpu_torch.train`` (counterpart of the
+JAX package's ``train.py``:25-283), the reference's ``python train.py``
+workflow on one GPU:
+
+    python -m mra_gan_tpu_torch.train --data_path <root with images/ and labels/> \\
+        --checkpoints_dir ./checkpoints --name myrun [--no_lsgan] [--device cpu]
+
+Every flag of the JAX driver with its default, plus ``--device``. Per epoch:
+the loader's patch pairs (data/dataset.py) go to the device through pinned
+memory, one ``make_train_step`` step each, at the epoch's lr from
+``LRScheduler``. The losses are read back to the host only at
+``--print_freq`` (the loss line of ``loss_log.txt``) and once at the end of
+the epoch (the plateau policy's metric: the mean total loss over those
+samples). ``ckpt_{epoch}.pt`` and ``latest``, with their reference ``.pth``
+files, are written every ``--save_epoch_freq`` epochs, ``latest`` every
+``--save_latest_freq`` iterations and at the end. ``--continue_train``
+restores ``--which_epoch``, as does ``--epoch_count N`` > 1 when
+``ckpt_N.pt`` exists.
+
+Flags whose path is not ported yet raise NotImplementedError naming their
+ROADMAP item: ``--augment``/``--augment_extended``, ``--remat``, a nonzero
+``--hbm_limit_gib``, ``--data_parallel`` and ``--spatial_parallel``. The
+JAX driver's memory preflight is not ported either; the driver says so in
+one line unless given ``--no_mem_check``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .checkpoint import CheckpointManager
+from .core.device import resolve_device
+from .core.dtypes import compute_dtype
+from .data import nifti
+from .data.dataset import PatchLoader, UnpairedVolumeDataset
+from .models.cycle_gan import CycleGANConfig, create_state, make_train_step
+from .options.train_options import TrainOptions
+from .training.schedules import LRScheduler
+from .utils import StepTimer, Visualizer, print_networks
+
+
+def config_from_opt(opt: argparse.Namespace) -> CycleGANConfig:
+    return CycleGANConfig(
+        input_nc=opt.input_nc, output_nc=opt.output_nc, ngf=opt.ngf, ndf=opt.ndf,
+        net_g=opt.netG, net_d=opt.netD, n_layers_d=opt.n_layers_D, norm=opt.norm,
+        no_dropout=opt.no_dropout, init_type=opt.init_type, init_gain=opt.init_gain,
+        gan_mode="vanilla" if opt.no_lsgan else "lsgan",
+        lambda_a=opt.lambda_A, lambda_b=opt.lambda_B, lambda_identity=opt.lambda_identity,
+        lambda_co_a=opt.lambda_co_A, lambda_co_b=opt.lambda_co_B,
+        pool_size=opt.pool_size, beta1=opt.beta1, dtype=compute_dtype(opt.precision))
+
+
+def refuse_unported(opt: argparse.Namespace) -> None:
+    """NotImplementedError, naming its ROADMAP item, for a flag that selects
+    a path the port does not have yet."""
+    for flag, item in (("augment", "augmentation and registration"),
+                       ("augment_extended", "augmentation and registration"),
+                       ("remat", "memory levers"), ("hbm_limit_gib", "memory levers"),
+                       ("data_parallel", "parallelism"), ("spatial_parallel", "parallelism")):
+        if getattr(opt, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet; see ROADMAP Queue A, {item}")
+
+
+def to_step_layout(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A loader batch, (B, X, Y, Z, C) numpy, as the step's (B, C, X, Y, Z)
+    on ``device``; to CUDA from pinned memory, without waiting for the copy."""
+    t = torch.from_numpy(batch).permute(0, 4, 1, 2, 3)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _dump_patches(dump_dir: Path, first: int, image_b: np.ndarray, label_b: np.ndarray,
+                  count: int) -> None:
+    """Write ``count`` pairs of the batch as patch_{i:04d}_{A,B}.nii.gz."""
+    for k in range(count):
+        for tag, arr in (("A", image_b), ("B", label_b)):
+            nifti.save(nifti.NiftiImage(data=np.asarray(arr[k, ..., 0], np.float32),
+                                        affine=np.eye(4)),
+                       dump_dir / f"patch_{first + k:04d}_{tag}.nii.gz")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Train; returns {"state": the final CycleGANState, "epochs": one record
+    per epoch (epoch, lr, steps, wall_s, and the StepTimer's data_s and
+    comp_s)}."""
+    opt = TrainOptions().parse(argv)
+    refuse_unported(opt)
+    device = resolve_device(opt.device)
+    cfg = config_from_opt(opt)
+    patch = tuple(int(p) for p in opt.patch_size)
+    dataset = UnpairedVolumeDataset(
+        opt.data_path, patch_size=patch, pipeline=opt.pipeline, num_samples=opt.num_samples,
+        shuffle_labels=(opt.pipeline == "legacy"), which_direction=opt.which_direction,
+        resample=opt.resample, new_resolution=opt.new_resolution, drop_ratio=opt.drop_ratio,
+        min_pixel=opt.min_pixel, cache_dir=opt.cache_dir, seed=opt.seed)
+    loader = PatchLoader(dataset, batch_size=opt.batch_size, shuffle=True, workers=opt.workers)
+    print(f"volumes: {len(dataset)}  steps/epoch: {loader.steps_per_epoch()}")
+
+    state = create_state(cfg, opt.seed, patch, device)
+    print_networks(state.nets, verbose=opt.verbose)
+    step = make_train_step(cfg)
+    if not opt.no_mem_check:
+        print("memory preflight: not ported (ROADMAP Queue A, memory levers); skipped")
+
+    ckpt = CheckpointManager(opt.checkpoints_dir, opt.name)
+    if opt.continue_train and ckpt.has(opt.which_epoch):
+        state = ckpt.restore(opt.which_epoch, state)
+        print(f"resumed from checkpoint '{opt.which_epoch}' (step {state.step})")
+    elif opt.epoch_count > 1 and ckpt.has(opt.epoch_count):
+        state = ckpt.restore(opt.epoch_count, state)
+        print(f"resumed from checkpoint '{opt.epoch_count}'")
+
+    sched = LRScheduler(opt.lr_policy, opt.lr, niter=opt.niter, niter_decay=opt.niter_decay,
+                        epoch_count=opt.epoch_count, lr_decay_iters=opt.lr_decay_iters)
+    visualizer = Visualizer(opt)
+    total_steps = 0
+    last_metric = None
+    metrics = None
+    dumps_left, dump_idx = opt.dump_patches, 0
+    dump_dir = Path(opt.checkpoints_dir) / opt.name / "patch_dumps"
+    if dumps_left:
+        dump_dir.mkdir(parents=True, exist_ok=True)
+    records = []
+    for epoch in range(opt.epoch_count, opt.niter + opt.niter_decay + 1):
+        profiler = None
+        if opt.profile_dir and epoch == opt.epoch_count:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=acts)
+            profiler.start()
+        epoch_start = time.time()
+        lr = sched.lr_for_epoch(epoch, metric=last_metric)
+        timer = StepTimer()
+        epoch_iter = 0
+        # the plateau metric: the mean total loss over the print-time samples
+        # and one sample at the end of the epoch, so that it never depends on
+        # print_freq and costs no read-back per step
+        msum, msteps = 0.0, 0
+        sampled_step = -1
+        for image_b, label_b in loader.epoch(epoch):
+            timer.data_ready()
+            if dumps_left > 0:
+                n = min(dumps_left, image_b.shape[0])
+                _dump_patches(dump_dir, dump_idx, image_b, label_b, n)
+                dump_idx += n
+                dumps_left -= n
+            # AtoB: image -> real_A, label -> real_B
+            state, metrics = step(state, to_step_layout(image_b, device),
+                                  to_step_layout(label_b, device), lr)
+            total_steps += opt.batch_size
+            epoch_iter += opt.batch_size
+            if total_steps % opt.print_freq == 0:
+                metrics_host = {k: float(v) for k, v in metrics.items()}
+                msum += sum(metrics_host.values())
+                msteps += 1
+                sampled_step = total_steps
+                timer.step_done()
+                visualizer.print_current_losses(epoch, epoch_iter, metrics_host,
+                                                timer.t_comp / opt.batch_size, timer.t_data)
+            if total_steps % opt.save_latest_freq == 0:
+                print(f"saving the latest model (epoch {epoch}, total_steps {total_steps})")
+                ckpt.save("latest", state, also_latest=False)
+        if profiler is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            profiler.stop()
+            Path(opt.profile_dir).mkdir(parents=True, exist_ok=True)
+            trace = Path(opt.profile_dir) / f"train_epoch{epoch}.trace.json"
+            profiler.export_chrome_trace(str(trace))
+            print(f"profiler trace written to {trace}")
+        if epoch_iter:
+            if sampled_step != total_steps:  # the last step not yet sampled
+                msum += sum(float(v) for v in metrics.values())
+                msteps += 1
+            last_metric = msum / msteps
+        records.append({"epoch": epoch, "lr": lr, "steps": epoch_iter // opt.batch_size,
+                        "wall_s": time.time() - epoch_start, "data_s": timer.data_s,
+                        "comp_s": timer.comp_s})
+        if epoch % opt.save_epoch_freq == 0:
+            print(f"saving the model at the end of epoch {epoch}, iters {total_steps}")
+            ckpt.save(epoch, state, also_latest=True)
+        print(f"End of epoch {epoch} / {opt.niter + opt.niter_decay} \t "
+              f"Time Taken: {int(time.time() - epoch_start)} sec \t lr: {lr:.7f}")
+    ckpt.save("latest", state, also_latest=False)
+    return {"state": state, "epochs": records}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""Image-quality metrics on the caller's device (counterpart of
+mra_gan_tpu/utils/metrics.py:16-123): MAE, MSE, PSNR, Pearson r and a 3D
+SSIM, in float32, with the JAX package's formulas. SSIM follows Wang et al.
+2004 with a uniform win^3 window over the interior (valid) neighbourhoods and
+sample covariances, as skimage's ``structural_similarity`` does for volumes.
+
+Every function takes torch tensors or numpy arrays and returns a 0-d
+float32 tensor on the tensors' device (a numpy array goes to the CPU).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.float32)
+
+
+def mae(a, b) -> torch.Tensor:
+    return (_f32(a) - _f32(b)).abs().mean()
+
+
+def mse(a, b) -> torch.Tensor:
+    d = _f32(a) - _f32(b)
+    return (d * d).mean()
+
+
+def psnr(a, b, data_range: Optional[float] = None) -> torch.Tensor:
+    a, b = _f32(a), _f32(b)
+    if data_range is None:
+        data_range = (b.max() - b.min()).clamp_min(1e-8)
+    return 10.0 * torch.log10(data_range ** 2 / mse(a, b).clamp_min(1e-20))
+
+
+def pearson_r(a, b) -> torch.Tensor:
+    a, b = _f32(a).ravel(), _f32(b).ravel()
+    ac, bc = a - a.mean(), b - b.mean()
+    return (ac * bc).sum() / ((ac * ac).sum().sqrt() * (bc * bc).sum().sqrt()).clamp_min(1e-12)
+
+
+def _uniform_filter3d(x: torch.Tensor, win: int) -> torch.Tensor:
+    """Separable box filter over the interior (valid) windows, one axis at
+    a time as the JAX package convolves."""
+    k = torch.ones(win, dtype=x.dtype, device=x.device) / win
+    y = x[None, None]
+    for axis in range(3):
+        shape = [1, 1, 1]
+        shape[axis] = win
+        y = F.conv3d(y, k.reshape(1, 1, *shape))
+    return y[0, 0]
+
+
+def ssim3d(a, b, data_range: Optional[float] = None, win: int = 7) -> torch.Tensor:
+    """Mean SSIM over a 3D volume with a win^3 uniform window."""
+    a, b = _f32(a), _f32(b)
+    if data_range is None:
+        data_range = (b.max() - b.min()).clamp_min(1e-8)
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    mu_a = _uniform_filter3d(a, win)
+    mu_b = _uniform_filter3d(b, win)
+    n = win ** 3
+    cov_norm = n / (n - 1)  # sample (unbiased) covariances, as skimage
+    ex2 = _uniform_filter3d(a * a, win)
+    ey2 = _uniform_filter3d(b * b, win)
+    exy = _uniform_filter3d(a * b, win)
+    va = cov_norm * (ex2 - mu_a * mu_a)
+    vb = cov_norm * (ey2 - mu_b * mu_b)
+    cab = cov_norm * (exy - mu_a * mu_b)
+    num = (2 * mu_a * mu_b + c1) * (2 * cab + c2)
+    den = (mu_a ** 2 + mu_b ** 2 + c1) * (va + vb + c2)
+    return (num / den).mean()
+
+
+@torch.inference_mode()
+def volume_metrics(a, b, mask=None, use_mask: bool = False) -> dict:
+    """{"ssim", "psnr", "mae", "pearson_r"} of prediction ``a`` against
+    target ``b``. With ``use_mask`` the intensity metrics (PSNR, MAE,
+    Pearson r) are restricted to ``mask`` (nonzero = inside) by weighted
+    sums; SSIM is always over the whole volumes."""
+    a, b = _f32(a), _f32(b)
+    if use_mask:
+        w = torch.as_tensor(mask, device=a.device).to(torch.float32)
+        n = w.sum().clamp_min(1.0)
+
+        def wmean(x):
+            return (x * w).sum() / n
+
+        inside = w > 0
+        bmax = torch.where(inside, b, -torch.inf).max()
+        bmin = torch.where(inside, b, torch.inf).min()
+    else:
+        wmean = torch.mean
+        bmax, bmin = b.max(), b.min()
+    d = a - b
+    mae_v = wmean(d.abs())
+    mse_v = wmean(d * d)
+    data_range = (bmax - bmin).clamp_min(1e-8)
+    psnr_v = 10.0 * torch.log10(data_range ** 2 / mse_v.clamp_min(1e-20))
+    ac, bc = a - wmean(a), b - wmean(b)
+    if use_mask:
+        ac, bc = ac * w, bc * w  # zero the terms outside the mask
+    r_v = (ac * bc).sum() / ((ac * ac).sum().sqrt() * (bc * bc).sum().sqrt()).clamp_min(1e-12)
+    return {"ssim": ssim3d(a, b, None, 7), "psnr": psnr_v, "mae": mae_v, "pearson_r": r_v}

@@ -6,10 +6,13 @@ At the small configuration of the port's step tests (16^3, ngf = ndf = 4, a
 two steps and swap after: exact resume (k + m straight steps against k
 steps, save, restore into a state made from another seed, m steps) held
 bit for bit, with and without dropout; the round trip of every field; the
-``latest`` alias; the strict restore's refusals; the atomic write; the
+``latest`` alias; the restore's refusals of what the state's tensors
+cannot take, and the live objective, beta1 and dtype it keeps; the atomic
+write; the
 reference ``.pth`` files against the JAX package's ``save_torch_network`` on
 the same weights, bit for bit; and a port-trained run decoded by the decode
 CLI."""
+import dataclasses
 import os
 
 import jax
@@ -169,13 +172,16 @@ def _tamper_tensor(path):
 
 
 @pytest.mark.parametrize("case, match", [
-    ("config", "config field 'lambda_a'"),
-    ("dtype", "config field 'dtype'"),
+    ("config", "config field 'ngf'"),
+    ("pool_size", "config field 'pool_size'"),
+    ("dropout", "config field 'no_dropout'"),
     ("patch_shape", "patch_shape"),
     ("tensor_shape", r"nets\.d_b\.model\.0\.weight"),
     ("format", "format"),
 ])
 def test_strict_restore_refuses_what_differs(case, match, tmp_path):
+    """What the state's tensors cannot take: a network field, the pool
+    size, the patch shape, a tensor's shape; and another format."""
     cfg = _cfg()
     state = create_state(cfg, 0, STEP_PATCH, device="cpu")
     _run(state, make_train_step(cfg), _batches(1))
@@ -183,9 +189,11 @@ def test_strict_restore_refuses_what_differs(case, match, tmp_path):
     mgr.save(1, state, also_latest=False)
     target_cfg, patch = cfg, STEP_PATCH
     if case == "config":
-        target_cfg = _cfg(lambda_a=5.0)
-    elif case == "dtype":
-        target_cfg = _cfg(dtype=torch.bfloat16)
+        target_cfg = dataclasses.replace(cfg, ngf=8)
+    elif case == "pool_size":
+        target_cfg = dataclasses.replace(cfg, pool_size=3)
+    elif case == "dropout":
+        target_cfg = _cfg(dropout=True)
     elif case == "patch_shape":
         patch = (32, 32, 32)
     elif case == "tensor_shape":
@@ -199,6 +207,62 @@ def test_strict_restore_refuses_what_differs(case, match, tmp_path):
     with pytest.raises(ValueError, match=match):
         mgr.restore(1, target)
     _assert_tree_equal(state_to_dict(target), before, "untouched after a refusal")
+
+
+@pytest.mark.parametrize("field, value", [
+    ("gan_mode", "vanilla"), ("lambda_a", 5.0), ("lambda_identity", 0.0),
+    ("lambda_co_b", 1.0), ("beta1", 0.9), ("dtype", torch.bfloat16),
+    ("init_type", "xavier"),
+], ids=["gan_mode", "lambda_a", "lambda_identity", "lambda_co_b", "beta1", "dtype", "init_type"])
+def test_restore_keeps_the_live_objective_beta1_and_dtype(field, value, tmp_path):
+    """As the JAX driver restores its saved tree into a state made from the
+    flags: the networks, Adam moments, pools, generators and step come from
+    the file; the objective, beta1 and the compute dtype stay the live
+    state's (the pool images cast to its dtype), and its step runs."""
+    cfg = _cfg()
+    state = create_state(cfg, 0, STEP_PATCH, device="cpu")
+    _run(state, make_train_step(cfg), _batches(K_STEPS))
+    mgr = CheckpointManager(tmp_path, "run")
+    mgr.save(1, state, also_latest=False)
+    live_cfg = dataclasses.replace(cfg, **{field: value})
+    live = mgr.restore(1, create_state(live_cfg, 4, STEP_PATCH, device="cpu"))
+    assert live.cfg == live_cfg and live.step == K_STEPS
+    saved, got = state_to_dict(state), state_to_dict(live)
+    _assert_tree_equal(got["nets"], saved["nets"], "nets")
+    for name in ("opt_g", "opt_d"):
+        _assert_tree_equal(got[name]["state"], saved[name]["state"], name)
+        assert all(g["betas"] == (live_cfg.beta1, 0.999)
+                   for g in getattr(live, name).param_groups)
+    for name in ("pool_fake_a", "pool_fake_b"):
+        pool = getattr(live, name)
+        assert pool.images.dtype == live_cfg.dtype and pool.count == saved[name]["count"]
+        assert torch.equal(pool.images, saved[name]["images"].to(live_cfg.dtype))
+    _, metrics = make_train_step(live_cfg)(live, *_batches(1, seed=5)[0], STEP_LR)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_dropout_generator_of_another_device_type(dropout, tmp_path):
+    """A checkpoint written on another device type (its dropout generator's
+    state a CUDA one) loads into a CPU state without dropout, which never
+    draws from that generator; with dropout it is refused."""
+    cfg = _cfg(dropout=dropout)
+    state = create_state(cfg, 0, STEP_PATCH, device="cpu")
+    _run(state, make_train_step(cfg), _batches(1))
+    mgr = CheckpointManager(tmp_path, "run")
+    mgr.save(1, state, also_latest=False)
+    raw = mgr.restore_raw(1)
+    raw["dropout_generator"] = {"device": "cuda", "state": torch.zeros(16, dtype=torch.uint8)}
+    torch.save(raw, mgr.path(1))
+    target = create_state(cfg, 4, STEP_PATCH, device="cpu")
+    drop_state = target.dropout_generator.get_state()
+    if dropout:
+        with pytest.raises(ValueError, match="dropout_generator is a cuda generator"):
+            mgr.restore(1, target)
+        return
+    mgr.restore(1, target)
+    assert torch.equal(target.dropout_generator.get_state(), drop_state)
+    _assert_tree_equal(state_to_dict(target)["nets"], state_to_dict(state)["nets"], "nets")
 
 
 def test_save_is_atomic_and_leaves_no_temporary_file(tmp_path, monkeypatch):

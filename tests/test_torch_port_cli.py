@@ -90,10 +90,87 @@ def test_directory_mode_decodes_every_volume(setup, tmp_path):
 
 
 def test_unported_wire_is_refused(setup, tmp_path):
+    """Every wire mode of the JAX CLI is ported; a mode that neither CLI
+    has is refused by both parsers, and nothing is written."""
     root, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit):
         port_cli.main(_args(root, root / "in" / "0.nii.gz", tmp_path / "o.nii",
-                            "--wire", "f16"))
+                            "--wire", "bf16"))
+    with pytest.raises(SystemExit):
+        _jax_decode_parser().parse_args(["--wire", "bf16"])
+    assert not (tmp_path / "o.nii").exists()
+
+
+@pytest.mark.parametrize("wire", ["exact", "f32", "f16"])
+def test_wire_modes_match_the_jax_cli(setup, tmp_path, wire):
+    """Each mode within the CLI's bar of the JAX CLI in the same mode; under
+    f16 both round to float16 after the decode, and two values within the
+    bar can round one float16 step apart (2^-11 below 1, 127.5 times that
+    on the 0-255 scale), so the bar grows by that step."""
+    root, jnet, params = setup
+    tol = TOL_0_255 + (127.5 * 2.0 ** -11 if wire == "f16" else 0.0)
+    image, out = root / "in" / "0.nii.gz", tmp_path / "out.nii"
+    assert port_cli.main(_args(root, image, out, "--wire", wire)) == []
+    opt = port_cli.parse(_args(root, image, out, "--wire", wire))
+    ref = _jax_cli().inference(opt, loaded=(CycleGANConfig(ngf=4), jax_forward(jnet, params),
+                                            params, jnet), save=False)
+    np.testing.assert_allclose(nifti.load(out).data, ref.data, atol=tol)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_wire_f16_is_float16_rounding_of_exact(setup, precision):
+    """f16 rounds the [-1, 1] decode once to float16 (at most 2^-12, half an
+    ulp below 1, times 127.5 on the 0-255 scale); f32 uploads float32, which
+    the generator casts to its compute dtype as 'exact' uploads it, so the
+    two are bit-equal."""
+    root, _, _ = setup
+    opt = port_cli.parse(_args(root, root / "in" / "0.nii.gz", "unused.nii"))
+    opt.precision = precision
+    if precision == "bfloat16":
+        opt.patch_size, opt.stride_inplane, opt.stride_layer = [16, 16, 16], 8, 8
+    gen = port_cli.load_generator(opt)
+    outs = {}
+    for wire in ("exact", "f32", "f16"):
+        opt.wire = wire
+        outs[wire] = port_cli.inference(opt, gen, save=False).data
+    np.testing.assert_array_equal(outs["f32"], outs["exact"])
+    diff = np.abs(outs["f16"] - outs["exact"])
+    assert 0 < diff.max() <= 127.5 * 2.0 ** -12 + 1e-4
+
+
+def test_directory_mode_is_bit_equal_to_one_at_a_time_inference(setup, tmp_path):
+    """The overlapped directory decode (read ahead, writes behind) writes
+    what a plain inference call per file returns."""
+    root, _, _ = setup
+    src = tmp_path / "in"
+    shutil.copytree(root / "in", src)
+    nifti.save(nifti.load(root / "in" / "1.nii.gz"), src / "2.nii")
+    assert port_cli.main(_args(root, src, tmp_path / "out")) == []
+    opt = port_cli.parse(_args(root, src, tmp_path / "out"))
+    gen = port_cli.load_generator(opt)
+    for name in ("0.nii.gz", "1.nii.gz", "2.nii"):
+        sub = argparse.Namespace(**vars(opt))
+        sub.image = str(src / name)
+        want = port_cli.inference(sub, gen, save=False)
+        got = nifti.load(tmp_path / "out" / name)
+        np.testing.assert_array_equal(got.data, want.data)
+        np.testing.assert_array_equal(got.affine, want.affine)
+
+
+def test_directory_mode_reports_a_failed_write_as_skipped(setup, tmp_path, monkeypatch, capsys):
+    root, _, _ = setup
+    real_save = nifti.save
+
+    def save(img, path):
+        if Path(path).name == "1.nii.gz":
+            raise OSError("disk full")
+        return real_save(img, path)
+
+    monkeypatch.setattr(nifti, "save", save)
+    assert port_cli.main(_args(root, root / "in", tmp_path / "out")) == ["1.nii.gz"]
+    out = capsys.readouterr().out
+    assert "FAILED WRITE" in out and "disk full" in out and "1/2 volumes skipped" in out
+    assert sorted(os.listdir(tmp_path / "out")) == ["0.nii.gz"]
 
 
 @pytest.mark.parametrize("flags, item", [
@@ -193,7 +270,11 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mra_gan_tpu')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in banned)\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "need = {'train', 'serve', 'evaluate', 'models.test', 'options.base_options',\n"
+        "        'options.train_options', 'utils.visualizer', 'utils.timers',\n"
+        "        'utils.metrics', 'training.schedules', 'data.dataset', 'data.transforms'}\n"
+        "missing = sorted(n for n in need if 'mra_gan_tpu_torch.' + n not in names)\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 35 else 0)\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stdout + proc.stderr

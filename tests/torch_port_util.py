@@ -148,3 +148,38 @@ def dead_bias_keys(net) -> set:
     """State-dict keys of the biases the port detaches (norm-dead)."""
     return {f"{name}.bias" for name, m in net.named_modules()
             if getattr(m, "dead_bias", False) and m.bias is not None}
+
+
+def assert_tree_equal(a, b, where: str = "") -> None:
+    """Plain containers of tensors (``state_to_dict``'s form), equal bit for
+    bit and in type."""
+    assert type(a) is type(b), where
+    if isinstance(a, dict):
+        assert list(a) == list(b), where
+        for k in a:
+            assert_tree_equal(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_tree_equal(x, y, f"{where}[{i}]")
+    elif torch.is_tensor(a):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), where
+    else:
+        assert a == b, where
+
+
+def write_train_data(root, n: int = 2, shape=(24, 24, 24), seed: int = 0):
+    """``root/images`` and ``root/labels`` with ``n`` pairs of synthetic
+    volumes (labels a scaled copy of their image), as tests/test_e2e.py
+    makes them."""
+    from mra_gan_tpu_torch.data import nifti
+
+    rng = np.random.RandomState(seed)
+    for sub in ("images", "labels"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        base = rng.rand(*shape).astype(np.float32) * 80 + 10
+        nifti.save(nifti.NiftiImage(data=base, affine=np.eye(4)), root / f"images/{i}.nii")
+        nifti.save(nifti.NiftiImage(data=base * 0.7 + 5, affine=np.eye(4)),
+                   root / f"labels/{i}.nii")
+    return root
