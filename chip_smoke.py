@@ -68,7 +68,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    under torch.use_deterministic_algorithms(True), 1 epoch then
    --continue_train --epoch_count 2 bit-equal to 2 straight epochs (step lr
    policy, 2 samples a volume); and the PatchLoader's own pairs/s, cold and
-   warm, at workers 1 and 4.
+   warm, at workers 1 and 4;
+12. the rest of the zoo at full width (ngf = ndf = 32, bf16 over f32
+   parameters, 64^3 patches, LSGAN, the Dynet at the options' default
+   --dynet_sizes 128 128 64): the norm kernels against their plain
+   versions, forward and backward on their route, at every norm shape of
+   the zoo's train steps at batch 1 and 8 that phase 2 does not hold (the
+   U-Net's, the DynUNet's, the pixel discriminator's; bf16, and float32 at
+   N = 1); the 128x256x256 sliding-window decode and the single pass with
+   unet_custom and with the Dynet (s/volume, exact launches, the single
+   pass against plain norms); one forward of unet_128 at 128^3 and of
+   unet_256 at 256^3, batch 1; the train step at batch 1 and 8 of
+   unet_custom + PatchGAN, Dynet + PatchGAN, resnet_6blocks + pixel
+   discriminator and resnet_6blocks + PatchGAN under --norm batch (plain
+   PyTorch norms: no kernel launch), each one warm-up step and two timed
+   (s/step, pairs/s, peak memory, exact launches, gradient relayouts,
+   finite losses); and the Dynet state saved by CheckpointManager, its
+   latest_net_G_A.pth with MONAI's skip_layers aliases decoded by the CLI
+   bit-equal to an in-process decode. Cuts: two steps per configuration
+   instead of an epoch; unet_128 and unet_256 need 2^7 and 2^8 voxels per
+   axis, so they run one forward each at that size and no train step.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line {"kernels": [...]} with each kernel's launches on its main path
@@ -1647,6 +1666,336 @@ def phase_driver(K, train: dict, results: dict, workdir: Path) -> dict:
             "loader_pairs_per_s": loader}
 
 
+# Phase 12: the rest of the zoo. (label, netG, netD, norm) of each train-step
+# configuration; the Dynet at the options' default schedule.
+ZOO_CONFIGS = (("unet_custom", "unet_custom", "n_layers", "instance"),
+               ("Dynet", "Dynet", "n_layers", "instance"),
+               ("pixel", "resnet_6blocks", "pixel", "instance"),
+               ("batch", "resnet_6blocks", "n_layers", "batch"))
+ZOO_DYNET_SIZES = (128, 128, 64)
+ZOO_WARMUP, ZOO_STEPS = 1, 2
+ZOO_DECODE_NETS = ("unet_custom", "Dynet")
+DEEP_UNETS = (("unet_128", 128), ("unet_256", 256))  # each at its smallest input
+
+
+def unet_norms(n: int, spatial, num_downs: int = 5) -> list:
+    """(N, C, D, H, W) of the 2 num_downs - 3 norms of one U-Net forward:
+    level i (0 the outermost) has inner width ngf min(2^i, 8); each middle
+    level's down norm (its inner width at spatial / 2^(i+1)) and every
+    level's but the outermost up norm (the level above's inner width at
+    spatial / 2^i). Their activation is none."""
+    inner = [NGF * min(2 ** i, 8) for i in range(num_downs)]
+    out = []
+    for i in range(1, num_downs):
+        if i < num_downs - 1:
+            out.append((n, inner[i]) + tuple(s // 2 ** (i + 1) for s in spatial))
+        out.append((n, inner[i - 1]) + tuple(s // 2 ** i for s in spatial))
+    return out
+
+
+def dynet_norms(n: int, spatial, sizes=ZOO_DYNET_SIZES) -> list:
+    """(N, C, D, H, W) of the affine instance norms of one DynUNet forward
+    at ``sizes``' schedule: three in the input block (its 1-channel input
+    takes the shortcut conv), three in each downsample and the bottleneck
+    (their strides do), two in each upsample's block. Activation none (the
+    affine and leaky_relu follow in PyTorch)."""
+    from mra_gan_tpu_torch.models.networks import dynunet_schedule
+
+    strides = dynunet_schedule(sizes)[1]
+    filters = [min(32 * 2 ** i, 320) for i in range(len(strides))]
+    dims, level = list(spatial), []
+    for s in strides:
+        dims = [d // v for d, v in zip(dims, s)]
+        level.append(tuple(dims))
+    out = []
+    for i in range(len(strides)):
+        out += [(n, filters[i]) + level[i]] * 3
+    for i in range(len(strides) - 2, -1, -1):
+        out += [(n, filters[i]) + level[i]] * 2
+    return out
+
+
+def pixel_norms(n: int) -> list:
+    """The pixel discriminator's one norm, at full resolution on 64^3
+    (leaky_relu)."""
+    return [(n, 2 * NDF) + PATCH]
+
+
+def zoo_generator_norms(net_g: str, n: int, spatial) -> list:
+    if net_g == "unet_custom":
+        return unet_norms(n, spatial)
+    if net_g == "Dynet":
+        return dynet_norms(n, spatial)
+    return generator_norms(n, spatial)
+
+
+def zoo_norm_shapes():
+    """(label, (N, C, D, H, W), act) of every norm shape the zoo's train steps
+    reach at batch 1 and 8 (the generators at 2B and B, the discriminators
+    at B and 2B) that phase 2 does not already hold: the U-Net's and the
+    DynUNet's norms (activation none) and the pixel discriminator's
+    (leaky_relu)."""
+    seen = {s for _, s, _ in train_norm_shapes()}
+    out = []
+    for b in TRAIN_BATCHES:
+        for n in (2 * b, b):
+            for label, shapes, act in (("unet", unet_norms(n, PATCH), "none"),
+                                       ("dynet", dynet_norms(n, PATCH), "none"),
+                                       ("pixel", pixel_norms(n), "leaky_relu")):
+                for s in shapes:
+                    if s not in seen:
+                        seen.add(s)
+                        out.append((f"zoo {label} b{b}", s, act))
+    return out
+
+
+def zoo_config(net_g: str, net_d: str, norm: str, dtype):
+    """phase 7's reference default with the zoo's networks: ngf = ndf = 32,
+    LSGAN, pool 50, Adam 2e-4 / 0.5, the Dynet at the options' default."""
+    from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig
+
+    return CycleGANConfig(ngf=NGF, ndf=NDF, net_g=net_g, net_d=net_d, n_layers_d=3, norm=norm,
+                          gan_mode="lsgan", pool_size=50, beta1=0.5, dtype=dtype,
+                          dynet_sizes=ZOO_DYNET_SIZES)
+
+
+def zoo_step_norms(cfg, batch: int) -> list:
+    """The norm shapes of one fused train step's applies (route counting
+    needs no N): four generator applies, two discriminator applies in the G
+    loss and two in the D loss; none under batch norm, whose norms are
+    plain PyTorch."""
+    if cfg.norm == "batch":
+        return []
+    d = pixel_norms(batch) if cfg.net_d == "pixel" else patchgan_norms(batch)
+    return 4 * zoo_generator_norms(cfg.net_g, batch, PATCH) + 4 * d
+
+
+def zoo_decode(K, net_g: str, vol) -> dict:
+    """The sliding-window decode and the single pass of the VOLUME with
+    ``net_g`` (bf16, seeded weights): seconds per volume after a warm-up,
+    exact launches, finite outputs; the single pass against plain norms."""
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch.infer.sliding_window import sliding_window_inference
+    from mra_gan_tpu_torch.models.cycle_gan import make_generate_fn
+    from mra_gan_tpu_torch.parallel.spatial import single_pass_apply
+
+    cfg = zoo_config(net_g, "n_layers", "instance", torch.bfloat16)
+    gen = make_generate_fn(cfg, "g_a", DEVICE, seed=SEED)
+    n_batches = EXPECTED_GRID[1]
+
+    def decode():
+        return sliding_window_inference(vol, gen, PATCH, STRIDE, STRIDE, "gaussian", DECODE_BATCH)
+
+    decode()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = decode()
+    secs = [time.perf_counter() - t0]
+    per_forward = forward_launches(K, zoo_generator_norms(net_g, DECODE_BATCH, PATCH),
+                                   cfg.dtype)
+    launches = dict(K.LAUNCHES)
+    check(launched(K, times(per_forward, n_batches)),
+          f"zoo decode {net_g}: {n_batches} x {per_forward}, no backward: {launches}")
+    check(out.shape == VOLUME and bool(np.isfinite(out).all()), f"zoo decode {net_g} finite")
+    t0 = time.perf_counter()
+    decode()
+    secs.append(time.perf_counter() - t0)
+
+    single_pass_apply(gen, vol)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    sp = single_pass_apply(gen, vol)
+    sp_secs = [time.perf_counter() - t0]
+    sp_want = forward_launches(K, zoo_generator_norms(net_g, 1, VOLUME), cfg.dtype)
+    sp_launches = dict(K.LAUNCHES)
+    check(launched(K, sp_want), f"zoo single pass {net_g}: {sp_want}, no backward: "
+          f"{sp_launches}")
+    t0 = time.perf_counter()
+    single_pass_apply(gen, vol)
+    sp_secs.append(time.perf_counter() - t0)
+    with plain_norms():
+        sp_ref = single_pass_apply(gen, vol)
+    diff = np.abs(sp - sp_ref)
+    check(sp.shape == VOLUME and bool(np.isfinite(sp).all()) and float(diff.mean()) <= 0.02
+          and float(diff.max()) <= 0.5, f"zoo single pass {net_g}: finite, kernel norms "
+          f"within tolerance of plain norms (max {diff.max():.3g}, mean {diff.mean():.3g})")
+    print(f"[zoo decode] {net_g}: sliding window {secs} s/volume, launches {launches}; "
+          f"single pass {sp_secs} s, launches {sp_launches}, vs plain norms max "
+          f"{diff.max():.3g} mean {diff.mean():.3g}", flush=True)
+    del gen
+    torch.cuda.empty_cache()
+    return {"decode_s": secs, "single_pass_s": sp_secs, "per_forward": per_forward,
+            "decode_launches": launches, "single_pass_launches": sp_launches,
+            "single_pass_vs_plain_max": float(diff.max())}
+
+
+def zoo_deep_unet(K, net_g: str, side: int) -> dict:
+    """One forward of ``net_g`` at batch 1 on its smallest input, side^3:
+    exact launches, finite, against plain norms."""
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch.models.cycle_gan import make_generate_fn
+    from mra_gan_tpu_torch.models.networks import UNET_DOWNS
+
+    gen = make_generate_fn(zoo_config(net_g, "n_layers", "instance", torch.bfloat16), "g_a",
+                           DEVICE, seed=SEED)
+    x = torch.from_numpy(np.random.RandomState(SEED).uniform(
+        -1, 1, (1, 1, side, side, side)).astype(np.float32))
+    gen(x)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    y = gen(x)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = forward_launches(K, unet_norms(1, (side,) * 3, UNET_DOWNS[net_g]), torch.bfloat16)
+    launches = dict(K.LAUNCHES)
+    check(launched(K, want), f"{net_g} forward: {want}, no backward: {launches}")
+    with plain_norms():
+        yp = gen(x)
+    d = (y.float() - yp.float()).abs()
+    check(y.shape == x.shape and bool(torch.isfinite(y).all()) and float(d.mean()) <= 0.02
+          and float(d.max()) <= 0.5, f"{net_g}: finite, kernel norms within tolerance of "
+          f"plain norms (max {float(d.max()):.3g})")
+    print(f"[zoo deep] {net_g} at {side}^3: forward {secs * 1e3:.1f} ms, launches {launches}; "
+          f"vs plain norms max {float(d.max()):.3g} mean {float(d.mean()):.3g}", flush=True)
+    del gen, x, y, yp
+    torch.cuda.empty_cache()
+    return {"forward_s": secs, "launches": launches, "vs_plain_max": float(d.max())}
+
+
+def zoo_train(K, label: str, cfg, batch: int) -> tuple:
+    """create_state + make_train_step at ``cfg`` and ``batch``: ZOO_WARMUP
+    steps, then ZOO_STEPS timed with the counters zeroed just before; exact
+    launches, finite losses. Returns (the record, the state)."""
+    import torch
+
+    from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+
+    state = create_state(cfg, SEED, PATCH, DEVICE)
+    step = make_train_step(cfg)
+    real_a, real_b = train_inputs(batch, SEED + 400 + batch)
+    for _ in range(ZOO_WARMUP):
+        step(state, real_a, real_b, TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_STEPS):
+        _, metrics = step(state, real_a, real_b, TRAIN_LR)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / ZOO_STEPS
+    launches = dict(K.LAUNCHES)
+    norms = zoo_step_norms(cfg, batch)
+    per_step = {**forward_launches(K, norms, cfg.dtype), **backward_launches(K, norms, cfg.dtype)}
+    check(launched(K, times(per_step, ZOO_STEPS)),
+          f"zoo train {label} b{batch}: {per_step} per step: {launches} over {ZOO_STEPS} steps")
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(len(losses) == 10 and all(math.isfinite(v) for v in losses.values()),
+          f"zoo train {label} b{batch}: finite losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    relayouts = K.GRAD_RELAYOUTS["count"] / ZOO_STEPS
+    print(f"[zoo train] {label} b{batch}: {secs:.4f} s/step, {batch / secs:.3f} pairs/s; peak "
+          f"{peak:.2f} GiB; {len(norms)} norms per step, launches per step "
+          f"{ {k: v / ZOO_STEPS for k, v in launches.items() if v} }; gradient relayouts "
+          f"{relayouts:g} per step; losses {losses}", flush=True)
+    return ({"s_per_step": secs, "pairs_per_s": batch / secs, "steps": ZOO_STEPS,
+             "peak_gib": peak, "norms_per_step": len(norms), "launches_per_step": per_step,
+             "grad_relayouts_per_step": relayouts, "losses": losses}, state)
+
+
+def zoo_checkpoint(K, state, workdir: Path) -> dict:
+    """The Dynet train state saved by CheckpointManager: its reference
+    ``latest_net_G_A.pth`` carries MONAI's skip_layers aliases, and
+    ``python -m mra_gan_tpu_torch.test`` (in process) decodes a small volume
+    with it, bit-equal to an in-process decode with the state's g_a."""
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch import test as cli
+    from mra_gan_tpu_torch.checkpoint import CheckpointManager
+    from mra_gan_tpu_torch.data import nifti
+    from mra_gan_tpu_torch.models.cycle_gan import GenerateFn
+
+    mgr = CheckpointManager(workdir / "ck", "zoo")
+    mgr.save("latest", state, also_latest=False)
+    sd = torch.load(mgr.root / "latest_net_G_A.pth", weights_only=True)
+    aliases = sum(k.startswith("skip_layers.") for k in sd)
+    check(aliases == len(state.g_a.state_dict()) - 2,
+          f"Dynet .pth: {aliases} skip_layers aliases, want every block's")
+    data = (np.random.RandomState(SEED).rand(*CKPT_DECODE_SHAPE) * 300).astype(np.float32)
+    nifti.save(nifti.NiftiImage(data=data, affine=np.diag([0.8, 0.8, 1.5, 1.0])),
+               workdir / "zoo_in.nii.gz")
+    args = ["--image", str(workdir / "zoo_in.nii.gz"), "--result", str(workdir / "zoo_out.nii"),
+            "--checkpoints_dir", str(workdir / "ck"), "--name", "zoo", "--netG", "Dynet",
+            "--dynet_sizes", *map(str, ZOO_DYNET_SIZES), "--ngf", str(NGF), "--precision",
+            str(state.cfg.dtype).removeprefix("torch."),
+            "--device", DEVICE]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    check(cli.main(args) == [], "decode CLI on the Dynet's latest_net_G_A.pth")
+    decode_s = time.perf_counter() - t0
+    check(K.LAUNCHES["instance_norm_slab"] + K.LAUNCHES["instance_norm_apply"] > 0
+          and not any(K.LAUNCHES[k] for k in K.BACKWARD), "the CLI decode ran the forward kernels")
+    got = nifti.load(workdir / "zoo_out.nii")
+    g_a = state.g_a.eval()
+    want = cli.inference(cli.parse(args), GenerateFn(g_a, state.cfg.dtype, state.device),
+                         save=False)
+    g_a.train()
+    check(got.data.shape == CKPT_DECODE_SHAPE and bool(np.isfinite(got.data).all())
+          and np.array_equal(got.data, want.data),
+          "the CLI's decode of the .pth bit-equal to the in-process decode of the state's g_a")
+    print(f"[zoo checkpoint] Dynet latest_net_G_A.pth with {aliases} skip_layers aliases "
+          f"({(mgr.root / 'latest_net_G_A.pth').stat().st_size / 1e6:.1f} MB) decoded "
+          f"{CKPT_DECODE_SHAPE} through the CLI in {decode_s:.2f} s, bit-equal to the "
+          f"in-process decode", flush=True)
+    return {"aliases": aliases, "decode_cli_s": decode_s}
+
+
+def phase_zoo(K, bw: float, flops: float, results: dict, workdir: Path) -> dict:
+    """Phase 12: the rest of the zoo at full width (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    for label, shape, act in zoo_norm_shapes():
+        dtypes = (torch.bfloat16, torch.float32) if shape[0] == 1 else (torch.bfloat16,)
+        for dtype in dtypes:
+            forward_case(K, label, shape, act, dtype, bw, flops, results, gen)
+            backward_case(K, label, shape, act, dtype, bw, flops, results, gen)
+        torch.cuda.empty_cache()
+    t_kernels = time.perf_counter() - t_start
+
+    vol = np.random.RandomState(SEED).rand(*VOLUME).astype(np.float32) * 2 - 1
+    decode = {net_g: zoo_decode(K, net_g, vol) for net_g in ZOO_DECODE_NETS}
+    deep = {net_g: zoo_deep_unet(K, net_g, side) for net_g, side in DEEP_UNETS}
+
+    train, dynet_state = {}, None
+    for label, net_g, net_d, norm in ZOO_CONFIGS:
+        cfg = zoo_config(net_g, net_d, norm, torch.bfloat16)
+        for batch in TRAIN_BATCHES:
+            rec, state = zoo_train(K, label, cfg, batch)
+            train[f"{label} b{batch}"] = rec
+            if label == "Dynet" and batch == min(TRAIN_BATCHES):
+                dynet_state = state
+            del state
+            torch.cuda.empty_cache()
+    ckpt = zoo_checkpoint(K, dynet_state, workdir)
+    del dynet_state
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_start
+    print(f"[zoo] phase 12 in {secs:.1f} s (kernel cases {t_kernels:.1f} s)", flush=True)
+    return {"decode": decode, "deep_unets": deep, "train": train, "checkpoint": ckpt,
+            "seconds": secs, "kernel_cases_s": t_kernels}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1726,6 +2075,8 @@ def main(argv=None) -> int:
         serving = phase_serve(K, tree, decode, Path(tmp))
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         train_driver = phase_driver(K, train, results, Path(tmp))
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        zoo = phase_zoo(K, bw, flops, results, Path(tmp))
 
     kernels = []
     for k, r in results.items():
@@ -1759,7 +2110,8 @@ def main(argv=None) -> int:
                          "library_ms": train_head["library_ms"]},
             **({"note": r["note"]} if "note" in r else {})})
     summary = {"decode": decode, "train": train, "train_parity": parity, "checkpoint": ckpt,
-               "serve": serving, "train_driver": train_driver, "conv_formats": conv_rows,
+               "serve": serving, "train_driver": train_driver, "zoo": zoo,
+               "conv_formats": conv_rows,
                "seconds": time.perf_counter() - t_start}
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)

@@ -6,12 +6,14 @@ The port never reads an Orbax directory itself (it imports no orbax): the
 caller hands over the numpy tree that the JAX package's ``restore_raw``
 returns, {g_params, d_params, opt_g, opt_d, pool_fake_a, pool_fake_b, step}.
 
-- Parameters go through ``state_dict_from_jax``.
+- Parameters go through ``state_dict_from_jax``, for every network of
+  the zoo.
 - optax ``scale_by_adam`` (count, mu, nu; mra_gan_tpu/models/cycle_gan.py:
   153-155) becomes torch Adam's per-parameter step, exp_avg and exp_avg_sq,
-  with the weights' transposes. The norm-dead biases are left out: JAX
-  keeps zero moments for them, and the port's Adam holds no state for a
-  parameter that never had a gradient.
+  with the weights' transposes, the norms' scales and biases included
+  (batch norm, the Dynet's affine norms). The norm-dead biases are left
+  out: JAX keeps zero moments for them, and the port's Adam holds no
+  state for a parameter that never had a gradient.
 - The pools go from NDHWC to NCDHW. Where the JAX step stored them in its
   S2D(4) cell layout, (P, D/4, H/4, W/4, 64 C) with channel index
   ((pd * 4 + ph) * 4 + pw) * C + c (``_empty_pool``, cycle_gan.py:158-168;
@@ -56,7 +58,7 @@ def pool_images_from_jax(images: np.ndarray, patch_shape, channels: int) -> torc
     elif images.shape[1:] != plain:
         raise ValueError(f"JAX pool of shape {images.shape} fits neither {plain} nor the "
                          f"cell layout {cells}")
-    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(images, -1, 1)))
+    return torch.from_numpy(np.array(np.moveaxis(images, -1, 1), order="C"))
 
 
 def _adam_state(opt: torch.optim.Adam, nets, tree: dict, archs: dict, use_dropout: bool) -> dict:
@@ -87,9 +89,10 @@ def load_jax_state(state: CycleGANState, tree: dict,
         if have[k] != want[k]:
             raise ValueError(f"config field {k!r} is {want[k]!r}, the state's {have[k]!r}")
     use_dropout = not cfg.no_dropout
-    archs = {"g_a": cfg.net_g, "g_b": cfg.net_g, "d_a": "n_layers", "d_b": "n_layers"}
+    archs = {"g_a": cfg.net_g, "g_b": cfg.net_g, "d_a": cfg.net_d, "d_b": cfg.net_d}
     with torch.no_grad():
-        load_jax_nets(state.nets, tree["g_params"], tree["d_params"], cfg.net_g, use_dropout)
+        load_jax_nets(state.nets, tree["g_params"], tree["d_params"], cfg.net_g, use_dropout,
+                      cfg.net_d)
         for opt_name, names in (("opt_g", ("g_a", "g_b")), ("opt_d", ("d_a", "d_b"))):
             opt = getattr(state, opt_name)
             opt.load_state_dict(_adam_state(opt, {n: state.nets[n] for n in names},

@@ -18,8 +18,8 @@ configuration, as the JAX driver restores its saved tree into a state made
 from the flags (train.py:172-178). It refuses, with a ValueError naming the
 first misfit and leaving the state untouched, only what the state's tensors
 cannot take: a network field (channels, widths, architectures, norm,
-dropout), the patch shape, the pool size, or a tensor's shape. The
-objective (``gan_mode``, the lambdas), ``beta1`` and the compute dtype are
+dropout, the Dynet's sizes and spacings), the patch shape, the pool size,
+or a tensor's shape. The objective (``gan_mode``, the lambdas), ``beta1`` and the compute dtype are
 the live state's: the saved pool images are cast to its dtype, and Adam
 keeps its live betas. A dropout generator saved on another device type is
 refused only where the configuration builds dropout; without dropout it is
@@ -46,20 +46,26 @@ FORMAT = "mra_gan_tpu_torch.cycle_gan_state/1"
 # pools'. The others (the objective, beta1, the init, the compute dtype) are
 # taken from the live state on restore.
 STRUCTURE_FIELDS = ("input_nc", "output_nc", "ngf", "ndf", "net_g", "net_d", "n_layers_d",
-                    "norm", "no_dropout", "pool_size")
+                    "norm", "no_dropout", "pool_size", "dynet_sizes", "dynet_spacings")
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(CycleGANConfig)}
 # (reference file suffix, state attribute)
 NET_FILES = (("G_A", "g_a"), ("G_B", "g_b"), ("D_A", "d_a"), ("D_B", "d_b"))
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
 
 
 def config_to_dict(cfg: CycleGANConfig) -> dict:
-    """The config's fields, the dtype by name ('bfloat16', 'float32')."""
+    """The config's fields, the dtype by name ('bfloat16', 'float32'), the
+    Dynet's sizes and spacings as tuples of int and float."""
     out = dataclasses.asdict(cfg)
     out["dtype"] = str(cfg.dtype).removeprefix("torch.")
+    out["dynet_sizes"] = tuple(int(v) for v in cfg.dynet_sizes)
+    out["dynet_spacings"] = tuple(float(v) for v in cfg.dynet_spacings)
     return out
 
 
 def config_from_dict(fields: dict) -> CycleGANConfig:
+    """The config of ``config_to_dict``'s form; a field that a checkpoint of
+    an earlier version lacks takes its default."""
     return CycleGANConfig(**{**fields, "dtype": _DTYPES[fields["dtype"]]})
 
 
@@ -142,8 +148,9 @@ def _check(raw: dict, state: CycleGANState) -> None:
                          f"expected {FORMAT!r}")
     live = config_to_dict(state.cfg)
     for k in STRUCTURE_FIELDS:
-        if raw["config"].get(k) != live[k]:
-            raise ValueError(f"checkpoint config field {k!r} is {raw['config'].get(k)!r}, "
+        saved = raw["config"].get(k, _DEFAULTS[k])
+        if saved != live[k]:
+            raise ValueError(f"checkpoint config field {k!r} is {saved!r}, "
                              f"this state's {live[k]!r}")
     if tuple(raw["patch_shape"]) != tuple(state.patch_shape):
         raise ValueError(f"checkpoint patch_shape is {tuple(raw['patch_shape'])}, this "

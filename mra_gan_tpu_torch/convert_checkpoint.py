@@ -1,6 +1,6 @@
 """Checkpoint converter: ``python -m mra_gan_tpu_torch.convert_checkpoint``
-(counterpart of the root ``convert_checkpoint.py``, with the same flags but
-the Dynet ones, and ``--device``).
+(counterpart of the root ``convert_checkpoint.py``, with the same flags and
+``--device``), for every network of the zoo.
 
 Import (``--from_torch``): reads the reference's per-network files
 ``{epoch}_net_{G_A,G_B,D_A,D_B}.pth`` from --torch_dir into a fresh port
@@ -10,13 +10,15 @@ them) and writes ``ckpt_{epoch}.pt``, with its four reference files, under
 with only generators converts, and the discriminators keep their fresh
 weights. The network flags must match how the files were made;
 ``--use_dropout`` for files whose residual blocks have the dropout layout
-(second conv at ``conv_block.6``).
+(second conv at ``conv_block.6``), ``--dynet_sizes``/``--dynet_spacings``
+for a Dynet. A Dynet file's duplicate ``skip_layers`` keys are checked
+against their twins and dropped.
 
 Export (``--to_torch``): reads ``ckpt_{epoch}.pt`` and writes the four
-reference files, with the InstanceNorm running-stat buffers the reference's
-strict load requires, into --torch_dir. The checkpoint's own configuration
-decides the networks and their key layout; the network flags are read on
-import only.
+reference files, with the norms' running-stat buffers the reference's
+strict load requires (and a Dynet's ``skip_layers`` aliases), into
+--torch_dir. The checkpoint's own configuration decides the networks and
+their key layout; the network flags are read on import only.
 """
 from __future__ import annotations
 
@@ -24,10 +26,11 @@ import argparse
 from pathlib import Path
 from typing import Optional, Sequence
 
-from .checkpoint.io import read_reference_pth, save_reference_pth
+from .checkpoint.io import has_dropout_layout, read_reference_pth, save_reference_pth
 from .checkpoint.manager import NET_FILES, CheckpointManager, config_from_dict
 from .core.device import resolve_device
 from .models.cycle_gan import CycleGANConfig, create_state
+from .models.networks import RESNET_BLOCKS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the torch nets were built with dropout (shifts the "
                         "resnet block key indices)")
     p.add_argument("--patch_size", type=int, nargs=3, default=[64, 64, 64])
+    p.add_argument("--dynet_sizes", type=int, nargs=3, default=[128, 128, 64],
+                   help="Dynet auto-schedule sizes (the reference hard-codes "
+                        "[128,128,64] independent of patch size)")
+    p.add_argument("--dynet_spacings", type=float, nargs=3, default=[1.5, 1.5, 1.5])
     p.add_argument("--pool_size", type=int, default=50,
                    help="replay-buffer size of the training run that will "
                         "resume from the imported checkpoint")
@@ -69,7 +76,9 @@ def import_reference(opt: argparse.Namespace) -> None:
     cfg = CycleGANConfig(input_nc=opt.input_nc, output_nc=opt.output_nc, ngf=opt.ngf,
                          ndf=opt.ndf, net_g=opt.netG, net_d=opt.netD,
                          n_layers_d=opt.n_layers_D, norm=opt.norm,
-                         no_dropout=not opt.use_dropout, pool_size=opt.pool_size)
+                         no_dropout=not opt.use_dropout, pool_size=opt.pool_size,
+                         dynet_sizes=tuple(opt.dynet_sizes),
+                         dynet_spacings=tuple(opt.dynet_spacings))
     state = create_state(cfg, 0, tuple(opt.patch_size), resolve_device(opt.device))
     imported = []
     for suffix, name in NET_FILES:
@@ -80,8 +89,8 @@ def import_reference(opt: argparse.Namespace) -> None:
             print(f"note: {pth.name} absent; {suffix} keeps its fresh weights")
             continue
         sd = read_reference_pth(pth)
-        dropout = any(k.endswith(".conv_block.6.weight") for k in sd)
-        if name.startswith("g") and dropout != opt.use_dropout:
+        dropout = has_dropout_layout(sd)
+        if name.startswith("g") and opt.netG in RESNET_BLOCKS and dropout != opt.use_dropout:
             raise SystemExit(f"{pth.name} {'has' if dropout else 'lacks'} the dropout key "
                              f"layout (conv_block.6); run with{'' if dropout else 'out'} "
                              f"--use_dropout")

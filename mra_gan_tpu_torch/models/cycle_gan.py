@@ -14,6 +14,11 @@ runs it, one call per iteration:
 - the D loss on real and pooled fake stacked into one apply per
   discriminator, then the D Adam step.
 
+Under batch norm the statistics couple the samples of one apply, so
+stacking changes the result: there, as in JAX (cycle_gan.py:244, 316-324,
+369-373), the G loss runs six separate generator applies (fake_b, rec_a,
+fake_a, rec_b, idt_a, idt_b) and the D loss four (real and fake apart).
+
 The correlation-coefficient losses are computed on the detached fakes and
 logged, not optimized (JAX :338-341). Everything runs on the device the state
 was created on, in channels_last_3d on CUDA, with the configured compute
@@ -30,7 +35,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.dtypes import set_conv_precision
 from ..ops.losses import cor_coe_loss, gan_loss, l1_loss
-from .networks import Dropout, define_d, define_g
+from .networks import Dropout, check_patch, define_d, define_g
 
 _CL = torch.channels_last_3d
 
@@ -59,6 +64,10 @@ class CycleGANConfig:
     pool_size: int = 50
     beta1: float = 0.5
     dtype: torch.dtype = torch.float32
+    # the Dynet's auto-schedule inputs (JAX cycle_gan.py:76-77); the
+    # reference hard-codes the first, the driver takes them from the flags
+    dynet_sizes: Tuple[int, int, int] = (128, 128, 64)
+    dynet_spacings: Tuple[float, float, float] = (1.5, 1.5, 1.5)
 
     @staticmethod
     def modify_commandline_options(parser, is_train: bool):
@@ -87,7 +96,8 @@ class CycleGANConfig:
         cin, cout = ((self.input_nc, self.output_nc) if which == "g_a"
                      else (self.output_nc, self.input_nc))
         return define_g(cin, cout, self.ngf, self.net_g, self.norm, not self.no_dropout,
-                        self.init_type, self.init_gain, generator)
+                        self.init_type, self.init_gain, generator, self.dynet_sizes,
+                        self.dynet_spacings)
 
     def build_discriminator(self, which: str = "d_a",
                             generator: Optional[torch.Generator] = None) -> nn.Module:
@@ -186,6 +196,7 @@ def create_state(cfg: CycleGANConfig, seed: int = 0,
     afterwards (checkpoint.io.load_jax_nets), or a whole saved state with
     ``checkpoint.CheckpointManager.restore``."""
     dev = resolve_device(device)
+    check_patch(cfg.net_g, patch_shape)
     set_conv_precision(cfg.dtype)
     gen = torch.Generator().manual_seed(seed)
     nets = [cfg.build_generator("g_a", gen), cfg.build_generator("g_b", gen),
@@ -232,17 +243,27 @@ def make_train_step(cfg: CycleGANConfig):
     host. ``pool_draws`` = {"fake_a": (p, slot), "fake_b": (p, slot)}
     replaces the pools' own draws (tests)."""
     lam_idt = cfg.lambda_identity
+    # instance norm and none are per sample: independent applies stack
+    fuse = cfg.norm in ("instance", "none")
 
     def g_loss(s: CycleGANState, real_a, real_b):
         bsz = real_a.shape[0]
-        if lam_idt > 0:
-            out_a1 = s.g_a(torch.cat([real_a, real_b]))
-            fake_b, idt_a = out_a1[:bsz], out_a1[bsz:]
-            out_b1 = s.g_b(torch.cat([real_b, real_a]))
-            fake_a, idt_b = out_b1[:bsz], out_b1[bsz:]
+        if not fuse:  # one apply per output, in JAX's order
+            fake_b = s.g_a(real_a)
+            rec_a = s.g_b(fake_b)
+            fake_a = s.g_b(real_b)
+            rec_b = s.g_a(fake_a)
+            if lam_idt > 0:
+                idt_a, idt_b = s.g_a(real_b), s.g_b(real_a)
         else:
-            fake_b, fake_a = s.g_a(real_a), s.g_b(real_b)
-        rec_a, rec_b = s.g_b(fake_b), s.g_a(fake_a)
+            if lam_idt > 0:
+                out_a1 = s.g_a(torch.cat([real_a, real_b]))
+                fake_b, idt_a = out_a1[:bsz], out_a1[bsz:]
+                out_b1 = s.g_b(torch.cat([real_b, real_a]))
+                fake_a, idt_b = out_b1[:bsz], out_b1[bsz:]
+            else:
+                fake_b, fake_a = s.g_a(real_a), s.g_b(real_b)
+            rec_a, rec_b = s.g_b(fake_b), s.g_a(fake_a)
         m = {"G_A": gan_loss(s.d_a(fake_b), True, cfg.gan_mode),
              "G_B": gan_loss(s.d_b(fake_a), True, cfg.gan_mode),
              "cycle_A": l1_loss(rec_a, real_a) * cfg.lambda_a,
@@ -261,14 +282,18 @@ def make_train_step(cfg: CycleGANConfig):
 
     def d_loss(s: CycleGANState, real_a, real_b, fake_a, fake_b):
         # 0.5 * (gan(D(real), 1) + gan(D(pooled fake), 0)) per D, real and
-        # fake stacked into one apply
+        # fake stacked into one apply where the norm allows
         bsz = real_a.shape[0]
         out = {}
         for name, d, real, fake in (("D_A", s.d_a, real_b, fake_b),
                                     ("D_B", s.d_b, real_a, fake_a)):
-            pred = d(torch.cat([real, fake]))
-            out[name] = 0.5 * (gan_loss(pred[:bsz], True, cfg.gan_mode)
-                               + gan_loss(pred[bsz:], False, cfg.gan_mode))
+            if fuse:
+                pred = d(torch.cat([real, fake]))
+                pred_real, pred_fake = pred[:bsz], pred[bsz:]
+            else:
+                pred_real, pred_fake = d(real), d(fake)
+            out[name] = 0.5 * (gan_loss(pred_real, True, cfg.gan_mode)
+                               + gan_loss(pred_fake, False, cfg.gan_mode))
         return out["D_A"] + out["D_B"], out
 
     def prepare(s: CycleGANState, x: torch.Tensor) -> torch.Tensor:

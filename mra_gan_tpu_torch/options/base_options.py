@@ -30,8 +30,8 @@ class BaseOptions:
         parser.add_argument("--patch_size", type=int, nargs=3, default=[64, 64, 64],
                             help="Size of the patches extracted from the image")
         parser.add_argument("--dynet_sizes", type=int, nargs=3, default=[128, 128, 64],
-                            help="Dynet auto-schedule input sizes (the Dynet is not "
-                                 "ported yet: ROADMAP Queue A, the rest of the zoo)")
+                            help="Dynet auto-schedule input sizes (the reference "
+                                 "hard-codes [128,128,64] independent of patch size)")
         parser.add_argument("--dynet_spacings", type=float, nargs=3, default=[1.5, 1.5, 1.5],
                             help="Dynet auto-schedule voxel spacings")
         parser.add_argument("--input_nc", type=int, default=1, help="# of input image channels")
@@ -50,11 +50,12 @@ class BaseOptions:
         parser.add_argument("--ndf", type=int, default=32,
                             help="# of discrim filters in first conv layer")
         parser.add_argument("--netD", type=str, default="n_layers",
-                            help="discriminator: basic | n_layers")
+                            help="discriminator: basic | n_layers | pixel")
         parser.add_argument("--n_layers_D", type=int, default=3,
                             help="only used if netD==n_layers")
         parser.add_argument("--netG", type=str, default="resnet_6blocks",
-                            help="generator: resnet_9blocks | resnet_6blocks")
+                            help="generator: resnet_9blocks | resnet_6blocks | unet_custom | "
+                                 "unet_128 | unet_256 | Dynet")
         parser.add_argument("--gpu_ids", default="0",
                             help="accepted for reference-CLI compatibility; ignored "
                                  "(--device picks the device)")
@@ -67,7 +68,8 @@ class BaseOptions:
                             help="models are saved here")
         parser.add_argument("--workers", default=1, type=int,
                             help="data loading workers (0=inline)")
-        parser.add_argument("--norm", type=str, default="instance", help="instance")
+        parser.add_argument("--norm", type=str, default="instance",
+                            help="instance | batch | none")
         parser.add_argument("--no_dropout", action="store_true",
                             help="no dropout for the generator")
         parser.add_argument("--init_type", type=str, default="normal",

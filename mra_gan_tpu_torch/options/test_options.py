@@ -7,8 +7,8 @@ Every flag of the JAX package's decode parser, with its default, plus
 (training data, loader, discriminator and seed flags, ``--gpu_ids``) are
 accepted and ignored, as the JAX decode ignores them; flags that select a
 path not ported yet (``--spatial_shard``, ``--data_parallel``,
-``--spatial_parallel``, a generator outside the resnets) are refused by the
-CLI when set, naming their ROADMAP item.
+``--spatial_parallel``) are refused by the CLI when set, naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -39,8 +39,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_nc", type=int, default=1, help="# of output image channels")
     p.add_argument("--ngf", type=int, default=32, help="# of gen filters in first conv layer")
     p.add_argument("--netG", type=str, default="resnet_6blocks",
-                   help="generator: resnet_6blocks | resnet_9blocks")
-    p.add_argument("--norm", type=str, default="instance", help="instance")
+                   help="generator: resnet_9blocks | resnet_6blocks | unet_custom | "
+                        "unet_128 | unet_256 | Dynet")
+    p.add_argument("--norm", type=str, default="instance", help="instance | batch | none")
+    p.add_argument("--dynet_sizes", type=int, nargs=3, default=[128, 128, 64],
+                   help="Dynet auto-schedule input sizes (as the run was trained with)")
+    p.add_argument("--dynet_spacings", type=float, nargs=3, default=[1.5, 1.5, 1.5],
+                   help="Dynet auto-schedule voxel spacings")
     p.add_argument("--no_dropout", action="store_true", default=True,
                    help="no dropout for the generator (the checkpoint's keys "
                         "decide the layout; dropout is off at inference)")
@@ -98,8 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
             ("--data_path", dict(type=str, default="./Data_folder/train/")),
             ("--val_path", dict(type=str, default="./Data_folder/test/")),
             ("--batch_size", dict(type=int, default=1)),
-            ("--dynet_sizes", dict(type=int, nargs=3, default=[128, 128, 64])),
-            ("--dynet_spacings", dict(type=float, nargs=3, default=[1.5, 1.5, 1.5])),
             ("--min_pixel", dict(type=float, default=0.1)),
             ("--drop_ratio", dict(type=float, default=0.0)),
             ("--ndf", dict(type=int, default=32)),

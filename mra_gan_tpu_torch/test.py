@@ -34,7 +34,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .checkpoint.io import read_reference_pth
+from .checkpoint.io import has_dropout_layout, read_reference_pth
 from .core.device import resolve_device
 from .core.dtypes import compute_dtype
 from .data import nifti
@@ -48,6 +48,7 @@ from .data.transforms import (
 )
 from .infer.sliding_window import sliding_window_inference
 from .models.cycle_gan import CycleGANConfig, GenerateFn, make_generate_fn
+from .models.networks import check_patch
 from .options.test_options import parse
 from .parallel.spatial import single_pass_apply
 
@@ -64,11 +65,13 @@ def load_generator(opt: argparse.Namespace) -> GenerateFn:
     with dropout, ``.5`` without) decide which layout is built."""
     device = resolve_device(opt.device)
     state = read_reference_pth(checkpoint_path(opt))
-    use_dropout = any(k.endswith(".conv_block.6.weight") for k in state)
+    use_dropout = has_dropout_layout(state)
     cfg = CycleGANConfig(input_nc=opt.input_nc, output_nc=opt.output_nc, ngf=opt.ngf,
                          net_g=opt.netG, norm=opt.norm, no_dropout=not use_dropout,
                          init_type=opt.init_type, init_gain=opt.init_gain,
-                         dtype=compute_dtype(opt.precision))
+                         dtype=compute_dtype(opt.precision),
+                         dynet_sizes=tuple(opt.dynet_sizes),
+                         dynet_spacings=tuple(opt.dynet_spacings))
     which = {"_A": "g_a", "_B": "g_b"}[opt.model_suffix]
     gen = make_generate_fn(cfg, which, device)
     gen.net.load_state_dict(state, strict=True)
@@ -143,12 +146,13 @@ def inference(opt: argparse.Namespace, gen: Optional[GenerateFn] = None, img=Non
 
 def refuse_unported(opt: argparse.Namespace) -> None:
     """NotImplementedError, naming its ROADMAP item, for a flag that selects
-    a path the port does not have yet (an unported --netG or --norm raises
-    where the generator is built)."""
+    a path the port does not have yet; the JAX package's ValueError for a
+    U-Net patch smaller than the net's depth allows."""
     for flag in ("spatial_shard", "data_parallel", "spatial_parallel"):
         if getattr(opt, flag):
             raise NotImplementedError(f"--{flag} is not ported yet; see ROADMAP Queue A, "
                                       f"parallelism")
+    check_patch(opt.netG, opt.patch_size)
 
 
 def decode_directory(opt: argparse.Namespace, gen: GenerateFn) -> List[str]:

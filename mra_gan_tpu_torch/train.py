@@ -39,6 +39,7 @@ from .core.dtypes import compute_dtype
 from .data import nifti
 from .data.dataset import PatchLoader, UnpairedVolumeDataset
 from .models.cycle_gan import CycleGANConfig, create_state, make_train_step
+from .models.networks import check_patch
 from .options.train_options import TrainOptions
 from .training.schedules import LRScheduler
 from .utils import StepTimer, Visualizer, print_networks
@@ -52,7 +53,9 @@ def config_from_opt(opt: argparse.Namespace) -> CycleGANConfig:
         gan_mode="vanilla" if opt.no_lsgan else "lsgan",
         lambda_a=opt.lambda_A, lambda_b=opt.lambda_B, lambda_identity=opt.lambda_identity,
         lambda_co_a=opt.lambda_co_A, lambda_co_b=opt.lambda_co_B,
-        pool_size=opt.pool_size, beta1=opt.beta1, dtype=compute_dtype(opt.precision))
+        pool_size=opt.pool_size, beta1=opt.beta1, dtype=compute_dtype(opt.precision),
+        dynet_sizes=tuple(int(v) for v in opt.dynet_sizes),
+        dynet_spacings=tuple(float(v) for v in opt.dynet_spacings))
 
 
 def refuse_unported(opt: argparse.Namespace) -> None:
@@ -94,6 +97,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = resolve_device(opt.device)
     cfg = config_from_opt(opt)
     patch = tuple(int(p) for p in opt.patch_size)
+    check_patch(cfg.net_g, patch)
     dataset = UnpairedVolumeDataset(
         opt.data_path, patch_size=patch, pipeline=opt.pipeline, num_samples=opt.num_samples,
         shuffle_labels=(opt.pipeline == "legacy"), which_direction=opt.which_direction,

@@ -16,7 +16,12 @@ from mra_gan_tpu_torch.checkpoint.io import (
     read_reference_pth,
     state_dict_from_jax,
 )
-from mra_gan_tpu_torch.models.networks import NLayerDiscriminator3D, define_d, define_g
+from mra_gan_tpu_torch.models.networks import (
+    NLayerDiscriminator3D,
+    PixelDiscriminator3D,
+    define_d,
+    define_g,
+)
 
 from torch_port_util import dead_bias_keys, random_conv_tree, to_ncdhw, to_ndhwc
 
@@ -70,8 +75,9 @@ def test_define_d_names():
     assert define_d(1, 4, "basic").n_layers == 3
     assert define_d(1, 4, "n_layers", 2).n_layers == 2
     assert isinstance(define_d(1, 4, "basic", use_sigmoid=True).model[-1], torch.nn.Sigmoid)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_d(1, 4, "pixel")
+    assert isinstance(define_d(1, 4, "pixel"), PixelDiscriminator3D)
+    with pytest.raises(NotImplementedError, match="not recognized"):
+        define_d(1, 4, "patch")
 
 
 def test_norm_dead_biases_are_detached():

@@ -79,8 +79,9 @@ def test_define_g_and_granularity():
     w = net.model[1].weight.detach()
     assert abs(float(w.std()) - 0.02) < 0.005 and float(net.model[1].bias.detach().abs().max()) == 0
     assert spatial_granularity(net) == (4, 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_g(1, 1, 4, "unet_custom")
+    assert spatial_granularity(define_g(1, 1, 4, "unet_custom")) == (32, 32, 32)
+    with pytest.raises(NotImplementedError, match="not recognized"):
+        define_g(1, 1, 4, "unet_64")
     with pytest.raises(ValueError, match="residual blocks"):
         state_dict_from_jax(jax_generator()[1], "resnet_9blocks")
 

@@ -49,22 +49,33 @@ def to_ndhwc(t: torch.Tensor) -> np.ndarray:
     return np.moveaxis(t.detach().float().numpy(), 1, -1)
 
 
+def numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
 def random_conv_tree(shapes_tree, seed: int):
     """Redraw a JAX param tree (shapes from jax.eval_shape) with numpy at O(1)
-    activation scale: kernel std 1/sqrt(fan_in), bias std 0.1."""
+    activation scale: kernel std 1/sqrt(fan_in), bias std 0.1, a norm's
+    scale 1 + 0.1 N."""
     rng = np.random.RandomState(seed)
 
-    def redraw(leaf):
+    def redraw(path, leaf):
         shape = tuple(leaf.shape)
         if len(shape) == 5:
             return (rng.randn(*shape) / np.sqrt(np.prod(shape[:4]))).astype(np.float32)
-        return (0.1 * rng.randn(*shape)).astype(np.float32)
+        base = 1.0 if path[-1].key == "scale" else 0.0
+        return (base + 0.1 * rng.randn(*shape)).astype(np.float32)
 
-    return jax.tree.map(redraw, shapes_tree)
+    return jax.tree_util.tree_map_with_path(redraw, shapes_tree)
 
 
-def numpy_tree(tree):
-    return jax.tree.map(np.asarray, tree)
+def jax_params(jnet, spatial, seed: int = 0):
+    """A JAX net's numpy param tree for (1, *spatial, 1) inputs: the shapes
+    from ``jax.eval_shape`` of its ``init``, the values ``random_conv_tree``'s."""
+    shapes = jax.eval_shape(
+        lambda k: jnet.init(k, jnp.zeros((1, *spatial, 1)), train=False),
+        jax.random.PRNGKey(seed))
+    return random_conv_tree(shapes, seed)
 
 
 # Every full-width instance norm of the port's paths (resnet_6blocks at ngf = 32 on
@@ -99,28 +110,35 @@ STEP_LR = 2e-4
 def paired_train_states(gan_mode: str, seed: int = 0):
     """(JAX config, JAX state, port config, port state on the CPU) with the
     JAX state's initial weights loaded into the port's four networks."""
+    common = dict(ngf=4, ndf=4, net_g="resnet_6blocks", net_d="n_layers", n_layers_d=2,
+                  norm="instance", gan_mode=gan_mode, pool_size=0)
+    return train_states(common, STEP_PATCH, seed)
+
+
+def train_states(common: dict, patch, seed: int = 0):
+    """``paired_train_states`` for any configuration ``common`` (the fields
+    both packages' CycleGANConfig take) and patch shape."""
     from mra_gan_tpu.models.cycle_gan import CycleGANConfig as JaxConfig
     from mra_gan_tpu.models.cycle_gan import create_state as jax_create_state
     from mra_gan_tpu_torch.checkpoint.io import load_jax_nets
     from mra_gan_tpu_torch.models.cycle_gan import create_state
 
-    common = dict(ngf=4, ndf=4, net_g="resnet_6blocks", net_d="n_layers", n_layers_d=2,
-                  norm="instance", gan_mode=gan_mode, pool_size=0)
     jcfg = JaxConfig(**common)
-    jstate = jax_create_state(jcfg, jax.random.PRNGKey(seed), STEP_PATCH)
+    jstate = jax_create_state(jcfg, jax.random.PRNGKey(seed), tuple(patch))
     cfg = CycleGANConfig(**common, dtype=torch.float32)
-    state = create_state(cfg, seed, STEP_PATCH, device="cpu")
-    load_jax_nets(state.nets, numpy_tree(jstate.g_params), numpy_tree(jstate.d_params))
+    state = create_state(cfg, seed, tuple(patch), device="cpu")
+    load_jax_nets(state.nets, numpy_tree(jstate.g_params), numpy_tree(jstate.d_params),
+                  cfg.net_g, not cfg.no_dropout, cfg.net_d)
     return jcfg, jstate, cfg, state
 
 
-def jax_state_dicts(g_params, d_params) -> dict:
+def jax_state_dicts(g_params, d_params, net_g: str = "resnet_6blocks",
+                    net_d: str = "n_layers") -> dict:
     """{net name: torch-layout state dict} of JAX g_params/d_params trees (or
     of gradient trees of the same structure)."""
     out = {}
-    for name, tree, arch in (("g_a", g_params, "resnet_6blocks"),
-                             ("g_b", g_params, "resnet_6blocks"),
-                             ("d_a", d_params, "n_layers"), ("d_b", d_params, "n_layers")):
+    for name, tree, arch in (("g_a", g_params, net_g), ("g_b", g_params, net_g),
+                             ("d_a", d_params, net_d), ("d_b", d_params, net_d)):
         out[name] = state_dict_from_jax(numpy_tree(tree[name]), arch)
     return out
 
@@ -183,3 +201,95 @@ def write_train_data(root, n: int = 2, shape=(24, 24, 24), seed: int = 0):
         nifti.save(nifti.NiftiImage(data=base * 0.7 + 5, affine=np.eye(4)),
                    root / f"labels/{i}.nii")
     return root
+
+
+def steps_match_jax(common: dict, patch, steps: int = 3, batch: int = 1, seed: int = 0):
+    """``steps`` train steps of the JAX package's jitted ``make_train_step``
+    and of the port's from the same weights (``train_states``) on the same
+    numpy batches, the port's pools fed the JAX step's draws; after each
+    step k: the ten losses at rtol 1e-4 * 10^k (atol 1e-6); the pools'
+    counts equal and their images (the fakes of G after k updates, or the
+    ones they swapped out; in [-1, 1]) at mean |diff| <= 1e-4 * 10^k and
+    max <= 1e-3 * 10^k: from step 1 on the two G's parameters differ by the
+    Adam walk, and a fake of step 2 differs by up to 0.022 (batch norm, the
+    worst case measured); every parameter within the Adam walk bound of
+    tests/test_torch_port_train_step.py after k + 1 steps (max |diff| <= 2
+    (k + 1) lr, mean <= 0.15 (k + 1) lr), the norm-dead biases unmoved.
+    Returns (JAX config, JAX state, port state)."""
+    from mra_gan_tpu.models.cycle_gan import make_train_step as jax_make_train_step
+    from mra_gan_tpu_torch.checkpoint.jax_import import pool_images_from_jax
+    from mra_gan_tpu_torch.models.cycle_gan import make_train_step
+
+    jcfg, jstate, cfg, state = train_states(common, patch, seed)
+    jstep = jax.jit(jax_make_train_step(jcfg))
+    step = make_train_step(cfg)
+    rs = np.random.RandomState(seed + 42)
+    for k in range(steps):
+        a, b = (rs.uniform(-1.0, 1.0, (batch, *patch, 1)).astype(np.float32) for _ in range(2))
+        rng = jax.random.PRNGKey(k)
+        jstate, want = jstep(jstate, jnp.asarray(a), jnp.asarray(b), rng, STEP_LR)
+        want = jax.device_get(want)
+        draws = jax_step_pool_draws(rng, batch, cfg.pool_size) if cfg.pool_size else None
+        _, got = step(state, to_ncdhw(a), to_ncdhw(b), STEP_LR, pool_draws=draws)
+        assert set(got) == set(want)
+        for name, w in want.items():
+            np.testing.assert_allclose(float(got[name]), float(w), rtol=1e-4 * 10 ** k,
+                                       atol=1e-6, err_msg=f"step {k}: {name}")
+        for pool_name, channels in (("pool_fake_a", cfg.input_nc),
+                                    ("pool_fake_b", cfg.output_nc)):
+            jp, pool = getattr(jstate, pool_name), getattr(state, pool_name)
+            assert pool.count == int(jp.count), f"step {k}: {pool_name} count"
+            ref = pool_images_from_jax(np.asarray(jp.images), tuple(patch), channels)
+            diff = (pool.images - ref).abs()
+            assert float(diff.mean()) <= 1e-4 * 10 ** k, f"step {k}: {pool_name} mean"
+            assert float(diff.max()) <= 1e-3 * 10 ** k, f"step {k}: {pool_name} max"
+        ref = jax_state_dicts(jstate.g_params, jstate.d_params, cfg.net_g, cfg.net_d)
+        for name, net in state.nets.items():
+            dead = dead_bias_keys(net)
+            got_sd = net.state_dict()
+            assert set(got_sd) == set(ref[name]), name
+            for key, w in ref[name].items():
+                diff = (got_sd[key] - w).abs()
+                where = f"after {k + 1} steps: {name} {key}"
+                if key in dead:
+                    assert float(diff.max()) == 0.0, f"{where}: a norm-dead bias moved"
+                    continue
+                assert float(diff.max()) <= 2 * (k + 1) * STEP_LR * 1.05, where
+                assert float(diff.mean()) <= 0.15 * (k + 1) * STEP_LR, where
+    return jcfg, jstate, state
+
+
+def assert_jax_state_imported(state, tree) -> None:
+    """``state`` after ``load_jax_state(state, tree)`` holds the JAX
+    ``restore_raw`` tree exactly: parameters, Adam moments and counts (none
+    for a norm-dead bias, whose JAX moments are zero), pools and step."""
+    from mra_gan_tpu_torch.checkpoint.jax_import import pool_images_from_jax
+
+    cfg = state.cfg
+    assert state.step == int(tree["step"])
+    want = jax_state_dicts(tree["g_params"], tree["d_params"], cfg.net_g, cfg.net_d)
+    for name, net in state.nets.items():
+        assert set(net.state_dict()) == set(want[name]), name
+        for k, v in net.state_dict().items():
+            assert torch.equal(v, want[name][k]), f"{name} {k}"
+    for opt_name, names in (("opt_g", ("g_a", "g_b")), ("opt_d", ("d_a", "d_b"))):
+        opt, jt = getattr(state, opt_name), tree[opt_name]
+        for name in names:
+            arch = cfg.net_g if name.startswith("g") else cfg.net_d
+            mu = state_dict_from_jax(numpy_tree(jt["mu"][name]), arch)
+            nu = state_dict_from_jax(numpy_tree(jt["nu"][name]), arch)
+            dead = dead_bias_keys(state.nets[name])
+            for k, p in state.nets[name].named_parameters():
+                st = opt.state.get(p, {})
+                if k in dead:
+                    assert not st and not mu[k].any() and not nu[k].any()
+                    continue
+                assert float(st["step"]) == int(jt["count"]), f"{opt_name} {name} {k}"
+                assert torch.equal(st["exp_avg"], mu[k]), f"{opt_name} mu {name} {k}"
+                assert torch.equal(st["exp_avg_sq"], nu[k]), f"{opt_name} nu {name} {k}"
+    for pool_name, channels in (("pool_fake_a", cfg.input_nc), ("pool_fake_b", cfg.output_nc)):
+        pool, jp = getattr(state, pool_name), tree[pool_name]
+        assert pool.count == int(jp["count"])
+        torch.testing.assert_close(
+            pool.images, pool_images_from_jax(jp["images"], state.patch_shape, channels),
+            rtol=0, atol=0)
