@@ -63,7 +63,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    synthetic 128x256x256 image/label pairs: batch 1 for 2 epochs (cold,
    then warm cache) and batch 8 with 4 workers, the losses read back every
    step, and one batch-1 epoch reading them back once; finite loss lines,
-   the checkpoint files, exactly steps x phase 7's launches per step; per
+   the checkpoint files, exactly (steps + 2) x phase 7's launches per step
+   (the two more: the driver's memory preflight, two trial steps); per
    epoch the steady s/step, its data-wait share and pairs/s beside phase 7's;
    under torch.use_deterministic_algorithms(True), 1 epoch then
    --continue_train --epoch_count 2 bit-equal to 2 straight epochs (step lr
@@ -88,6 +89,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bit-equal to an in-process decode. Cuts: two steps per configuration
    instead of an epoch; unet_128 and unet_256 need 2^7 and 2^8 voxels per
    axis, so they run one forward each at that size and no train step.
+13. augmentation, registration and the memory levers: each of the 13
+   augmentation branches at batch 8 x 64^3 on the card against the port's
+   CPU result for the same parameters (AUG_ATOL), its device ms, and the
+   whole policy per batch; the training driver with --augment
+   --augment_extended at batch 1 and 8 on phase 11's data (s/step and
+   data-wait share beside phase 11's, exact launches); the memory
+   preflight's estimate (two trial steps) at batch 1 and 8 against phase 7's
+   measured peak, --hbm_limit_gib 1 ending the driver in SystemExit with
+   the advice and a real step afterwards; the dataset CLI (python -m
+   mra_gan_tpu_torch.organize_folder_structure, in process) on 2 synthetic
+   128x256x256 pairs with a known affine, recovered under 1 voxel, seconds
+   per pair split into the host's features and resampling and the device's
+   levels; --remat against the plain step at batch 8 x 64^3 and 2 x 128^3
+   (s/step, peak memory, exact launches: every generator norm forward once
+   more a step; the losses within the train-step bar and whether bit-equal
+   under deterministic algorithms); and a child process capped below a
+   128x256x256 single pass, which must refuse it with the advice, go on,
+   and see the directory decode skip it and exit 1. Cuts: one epoch per
+   driver run; two timed remat steps.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line {"kernels": [...]} with each kernel's launches on its main path
@@ -1550,7 +1570,7 @@ def phase_driver(K, train: dict, results: dict, workdir: Path) -> dict:
     at batch 1 (LSGAN, 2 epochs, cold then warm cache), run 2 at batch 8 and
     4 workers, both reading the losses back every step (--print_freq 1),
     and a batch-1 epoch reading them back once; each held to finite loss
-    lines, its checkpoint files and exactly steps x phase 7's launches per
+    lines, its checkpoint files and exactly (steps + 2) x phase 7's launches per
     step. Then, under
     torch.use_deterministic_algorithms(True), 1 epoch followed by
     --continue_train --epoch_count 2 against 2 straight epochs, bit for bit.
@@ -1559,6 +1579,7 @@ def phase_driver(K, train: dict, results: dict, workdir: Path) -> dict:
 
     from mra_gan_tpu_torch import train as driver
     from mra_gan_tpu_torch.checkpoint.manager import state_to_dict
+    from mra_gan_tpu_torch.core.memory import TRIAL_STEPS
     from mra_gan_tpu_torch.data.dataset import (PatchLoader, UnpairedVolumeDataset,
                                                 flush_cache_writes)
 
@@ -1592,8 +1613,10 @@ def phase_driver(K, train: dict, results: dict, workdir: Path) -> dict:
         norms = 4 * generator_norms(batch, PATCH) + 4 * patchgan_norms(batch)
         per_step = {**forward_launches(K, norms, cfg_dtype),
                     **backward_launches(K, norms, cfg_dtype)}
-        check(launched(K, times(per_step, steps)),
-              f"driver {tag}: launches {launches}, want {steps} x {per_step}")
+        # two steps more: the memory preflight's trial steps before the first
+        trial = TRIAL_STEPS
+        check(launched(K, times(per_step, steps + trial)),
+              f"driver {tag}: launches {launches}, want {steps} + {trial} x {per_step}")
         run = workdir / "ck" / tag
         n_lines = _loss_lines_finite(run / "loss_log.txt")
         want_lines = sum(k * batch % print_freq == 0 for k in range(1, steps + 1))
@@ -1617,7 +1640,7 @@ def phase_driver(K, train: dict, results: dict, workdir: Path) -> dict:
         runs[tag] = {"batch": batch, "steps": steps, "wall_s": wall, "launches": launches,
                      "epochs": rates, "phase7_s_per_step": phase7}
         for k, n in with_wholes(launches).items():
-            results[k].setdefault("launches_driver_per_step", {})[tag] = n / steps
+            results[k].setdefault("launches_driver_per_step", {})[tag] = n / (steps + trial)
         del out
         torch.cuda.empty_cache()
 
@@ -1996,6 +2019,425 @@ def phase_zoo(K, bw: float, flops: float, results: dict, workdir: Path) -> dict:
             "seconds": secs, "kernel_cases_s": t_kernels}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: on-device augmentation, registration with the dataset CLI, and the
+# memory levers (--remat, the preflight, the single-pass refusal).
+
+AUG_BATCH = 8
+# the port on the card against the port on the CPU, same parameters, on
+# [-1, 1] noise (the worst case for resampling): the intensity branches
+# differ by float32 reductions (min, max, mean) and pow in another order; the
+# resampling ones by coordinates computed with FMAs (~1e-5 voxel at 64^3)
+# times the data's slope (up to 2 a voxel)
+AUG_ATOL = {"intensity": 1e-5, "resampling": 1e-3}
+AUG_RESAMPLING = ("rotate", "bspline", "rotate_z", "rotate_x", "rotate_y")
+AUG_POLICY_BATCHES = 20
+AUG_DRIVER_RUNS = (("b1", 1, 2), ("b8", 8, 4))  # tag, batch, workers
+REG_TRUE_DEG = 3.0  # the known affine: a rotation in the first two axes ...
+REG_TRUE_SHIFT = (2.0, -1.5, 1.0)  # ... and a shift, in voxels
+REMAT_CASES = (("b8 64^3", 8, (64, 64, 64)), ("b2 128^3", 2, (128, 128, 128)))
+REMAT_STEPS = 2
+PREFLIGHT_RTOL = 0.10  # the preflight's estimate against phase 7's steady peak
+SINGLE_PASS_LIMIT_GIB = 0.75  # the child's allocator cap: a 128x256x256 single pass needs more
+
+
+def phase_augment() -> dict:
+    """Each of the 13 branches at batch 8 x 64^3 on the card against the
+    port's CPU result for the same parameters (both value-range modes), its
+    device ms, and the whole policy (draws and apply) per batch."""
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch.data import augment as aug
+
+    rs = np.random.RandomState(SEED + 13)
+    img, lbl = (torch.from_numpy(rs.uniform(-1, 1, (AUG_BATCH, 1) + PATCH).astype(np.float32))
+                for _ in range(2))
+    img_d, lbl_d = img.to(DEVICE), lbl.to(DEVICE)
+    gen = torch.Generator().manual_seed(SEED)
+    dev_gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = {}
+    for choice, name in enumerate(aug.BRANCHES):
+        draws = [(choice, aug.draw_params(choice, PATCH, gen, dev_gen)) for _ in range(AUG_BATCH)]
+        on_card = torch.device(DEVICE).type
+        check(all(not torch.is_tensor(v) or v.device.type == on_card
+                  for _, p in draws for v in p.values()),
+              f"augment {name}: tensors drawn on the card")
+        host = [(c, {k: v.cpu() if torch.is_tensor(v) else v for k, v in p.items()})
+                for c, p in draws]
+        kind = "resampling" if name in AUG_RESAMPLING else "intensity"
+        err = 0.0
+        for value_range in ((-1.0, 1.0), None):
+            got = aug.apply_batch(img_d, lbl_d, draws, value_range)
+            want = aug.apply_batch(img, lbl, host, value_range)
+            check(all(g.device.type == on_card for g in got), f"augment {name}: ran on the card")
+            err = max([err] + [float((g.cpu() - w).abs().max()) for g, w in zip(got, want)])
+        check(err <= AUG_ATOL[kind], f"augment {name}: max |card - cpu| {err:.3g} "
+              f"> {AUG_ATOL[kind]}")
+        ms = device_ms(lambda: aug.apply_batch(img_d, lbl_d, draws, (-1.0, 1.0)), iters=5)
+        rows[name] = {"max_abs_err": err, "atol": AUG_ATOL[kind], "device_ms": ms}
+        print(f"[augment] {choice:2d} {name:10s} batch {AUG_BATCH} x 64^3: {ms:.3f} device ms, "
+              f"max |card - cpu| {err:.2e} (atol {AUG_ATOL[kind]:g})", flush=True)
+
+    def policy(i):
+        return aug.augment_batch(img_d, lbl_d, aug.step_generators(SEED, 1, i, DEVICE),
+                                 (-1.0, 1.0), extended=True)
+
+    policy(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(AUG_POLICY_BATCHES):
+        out = policy(i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / AUG_POLICY_BATCHES
+    check(all(bool(torch.isfinite(o).all()) for o in out), "augment policy: finite")
+    dev = device_ms(lambda: policy(1), iters=AUG_POLICY_BATCHES)
+    print(f"[augment] the 13-choice policy, draws and apply, batch {AUG_BATCH} x 64^3: "
+          f"{wall_ms:.2f} ms a batch on the host's clock, {dev:.3f} device ms", flush=True)
+    return {"branches": rows, "policy_wall_ms": wall_ms, "policy_device_ms": dev}
+
+
+def patchgan_norms_at(n: int, spatial) -> list:
+    """patchgan_norms on any cube: k4/s2 convs halve it three times, the
+    stride-1 k4 conv takes one voxel off."""
+    s = spatial[0]
+    return [(n, 2 * NDF) + (s // 4,) * 3, (n, 4 * NDF) + (s // 8,) * 3,
+            (n, 8 * NDF) + (s // 8 - 1,) * 3]
+
+
+def step_launches(K, cfg, batch: int, spatial) -> dict:
+    """Each norm kernel's launches per train step of ``cfg`` (resnet_6blocks
+    and the 3-layer PatchGAN): under remat the four generator applies run
+    their norms forward once more in the backward."""
+    gen = 4 * generator_norms(batch, spatial)
+    norms = gen + 4 * patchgan_norms_at(batch, spatial)
+    return {**forward_launches(K, norms + (gen if cfg.remat else []), cfg.dtype),
+            **backward_launches(K, norms, cfg.dtype)}
+
+
+def phase_augment_driver(K, train: dict, train_driver: dict, workdir: Path) -> dict:
+    """In phase 11's directory, on its data and warm cache: the driver with
+    --augment --augment_extended at batch 1 and 8 (one epoch each: s/step,
+    data-wait share, exactly (steps + 2) x phase 7's launches per step, the
+    two being the memory preflight's trial steps); then the preflight's
+    estimate at batch 1 and 8 against phase 7's measured peak, the driver
+    with --hbm_limit_gib 1 ending in SystemExit with the advice, and a real
+    step in this process afterwards."""
+    import torch
+
+    from mra_gan_tpu_torch import train as driver
+    from mra_gan_tpu_torch.core.memory import TRIAL_STEPS, preflight
+    from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+
+    common = ["--data_path", str(workdir / "data"), "--ngf", str(NGF), "--ndf", str(NDF),
+              "--patch_size", *map(str, PATCH), "--no_lsgan", "--device", DEVICE,
+              "--seed", str(SEED), "--num_samples", str(DRIVER_SAMPLES), "--niter", "1",
+              "--niter_decay", "0", "--checkpoints_dir", str(workdir / "ck_aug"),
+              "--cache_dir", str(workdir / "ck" / "b1" / "cache")]
+    cfg = train_config(torch.bfloat16)
+    runs = {}
+    for tag, batch, workers in AUG_DRIVER_RUNS:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        out = driver.main([*common, "--name", tag, "--batch_size", str(batch), "--workers",
+                           str(workers), "--print_freq", "1", "--augment", "--augment_extended"])
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        steps = sum(r["steps"] for r in out["epochs"])
+        check(steps == DRIVER_PAIRS * DRIVER_SAMPLES // batch, f"augment driver {tag}: {steps}")
+        want = times(step_launches(K, cfg, batch, PATCH), steps + TRIAL_STEPS)
+        check(launched(K, want), f"augment driver {tag}: launches {launches}, want {want}")
+        _loss_lines_finite(workdir / "ck_aug" / tag / "loss_log.txt")
+        rate = _epoch_rates(out["epochs"], batch)[0]
+        plain = train_driver["runs"][tag]["epochs"][-1]
+        runs[tag] = {"batch": batch, "steps": steps, "launches": launches, "epoch": rate,
+                     "phase11_epoch": plain, "phase7_s_per_step": train[tag]["s_per_step"]}
+        print(f"[augment] driver {tag} --augment --augment_extended: {rate['s_per_step']:.4f} "
+              f"s/step, data wait {rate['data_share']:.1%}; phase 11 without it "
+              f"{plain['s_per_step']:.4f} s/step, data wait {plain['data_share']:.1%}; "
+              f"phase 7 {train[tag]['s_per_step']:.4f}", flush=True)
+        del out
+        torch.cuda.empty_cache()
+
+    estimates = {}
+    for batch in TRAIN_BATCHES:
+        state = create_state(cfg, SEED, PATCH, DEVICE)
+        step = make_train_step(cfg)
+        est = preflight(step, state, batch, TRAIN_LR)
+        check(est is not None and state.step == 0 and not state.opt_g.state,
+              f"preflight b{batch}: an estimate, the state put back")
+        measured = train[f"b{batch}"]["peak_gib"]
+        check(abs(est["peak"] / 2 ** 30 - measured) <= PREFLIGHT_RTOL * measured,
+              f"preflight b{batch}: {est['peak'] / 2 ** 30:.3f} GiB against phase 7's "
+              f"{measured:.3f}")
+        estimates[f"b{batch}"] = {"peak_gib": est["peak"] / 2 ** 30,
+                                  "state_gib": est["state"] / 2 ** 30,
+                                  "phase7_peak_gib": measured}
+        print(f"[preflight] b{batch}: trial steps' peak {est['peak'] / 2 ** 30:.3f} GiB "
+              f"(state {est['state'] / 2 ** 30:.3f}); phase 7 measured {measured:.3f} GiB",
+              flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    try:
+        driver.main([*common, "--name", "refused", "--batch_size", "1", "--workers", "1",
+                     "--hbm_limit_gib", "1"])
+        refusal = None
+    except SystemExit as e:
+        refusal = str(e)
+    check(refusal is not None and "--remat" in refusal and "--spatial_parallel" in refusal,
+          f"preflight --hbm_limit_gib 1: SystemExit with the advice, got {refusal!r}")
+    check(not (workdir / "ck_aug" / "refused" / "ckpt_latest.pt").exists(),
+          "preflight refusal before any step")
+    state = create_state(cfg, SEED, PATCH, DEVICE)
+    _, metrics = make_train_step(cfg)(state, *train_inputs(1, SEED), TRAIN_LR)
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in losses.values()), f"a step after the refusal {losses}")
+    print(f"[preflight] --hbm_limit_gib 1: {refusal}; a step afterwards in this process: "
+          f"finite losses", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return {"driver": runs, "preflight": estimates, "refusal": refusal}
+
+
+def _blob_volume(small, seed: int):
+    """A smooth structured volume (tests/test_registration.py's blobs on
+    filtered noise) on a quarter-size grid, upsampled 4x trilinearly on the
+    card to VOLUME."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from scipy import ndimage as ndi
+
+    rs = np.random.RandomState(seed)
+    vol = ndi.gaussian_filter(rs.rand(*small).astype(np.float32), 3.0)
+    ii, jj, kk = np.meshgrid(*[np.arange(s, dtype=np.float32) for s in small], indexing="ij")
+    for _ in range(8):
+        c = rs.uniform(0.25, 0.75, 3) * np.asarray(small)
+        r2 = (ii - c[0]) ** 2 + (jj - c[1]) ** 2 + (kk - c[2]) ** 2
+        vol += rs.uniform(0.5, 1.5) * np.exp(-r2 / rs.uniform(8, 30))
+    up = F.interpolate(torch.from_numpy(vol)[None, None].to(DEVICE), size=VOLUME,
+                       mode="trilinear", align_corners=False)
+    return up[0, 0].cpu().numpy()
+
+
+def _mean_displacement(p_est, p_true, shape) -> float:
+    """Mean |T_est(x) - T_true(x)| in voxels over the central half of the
+    grid (tests/test_registration.py's measure)."""
+    import numpy as np
+
+    c = np.array([(s - 1) / 2.0 for s in shape], np.float32)
+    axes = [np.arange(s // 4, 3 * s // 4, dtype=np.float32) for s in shape]
+    pts = np.stack([g.ravel() for g in np.meshgrid(*axes, indexing="ij")])
+    d = ((p_est[:9] - p_true[:9]).reshape(3, 3) @ (pts - c[:, None])
+         + (p_est[9:12] - p_true[9:12])[:, None])
+    return float(np.mean(np.linalg.norm(d, axis=0)))
+
+
+def phase_registration(workdir: Path) -> dict:
+    """The dataset CLI (python -m mra_gan_tpu_torch.organize_folder_structure,
+    in process, --split 1) on 2 synthetic VOLUME pairs: label 1 is label 0
+    under a known affine, image 1 lies in label 1's frame, so both of pair
+    1's registrations must recover it under 1 voxel; seconds per pair split
+    into the host's features and resampling and the device's levels. Each
+    image is its label scaled, as phase 11's are, so that the image's
+    registration (to its registered label, whose error it inherits) is as
+    well posed as the label's."""
+    import numpy as np
+
+    from mra_gan_tpu_torch import organize_folder_structure as cli
+    from mra_gan_tpu_torch.data import nifti
+    from mra_gan_tpu_torch.data.registration import apply_transform
+
+    t0 = time.perf_counter()
+    base = _blob_volume(tuple(v // 4 for v in VOLUME), SEED + 7)
+    a = math.radians(REG_TRUE_DEG)
+    p_true = np.zeros(12, np.float32)
+    p_true[:9] = (np.array([[math.cos(a), -math.sin(a), 0], [math.sin(a), math.cos(a), 0],
+                            [0, 0, 1]]) - np.eye(3)).ravel()
+    p_true[9:12] = REG_TRUE_SHIFT
+    label0 = apply_transform(base, p_true, VOLUME, device=DEVICE)
+    raw = workdir / "raw"
+    for sub in ("images", "labels"):
+        (raw / sub).mkdir(parents=True)
+    for i, lbl in enumerate((label0, base)):
+        nifti.save(nifti.NiftiImage(data=lbl * 0.7 + 5.0, affine=np.eye(4)),
+                   raw / "images" / f"{i}.nii")
+        nifti.save(nifti.NiftiImage(data=lbl, affine=np.eye(4)), raw / "labels" / f"{i}.nii")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = cli.main(["--images", str(raw / "images"), "--labels", str(raw / "labels"),
+                        "--split", "1", "--out", str(workdir / "out")])
+    cli_s = time.perf_counter() - t0
+    check(len(records) == 2 and (workdir / "out" / "test" / "images" / "0.nii").exists(),
+          "registration CLI wrote both pairs")
+    errors = {w: _mean_displacement(records[1][w], p_true, VOLUME) for w in ("label", "image")}
+    check(all(e < 1.0 for e in errors.values()), f"registration recovery {errors} voxels")
+    pairs = [{k: r[k] for k in ("features_s", "levels_s", "resample_s")} for r in records]
+    print(f"[registration] CLI on 2 pairs of {VOLUME}: {cli_s:.1f} s (setup {setup_s:.1f} s); "
+          f"recovered the known affine to {errors['label']:.3f} (label) and "
+          f"{errors['image']:.3f} (image) voxels; per pair host features / device levels / "
+          f"host resampling s: " + "; ".join(
+              f"{p['features_s']:.2f} / {p['levels_s']:.2f} / {p['resample_s']:.2f}"
+              for p in pairs), flush=True)
+    return {"cli_s": cli_s, "setup_s": setup_s, "error_voxels": errors, "pairs": pairs}
+
+
+def phase_remat(K) -> dict:
+    """The reference default with and without --remat at each REMAT_CASES
+    batch and patch: one warm-up and REMAT_STEPS timed steps (s/step, peak
+    memory, exact launches per step), then, from fresh states under
+    torch.use_deterministic_algorithms(True), REMAT_STEPS steps of each,
+    compared: within the train-step bar (losses at rtol 1e-4 * 10^k) and
+    whether bit-equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch.checkpoint.manager import state_to_dict
+    from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+
+    base = train_config(torch.bfloat16)
+    out = {}
+    for label, batch, patch in REMAT_CASES:
+        rs = np.random.RandomState(SEED + batch)
+        inputs = [torch.from_numpy(rs.uniform(-1, 1, (batch, 1) + patch).astype(np.float32))
+                  .to(DEVICE) for _ in range(2)]
+        row, finals = {}, {}
+        for remat in (False, True):
+            cfg = dataclasses.replace(base, remat=remat)
+            state = create_state(cfg, SEED, patch, DEVICE)
+            step = make_train_step(cfg)
+            step(state, *inputs, TRAIN_LR)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(REMAT_STEPS):
+                step(state, *inputs, TRAIN_LR)
+            torch.cuda.synchronize()
+            secs = (time.perf_counter() - t0) / REMAT_STEPS
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            launches = dict(K.LAUNCHES)
+            per_step = step_launches(K, cfg, batch, patch)
+            check(launched(K, times(per_step, REMAT_STEPS)),
+                  f"remat={remat} {label}: launches {launches}, want {per_step} per step")
+            del state
+            torch.cuda.empty_cache()
+            with reproducible(True):
+                state = create_state(cfg, SEED, patch, DEVICE)
+                losses = [{k: float(v) for k, v in step(state, *inputs, TRAIN_LR)[1].items()}
+                          for _ in range(REMAT_STEPS)]
+                finals[remat] = (losses, state_to_dict(state))
+            del state
+            torch.cuda.empty_cache()
+            tag = "remat" if remat else "plain"
+            row[tag] = {"s_per_step": secs, "peak_gib": peak, "launches_per_step": per_step}
+            print(f"[remat] {label} {tag}: {secs:.4f} s/step, peak {peak:.2f} GiB, launches "
+                  f"per step {per_step}", flush=True)
+        check(row["remat"]["peak_gib"] < row["plain"]["peak_gib"],
+              f"remat {label}: peak {row['remat']['peak_gib']:.2f} GiB, plain "
+              f"{row['plain']['peak_gib']:.2f}")
+        (l0, s0), (l1, s1) = finals[False], finals[True]
+        for k, (a, b) in enumerate(zip(l0, l1)):
+            for name in a:
+                check(abs(a[name] - b[name]) <= 1e-4 * 10 ** k * abs(a[name]) + 1e-6,
+                      f"remat {label} step {k} {name}: {b[name]} against {a[name]}")
+        s0["config"].pop("remat")
+        s1["config"].pop("remat")
+        diff = _max_diff(s0, s1)
+        row["bit_equal_deterministic"] = diff == 0.0
+        row["max_state_diff"] = diff
+        print(f"[remat] {label}: {REMAT_STEPS} steps with --remat against without, under "
+              f"deterministic algorithms: {'bit-equal' if diff == 0.0 else f'max |diff| {diff:.3g}'}"
+              f"; peak {row['plain']['peak_gib']:.2f} -> {row['remat']['peak_gib']:.2f} GiB, "
+              f"{row['plain']['s_per_step']:.4f} -> {row['remat']['s_per_step']:.4f} s/step",
+              flush=True)
+        out[label] = row
+    return out
+
+
+def phase_single_pass(workdir: Path) -> dict:
+    """A child process whose allocator is capped at SINGLE_PASS_LIMIT_GIB
+    (torch.cuda.set_per_process_memory_fraction) so that the 128x256x256
+    single pass cannot fit: it must raise RuntimeError with the advice, the
+    process must go on (a 64^3 single pass), and the directory decode
+    (--single_pass, run as its __main__) must skip that volume, write the
+    other and exit 1."""
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch.checkpoint.io import save_reference_pth
+    from mra_gan_tpu_torch.data import nifti
+    from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
+
+    gen = make_generate_fn(CycleGANConfig(ngf=NGF, dtype=torch.bfloat16), "g_a", DEVICE, SEED)
+    (workdir / "ck" / "run").mkdir(parents=True)
+    save_reference_pth(gen.net, workdir / "ck" / "run" / "latest_net_G_A.pth")
+    (workdir / "in").mkdir()
+    rs = np.random.RandomState(SEED + 14)
+    for name, shape in (("big.nii", VOLUME), ("small.nii", PATCH)):
+        nifti.save(nifti.NiftiImage(data=(rs.rand(*shape) * 80).astype(np.float32),
+                                    affine=np.eye(4)), workdir / "in" / name)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--single-pass-child", str(workdir)], capture_output=True,
+                          text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"single-pass child exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(res["refused"] is not None and "sliding-window" in res["refused"]
+          and str(VOLUME) in res["refused"], f"single pass refused with the advice: {res}")
+    check(res["small_finite"], "the child's 64^3 single pass after the refusal")
+    check(res["decode_exit"] == 1 and res["written"] == ["small.nii"]
+          and "SKIPPED big.nii: RuntimeError" in res["decode_out"],
+          f"directory decode skipped the big volume and exited 1: {res}")
+    print(f"[single-pass] under a {SINGLE_PASS_LIMIT_GIB} GiB cap: {res['refused']}; the "
+          f"process went on (64^3 single pass finite), the directory decode skipped "
+          f"big.nii, wrote small.nii, exit {res['decode_exit']} ({secs:.1f} s)", flush=True)
+    return {**res, "seconds": secs}
+
+
+def single_pass_child(workdir: Path) -> int:
+    """The child of phase_single_pass; prints one JSON line."""
+    import io
+    import runpy
+
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
+    from mra_gan_tpu_torch.parallel.spatial import single_pass_apply
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(SINGLE_PASS_LIMIT_GIB * 2 ** 30 / total)
+    gen = make_generate_fn(CycleGANConfig(ngf=NGF, dtype=torch.bfloat16), "g_a", DEVICE, SEED)
+    vol = np.random.RandomState(SEED).rand(*VOLUME).astype(np.float32) * 2 - 1
+    try:
+        single_pass_apply(gen, vol)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    small = single_pass_apply(gen, vol[:PATCH[0], :PATCH[1], :PATCH[2]])
+    sys.argv = ["mra_gan_tpu_torch.test", "--image", str(workdir / "in"), "--result",
+                str(workdir / "out"), "--checkpoints_dir", str(workdir / "ck"), "--name", "run",
+                "--single_pass", "--device", DEVICE, "--ngf", str(NGF), "--patch_size",
+                *map(str, PATCH)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            runpy.run_module("mra_gan_tpu_torch.test", run_name="__main__")
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    written = sorted(p.name for p in (workdir / "out").iterdir())
+    print(json.dumps({"refused": refused, "small_finite": bool(np.isfinite(small).all()),
+                      "decode_exit": code, "written": written, "decode_out": buf.getvalue(),
+                      "cap_gib": SINGLE_PASS_LIMIT_GIB}))
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2004,12 +2446,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--json-out", default="",
                     help="also write the full report, every shape's numbers included, here")
+    ap.add_argument("--single-pass-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if args.single_pass_child:
+        return single_pass_child(Path(args.single_pass_child))
     t_start = time.perf_counter()
     from mra_gan_tpu_torch.ops.kernels import build
     from mra_gan_tpu_torch.ops.kernels import instance_norm as K
@@ -2075,8 +2520,21 @@ def main(argv=None) -> int:
         serving = phase_serve(K, tree, decode, Path(tmp))
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         train_driver = phase_driver(K, train, results, Path(tmp))
+        t13 = time.perf_counter()
+        # phase 13's driver runs, on phase 11's data and warm cache
+        phase13 = {"augment_driver": phase_augment_driver(K, train, train_driver, Path(tmp))}
+        t13 = time.perf_counter() - t13
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         zoo = phase_zoo(K, bw, flops, results, Path(tmp))
+    t0 = time.perf_counter()
+    phase13["augment"] = phase_augment()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase13["registration"] = phase_registration(Path(tmp))
+    phase13["remat"] = phase_remat(K)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase13["single_pass"] = phase_single_pass(Path(tmp))
+    phase13["seconds"] = t13 + time.perf_counter() - t0
+    print(f"[phase 13] in {phase13['seconds']:.1f} s", flush=True)
 
     kernels = []
     for k, r in results.items():
@@ -2110,7 +2568,7 @@ def main(argv=None) -> int:
                          "library_ms": train_head["library_ms"]},
             **({"note": r["note"]} if "note" in r else {})})
     summary = {"decode": decode, "train": train, "train_parity": parity, "checkpoint": ckpt,
-               "serve": serving, "train_driver": train_driver, "zoo": zoo,
+               "serve": serving, "train_driver": train_driver, "zoo": zoo, "phase13": phase13,
                "conv_formats": conv_rows,
                "seconds": time.perf_counter() - t_start}
     if args.json_out:

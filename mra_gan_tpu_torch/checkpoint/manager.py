@@ -194,6 +194,31 @@ def relayout_optimizer_state(opt: torch.optim.Optimizer) -> None:
                     st[k] = torch.empty_like(p, dtype=v.dtype).copy_(v)
 
 
+def load_state(state: CycleGANState, raw: dict) -> CycleGANState:
+    """Load ``state_to_dict``'s containers into ``state`` in place, under the
+    live beta1 and dtype, and return it."""
+    with torch.no_grad():
+        for name, net in state.nets.items():
+            net.load_state_dict(raw["nets"][name], strict=True)
+        for name in ("opt_g", "opt_d"):
+            opt = getattr(state, name)
+            betas = [g["betas"] for g in opt.param_groups]
+            opt.load_state_dict(raw[name])
+            for g, b in zip(opt.param_groups, betas):  # the live beta1
+                g["betas"] = b
+            relayout_optimizer_state(opt)
+        for name in ("pool_fake_a", "pool_fake_b"):
+            pool = getattr(state, name)
+            pool.images.copy_(raw[name]["images"])  # cast to the live dtype
+            pool.count = int(raw[name]["count"])
+    state.generator.set_state(raw["generator"])
+    drop = raw["dropout_generator"]
+    if drop["device"] == state.dropout_generator.device.type:
+        state.dropout_generator.set_state(drop["state"])
+    state.step = int(raw["step"])
+    return state
+
+
 class CheckpointManager:
     """``CheckpointManager(checkpoints_dir, name)`` keeps a run's checkpoints
     under ``root = <checkpoints_dir>/<name>/``: ``ckpt_{epoch}.pt`` and a
@@ -224,26 +249,7 @@ class CheckpointManager:
         beta1 and dtype."""
         raw = self.restore_raw(epoch)
         _check(raw, state)
-        with torch.no_grad():
-            for name, net in state.nets.items():
-                net.load_state_dict(raw["nets"][name], strict=True)
-            for name in ("opt_g", "opt_d"):
-                opt = getattr(state, name)
-                betas = [g["betas"] for g in opt.param_groups]
-                opt.load_state_dict(raw[name])
-                for g, b in zip(opt.param_groups, betas):  # the live beta1
-                    g["betas"] = b
-                relayout_optimizer_state(opt)
-            for name in ("pool_fake_a", "pool_fake_b"):
-                pool = getattr(state, name)
-                pool.images.copy_(raw[name]["images"])  # cast to the live dtype
-                pool.count = int(raw[name]["count"])
-        state.generator.set_state(raw["generator"])
-        drop = raw["dropout_generator"]
-        if drop["device"] == state.dropout_generator.device.type:
-            state.dropout_generator.set_state(drop["state"])
-        state.step = int(raw["step"])
-        return state
+        return load_state(state, raw)
 
     def restore_raw(self, epoch) -> dict:
         """The saved containers as they are (``state_to_dict``'s form), on the

@@ -1,13 +1,16 @@
 """Host-side preprocessing (numpy/scipy).
 
-The port's own copy of the functions of mra_gan_tpu/data/transforms.py that
-the decode CLI and the training data pipeline use: orientation to RAS, the
-z-score, the foreground crop and the pos/neg-weighted patch starts of the
+The port's own copy of mra_gan_tpu/data/transforms.py: orientation to RAS,
+the z-score, the foreground crop and the pos/neg-weighted patch starts of the
 monai chain (:32-540); the legacy 0-255 rescale, the [-1, 1] tanh range and
 back, spacing resample, resample onto a reference grid, pad-to-patch-size
-and the rejection-sampled crop. The arithmetic is unchanged; keep the two in
-step. Random draws take an explicit np.random.Generator, so that the same
-generator gives the JAX package's draws.
+and the rejection-sampled crop; and the rest of the legacy chain's
+transforms (statistical and manual normalization, the two adaptive
+histogram equalizations, intensity inversion, metadata alignment, Laplacian
+sharpening, the background and confidence crops). The arithmetic is
+unchanged; keep the two in step. Random draws take an explicit
+np.random.Generator, so that the same generator gives the JAX package's
+draws.
 """
 from __future__ import annotations
 
@@ -39,6 +42,159 @@ def to_tanh_range(data: np.ndarray) -> np.ndarray:
 def from_tanh_range(data: np.ndarray) -> np.ndarray:
     """[-1, 1] -> [0, 255] (reference test.py:164)."""
     return data.astype(np.float32) * 127.5 + 127.5
+
+
+def statistical_normalize(data: np.ndarray, sigma: float = 2.5) -> np.ndarray:
+    """Legacy StatisticalNormalization: window to mean±sigma*std, rescale to
+    0-255 (reference utils/NiftiDataset.py:654-679)."""
+    x = data.astype(np.float32)
+    mu, sd = float(x.mean()), float(x.std())
+    lo, hi = mu - sigma * sd, mu + sigma * sd
+    x = np.clip(x, lo, hi)
+    span = hi - lo
+    return (x - lo) * (255.0 / span) if span > 0 else np.zeros_like(x)
+
+
+def manual_normalize(data: np.ndarray, window_min: float, window_max: float) -> np.ndarray:
+    """Legacy ManualNormalization: fixed intensity window -> 0-255
+    (reference utils/NiftiDataset.py:682-704)."""
+    x = np.clip(data.astype(np.float32), window_min, window_max)
+    span = window_max - window_min
+    return (x - window_min) * (255.0 / span) if span > 0 else np.zeros_like(x)
+
+
+def adaptive_equalize_itk(data: np.ndarray, alpha: float = 0.7,
+                          beta: float = 0.8, radius: int = 5) -> np.ndarray:
+    """Reference-parity Adapt_eq_histogram (utils/NiftiDataset.py:935-958):
+    ITK's AdaptiveHistogramEqualizationImageFilter with the reference's
+    SetAlpha(0.7)/SetBeta(0.8) and default radius 5, followed by the
+    reference's RescaleIntensity to [0, 255].
+
+    The filter is Stark's power-law generalization of windowed histogram
+    equalization: per voxel u, over its (2r+1)^3 window of neighbors v
+    (edge-replicated boundary), accumulate
+
+        C(u, v) = 0.5 * sgn(u - v) * |2(u - v)|^alpha + beta * v
+
+    on min-max-normalized intensities, then mean over the window. The form
+    is pinned down by ITK's documented limit behaviors, all of which hold
+    here exactly (tests/test_transforms.py): alpha=0, beta=0 is classical
+    windowed histogram equalization (the sgn-sum is the window rank);
+    alpha=1, beta=0 is an unsharp mask (u - local mean); alpha=1, beta=1 is
+    pass-through. Normalization-convention constants (ITK centers on
+    [-0.5, 0.5]) cancel in the trailing min-max rescale. Bit-exactness vs
+    ITK is unverifiable in this environment (no SimpleITK) — recorded
+    residual risk, limited to boundary handling.
+
+    Cost is O(voxels * (2r+1)^3) — ~1.3k whole-volume passes at the default
+    radius; intended for offline preprocessing like the reference's use."""
+    x = np.asarray(data, np.float32)
+    lo, hi = float(x.min()), float(x.max())
+    if hi <= lo:
+        return np.zeros_like(x)
+    u = (x - lo) / (hi - lo)
+    r = int(radius)
+    up = np.pad(u, r, mode="edge")  # ZeroFluxNeumann
+    d0, d1, d2 = u.shape
+    acc = np.zeros_like(u)
+    vsum = np.zeros_like(u)
+    for di in range(2 * r + 1):
+        for dj in range(2 * r + 1):
+            for dk in range(2 * r + 1):
+                v = up[di:di + d0, dj:dj + d1, dk:dk + d2]
+                dlt = u - v
+                acc += 0.5 * np.sign(dlt) * np.abs(2.0 * dlt) ** alpha
+                vsum += v
+    n = float((2 * r + 1) ** 3)
+    f = acc / n + beta * vsum / n + 0.5
+    flo, fhi = float(f.min()), float(f.max())
+    if fhi <= flo:
+        return np.zeros_like(f)
+    return (f - flo) / (fhi - flo) * 255.0
+
+
+def adaptive_equalize(data: np.ndarray, alpha: float = 0.6, beta: float = 0.3,
+                      tiles: int = 4, clip_limit: float = 3.0) -> np.ndarray:
+    """Fast tiled-CLAHE variant of local histogram equalization — per-tile
+    clip-redistributed histograms with trilinear interpolation of the tile
+    mappings. Kept as the cheap approximate option; the reference-parity
+    algorithm (reference Adapt_eq_histogram, utils/NiftiDataset.py:935-958)
+    is ``adaptive_equalize_itk``. NOTE the parameters here are CLAHE-style
+    (``alpha`` blends equalized vs identity), not ITK's Stark alpha/beta."""
+    x = data.astype(np.float32)
+    lo, hi = np.percentile(x, [1, 99])
+    x = np.clip(x, lo, hi)
+    if hi > lo:
+        x = (x - lo) / (hi - lo)
+    else:
+        x = np.zeros_like(x)
+
+    nbins = 256
+    b = np.minimum((x * (nbins - 1)).astype(np.int32), nbins - 1)
+    shape = x.shape
+    nt = [max(1, min(tiles, s // 4)) for s in shape]
+    # per-tile clipped CDFs
+    cdfs = np.empty((*nt, nbins), np.float32)
+    bounds = [np.linspace(0, s, n + 1).astype(int) for s, n in zip(shape, nt)]
+    centers = [(bd[:-1] + bd[1:]) / 2.0 for bd in bounds]
+    for i in range(nt[0]):
+        for j in range(nt[1]):
+            for k in range(nt[2]):
+                tb = b[bounds[0][i]:bounds[0][i + 1],
+                       bounds[1][j]:bounds[1][j + 1],
+                       bounds[2][k]:bounds[2][k + 1]]
+                hist = np.bincount(tb.ravel(), minlength=nbins).astype(np.float32)
+                limit = clip_limit * hist.mean()
+                excess = np.maximum(hist - limit, 0).sum()
+                hist = np.minimum(hist, limit) + excess / nbins
+                c = np.cumsum(hist)
+                cdfs[i, j, k] = c / c[-1]
+
+    # trilinear interpolation of the 8 surrounding tile mappings
+    idx = [np.arange(s, dtype=np.float32) for s in shape]
+    fs, los_ = [], []
+    for ax in range(3):
+        pos = np.interp(idx[ax], centers[ax],
+                        np.arange(nt[ax], dtype=np.float32))
+        lo_i = np.clip(np.floor(pos).astype(np.int32), 0, nt[ax] - 1)
+        fs.append((pos - lo_i).astype(np.float32))
+        los_.append(lo_i)
+    eq = np.zeros(shape, np.float32)
+    for di in (0, 1):
+        wi = (1 - fs[0] if di == 0 else fs[0])[:, None, None]
+        ii = np.minimum(los_[0] + di, nt[0] - 1)
+        for dj in (0, 1):
+            wj = (1 - fs[1] if dj == 0 else fs[1])[None, :, None]
+            jj = np.minimum(los_[1] + dj, nt[1] - 1)
+            for dk in (0, 1):
+                wk = (1 - fs[2] if dk == 0 else fs[2])[None, None, :]
+                kk = np.minimum(los_[2] + dk, nt[2] - 1)
+                m = cdfs[ii[:, None, None], jj[None, :, None],
+                         kk[None, None, :], b]
+                eq += wi * wj * wk * m
+
+    out = alpha * eq + (1 - alpha) * x ** (1 - beta)
+    return np.clip(out * 255.0, 0, 255)
+
+
+def invert_intensity(data: np.ndarray) -> np.ndarray:
+    """Reference Invert (utils/NiftiDataset.py:751-764): max - voxel."""
+    return data.max() - data
+
+
+def align_to(image: NiftiImage, reference: NiftiImage) -> NiftiImage:
+    """Reference Align (utils/NiftiDataset.py:815-835): stamp the reference
+    volume's physical-space metadata (origin/spacing/direction — i.e. the
+    affine) onto the image, voxel data untouched."""
+    return NiftiImage(data=image.data, affine=reference.affine.copy(),
+                      descrip=getattr(image, "descrip", b""))
+
+
+def laplacian_sharpen(data: np.ndarray, sigma: float = 1.0) -> np.ndarray:
+    """Laplacian-of-Gaussian sharpening (reference LaplacianRecursive,
+    utils/NiftiDataset.py:707-727)."""
+    x = data.astype(np.float32)
+    return x - ndimage.gaussian_laplace(x, sigma)
 
 
 def resample_to_spacing(img: NiftiImage, new_spacing: Sequence[float],
@@ -250,6 +406,53 @@ def rand_crop_by_pos_neg(
         sl = tuple(slice(int(s[a]), int(s[a]) + patch[a]) for a in range(3))
         out.append((image[sl], label[sl]))
     return out
+
+
+def crop_background(
+    image: np.ndarray,
+    label: np.ndarray,
+    patch_size: Sequence[int],
+    threshold: float = 0.0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Fixed-size crop centered on the foreground centroid (the legacy
+    CropBackground transform, reference utils/NiftiDataset.py:961-1010)."""
+    patch = [int(p) for p in patch_size]
+    image = pad_to_size(image, patch)
+    label = pad_to_size(label, patch)
+    mask = image > threshold
+    if mask.any():
+        center = ndimage.center_of_mass(mask)
+    else:
+        center = [s / 2 for s in image.shape[:3]]
+    start = [int(np.clip(round(center[a] - patch[a] / 2), 0,
+                         image.shape[a] - patch[a])) for a in range(3)]
+    sl = tuple(slice(start[a], start[a] + patch[a]) for a in range(3))
+    return image[sl], label[sl]
+
+
+def confidence_crop(
+    image: np.ndarray,
+    label: np.ndarray,
+    patch_size: Sequence[int],
+    rng: np.random.Generator,
+    sigma_frac: float = 0.25,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Crop centered near a random foreground voxel of the label, jittered by
+    a Gaussian whose scale is a fraction of the patch (the legacy
+    ConfidenceCrop, reference utils/NiftiDataset.py:1302-1388)."""
+    patch = [int(p) for p in patch_size]
+    image = pad_to_size(image, patch)
+    label = pad_to_size(label, patch)
+    fg = np.argwhere(label > 0)
+    if len(fg):
+        center = fg[rng.integers(len(fg))][:3].astype(np.float64)
+    else:
+        center = np.array([s / 2 for s in image.shape[:3]])
+    center = center + rng.normal(0, sigma_frac * np.asarray(patch), 3)
+    start = [int(np.clip(round(center[a] - patch[a] / 2), 0,
+                         image.shape[a] - patch[a])) for a in range(3)]
+    sl = tuple(slice(start[a], start[a] + patch[a]) for a in range(3))
+    return image[sl], label[sl]
 
 
 def random_crop_start(

@@ -30,12 +30,13 @@ import itertools
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtypes import set_conv_precision
 from ..ops.losses import cor_coe_loss, gan_loss, l1_loss
-from .networks import Dropout, check_patch, define_d, define_g
+from .networks import Dropout, check_patch, define_d, define_g, remat_segments
 
 _CL = torch.channels_last_3d
 
@@ -68,6 +69,8 @@ class CycleGANConfig:
     # reference hard-codes the first, the driver takes them from the flags
     dynet_sizes: Tuple[int, int, int] = (128, 128, 64)
     dynet_spacings: Tuple[float, float, float] = (1.5, 1.5, 1.5)
+    # recompute the generators' activations in the backward (--remat)
+    remat: bool = False
 
     @staticmethod
     def modify_commandline_options(parser, is_train: bool):
@@ -230,6 +233,33 @@ def _optimizer_step(opt: torch.optim.Adam, loss: torch.Tensor, lr: float) -> Non
     opt.step()
 
 
+def _checkpointed(segment: nn.Module, x: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """``segment(x)`` with its activations recomputed in the backward
+    instead of kept. ``checkpoint``'s preserve_rng_state covers the default
+    generators only, so the dropout generator is put back at its state of
+    the first forward for the recompute, and left afterwards where that
+    forward left it: the recompute draws the same masks, and the stream goes
+    on as without remat. The recompute runs the whole segment (no early
+    stop), so its norms launch once more in every backward."""
+    start = generator.get_state()
+    first = [True]
+
+    def run(inp):
+        if first[0]:
+            first[0] = False
+            return segment(inp)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return segment(inp)
+        finally:
+            generator.set_state(now)
+
+    with torch_checkpoint.set_checkpoint_early_stop(False):
+        return torch_checkpoint.checkpoint(run, x, use_reentrant=False)
+
+
 def make_train_step(cfg: CycleGANConfig):
     """step(state, real_a, real_b, lr, pool_draws=None) -> (state, metrics).
 
@@ -248,22 +278,29 @@ def make_train_step(cfg: CycleGANConfig):
 
     def g_loss(s: CycleGANState, real_a, real_b):
         bsz = real_a.shape[0]
+
+        def g_a(x):
+            return apply_g(s, s.g_a, x)
+
+        def g_b(x):
+            return apply_g(s, s.g_b, x)
+
         if not fuse:  # one apply per output, in JAX's order
-            fake_b = s.g_a(real_a)
-            rec_a = s.g_b(fake_b)
-            fake_a = s.g_b(real_b)
-            rec_b = s.g_a(fake_a)
+            fake_b = g_a(real_a)
+            rec_a = g_b(fake_b)
+            fake_a = g_b(real_b)
+            rec_b = g_a(fake_a)
             if lam_idt > 0:
-                idt_a, idt_b = s.g_a(real_b), s.g_b(real_a)
+                idt_a, idt_b = g_a(real_b), g_b(real_a)
         else:
             if lam_idt > 0:
-                out_a1 = s.g_a(torch.cat([real_a, real_b]))
+                out_a1 = g_a(torch.cat([real_a, real_b]))
                 fake_b, idt_a = out_a1[:bsz], out_a1[bsz:]
-                out_b1 = s.g_b(torch.cat([real_b, real_a]))
+                out_b1 = g_b(torch.cat([real_b, real_a]))
                 fake_a, idt_b = out_b1[:bsz], out_b1[bsz:]
             else:
-                fake_b, fake_a = s.g_a(real_a), s.g_b(real_b)
-            rec_a, rec_b = s.g_b(fake_b), s.g_a(fake_a)
+                fake_b, fake_a = g_a(real_a), g_b(real_b)
+            rec_a, rec_b = g_b(fake_b), g_a(fake_a)
         m = {"G_A": gan_loss(s.d_a(fake_b), True, cfg.gan_mode),
              "G_B": gan_loss(s.d_b(fake_a), True, cfg.gan_mode),
              "cycle_A": l1_loss(rec_a, real_a) * cfg.lambda_a,
@@ -279,6 +316,13 @@ def make_train_step(cfg: CycleGANConfig):
             m["cor_coe_GA"] = cor_coe_loss(fake_b, real_a) * cfg.lambda_co_a
             m["cor_coe_GB"] = cor_coe_loss(fake_a, real_b) * cfg.lambda_co_b
         return loss, fake_a, fake_b, m
+
+    def apply_g(s: CycleGANState, g: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if not cfg.remat:
+            return g(x)
+        for segment in remat_segments(g):
+            x = _checkpointed(segment, x, s.dropout_generator)
+        return x
 
     def d_loss(s: CycleGANState, real_a, real_b, fake_a, fake_b):
         # 0.5 * (gan(D(real), 1) + gan(D(pooled fake), 0)) per D, real and

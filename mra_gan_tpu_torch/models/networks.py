@@ -658,6 +658,26 @@ def spatial_granularity(net: nn.Module) -> Tuple[int, int, int]:
     raise TypeError(f"{type(net).__name__} is not a generator")
 
 
+def remat_segments(net: nn.Module) -> List[nn.Module]:
+    """The pieces ``--remat`` recomputes one at a time in the backward (JAX
+    cycle_gan.py:259-272). A resnet generator is cut where the JAX one marks
+    ``g_trunk_in`` and ``g_trunk_out`` (networks.py:497-508): the stem and
+    the two downs, the residual trunk, the two ups and the head, slices of
+    its ``model`` (the keys stay the reference's). The U-Nets and the DynUNet
+    mark no boundary, so the JAX policy recomputes their whole apply: one
+    segment, the net itself."""
+    if isinstance(net, ResnetGenerator3D):
+        trunk = 10  # pad, conv, norm, act, then two downs of conv, norm, act
+        return [nn.Sequential(_ToChannelsLast(), *net.model[:trunk]),
+                net.model[trunk:trunk + net.n_blocks], net.model[trunk + net.n_blocks:]]
+    return [net]
+
+
+class _ToChannelsLast(nn.Module):
+    def forward(self, x):
+        return _channels_last_on_cuda(x)
+
+
 def check_patch(net_g: str, patch: Sequence[int]) -> None:
     """Raise the JAX package's ValueError where a U-Net cannot take
     ``patch``; every other generator takes what the loader gives."""

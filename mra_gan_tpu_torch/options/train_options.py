@@ -1,7 +1,5 @@
 """Training flags (counterpart of mra_gan_tpu/options/train_options.py:5-76):
-the same flags with the same defaults. ``--augment``, ``--augment_extended``,
-``--remat`` and a nonzero ``--hbm_limit_gib`` select paths not ported yet;
-the training driver refuses them, naming their ROADMAP item."""
+the same flags with the same defaults."""
 from .base_options import BaseOptions
 
 
@@ -47,18 +45,21 @@ class TrainOptions(BaseOptions):
         parser.add_argument("--profile_dir", type=str, default="",
                             help="write a torch.profiler Chrome trace of the first epoch here")
         parser.add_argument("--augment", action="store_true",
-                            help="not ported (ROADMAP Queue A, augmentation and registration)")
+                            help="the reference's random augmentation of each patch pair "
+                                 "on the device (one of 8 choices per sample)")
         parser.add_argument("--augment_extended", action="store_true",
-                            help="not ported (ROADMAP Queue A, augmentation and registration)")
+                            help="with --augment: also draw the reference's unreachable "
+                                 "choices 8-12 (translate, single-axis rotations, gamma)")
         parser.add_argument("--remat", action="store_true",
-                            help="not ported (ROADMAP Queue A, memory levers)")
+                            help="recompute the generators' activations in the backward "
+                                 "(less peak memory for more step time)")
         parser.add_argument("--dump_patches", type=int, default=0,
                             help="write the first N sampled patch pairs of the run to "
                                  "<checkpoints>/<name>/patch_dumps/ as .nii.gz")
         parser.add_argument("--no_mem_check", action="store_true",
-                            help="skip the device-memory preflight (not ported: ROADMAP "
-                                 "Queue A, memory levers)")
+                            help="skip the device-memory preflight of the train step "
+                                 "(two trial steps, core/memory.py)")
         parser.add_argument("--hbm_limit_gib", type=float, default=0.0,
-                            help="memory budget of the preflight in GiB (not ported: "
-                                 "ROADMAP Queue A, memory levers)")
+                            help="device memory budget of the preflight in GiB (0 = the "
+                                 "card's total memory)")
         return parser

@@ -17,11 +17,17 @@ files, are written every ``--save_epoch_freq`` epochs, ``latest`` every
 restores ``--which_epoch``, as does ``--epoch_count N`` > 1 when
 ``ckpt_N.pt`` exists.
 
-Flags whose path is not ported yet raise NotImplementedError naming their
-ROADMAP item: ``--augment``/``--augment_extended``, ``--remat``, a nonzero
-``--hbm_limit_gib``, ``--data_parallel`` and ``--spatial_parallel``. The
-JAX driver's memory preflight is not ported either; the driver says so in
-one line unless given ``--no_mem_check``.
+``--augment`` runs the reference's random augmentation policy on the
+device batch after its copy and before the step (data/augment.py; 13 choices
+under ``--augment_extended``), its draws keyed by (seed, epoch, step), so a
+run resumed at an epoch boundary is bit-equal to the straight one;
+``--dump_patches`` writes the patches before it. ``--remat`` recomputes the
+generators' activations in the backward (models/cycle_gan.py). Before the
+first step, unless given ``--no_mem_check``, two trial steps measure the
+step's device memory against ``--hbm_limit_gib`` or the card and refuse a
+step that does not fit (core/memory.py). ``--data_parallel`` and
+``--spatial_parallel`` are not ported yet and raise NotImplementedError
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -36,7 +42,9 @@ import torch
 from .checkpoint import CheckpointManager
 from .core.device import resolve_device
 from .core.dtypes import compute_dtype
+from .core.memory import preflight
 from .data import nifti
+from .data.augment import augment_batch, step_generators
 from .data.dataset import PatchLoader, UnpairedVolumeDataset
 from .models.cycle_gan import CycleGANConfig, create_state, make_train_step
 from .models.networks import check_patch
@@ -55,18 +63,16 @@ def config_from_opt(opt: argparse.Namespace) -> CycleGANConfig:
         lambda_co_a=opt.lambda_co_A, lambda_co_b=opt.lambda_co_B,
         pool_size=opt.pool_size, beta1=opt.beta1, dtype=compute_dtype(opt.precision),
         dynet_sizes=tuple(int(v) for v in opt.dynet_sizes),
-        dynet_spacings=tuple(float(v) for v in opt.dynet_spacings))
+        dynet_spacings=tuple(float(v) for v in opt.dynet_spacings), remat=opt.remat)
 
 
 def refuse_unported(opt: argparse.Namespace) -> None:
     """NotImplementedError, naming its ROADMAP item, for a flag that selects
     a path the port does not have yet."""
-    for flag, item in (("augment", "augmentation and registration"),
-                       ("augment_extended", "augmentation and registration"),
-                       ("remat", "memory levers"), ("hbm_limit_gib", "memory levers"),
-                       ("data_parallel", "parallelism"), ("spatial_parallel", "parallelism")):
+    for flag in ("data_parallel", "spatial_parallel"):
         if getattr(opt, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet; see ROADMAP Queue A, {item}")
+            raise NotImplementedError(f"--{flag} is not ported yet; see ROADMAP Queue A, "
+                                      f"parallelism")
 
 
 def to_step_layout(batch: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -110,7 +116,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print_networks(state.nets, verbose=opt.verbose)
     step = make_train_step(cfg)
     if not opt.no_mem_check:
-        print("memory preflight: not ported (ROADMAP Queue A, memory levers); skipped")
+        lim = opt.hbm_limit_gib
+        preflight(step, state, opt.batch_size, opt.lr,
+                  limit_bytes=int(lim * 2 ** 30) if lim else None)
 
     ckpt = CheckpointManager(opt.checkpoints_dir, opt.name)
     if opt.continue_train and ckpt.has(opt.which_epoch):
@@ -130,6 +138,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     dump_dir = Path(opt.checkpoints_dir) / opt.name / "patch_dumps"
     if dumps_left:
         dump_dir.mkdir(parents=True, exist_ok=True)
+    # legacy patches live in [-1, 1]; monai images are z-scored, so each
+    # member's own range is taken (JAX train.py:242-244)
+    value_range = (-1.0, 1.0) if opt.pipeline == "legacy" else None
     records = []
     for epoch in range(opt.epoch_count, opt.niter + opt.niter_decay + 1):
         profiler = None
@@ -148,7 +159,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         # print_freq and costs no read-back per step
         msum, msteps = 0.0, 0
         sampled_step = -1
-        for image_b, label_b in loader.epoch(epoch):
+        for i, (image_b, label_b) in enumerate(loader.epoch(epoch)):
             timer.data_ready()
             if dumps_left > 0:
                 n = min(dumps_left, image_b.shape[0])
@@ -156,8 +167,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 dump_idx += n
                 dumps_left -= n
             # AtoB: image -> real_A, label -> real_B
-            state, metrics = step(state, to_step_layout(image_b, device),
-                                  to_step_layout(label_b, device), lr)
+            real_a, real_b = to_step_layout(image_b, device), to_step_layout(label_b, device)
+            if opt.augment:
+                real_a, real_b = augment_batch(
+                    real_a, real_b, step_generators(opt.seed, epoch, i, device),
+                    value_range=value_range, extended=opt.augment_extended)
+            state, metrics = step(state, real_a, real_b, lr)
             total_steps += opt.batch_size
             epoch_iter += opt.batch_size
             if total_steps % opt.print_freq == 0:

@@ -293,3 +293,103 @@ def assert_jax_state_imported(state, tree) -> None:
         torch.testing.assert_close(
             pool.images, pool_images_from_jax(jp["images"], state.patch_shape, channels),
             rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# augmentation: JAX random_augment's draws in the port's form, and the policy
+# check of tests/test_torch_port_augment*.py. Tolerances, on data of range r
+# (2 for the [-1, 1] members): 2e-6 * r absolute for the intensity branches
+# (float32 arithmetic in another order), 1e-4 * r for the resampling ones
+# (grid_sample's normalisation of the grid moves a coordinate by ~1e-6 voxel).
+
+AUG_SHAPE = (16, 16, 16)
+AUG_KEYS = 64
+AUG_KEY = jax.random.PRNGKey(2024)
+AUG_RESAMPLING = {"rotate", "bspline", "rotate_z", "rotate_x", "rotate_y"}
+AUG_INTENSITY_ATOL, AUG_RESAMPLING_ATOL = 2e-6, 1e-4
+
+
+def jax_augment_draw(key, extended: bool, shape=AUG_SHAPE):
+    """(choice, params) that JAX ``random_augment`` draws from ``key``, in
+    the port's ``draw_params`` form (augment.py:220-300)."""
+    import math
+
+    from mra_gan_tpu_torch.data.augment import BRANCHES
+
+    k_choice, k_a, _ = jax.random.split(key, 3)
+    choice = int(jax.random.randint(k_choice, (), 0, 13 if extended else 8))
+    name = BRANCHES[choice]
+
+    def rad(d):  # deg.astype(f32) * (pi / 180) in float32
+        return float(np.float32(d) * np.float32(math.pi / 180.0))
+
+    if name == "noise":
+        km, ks, kn = jax.random.split(k_a, 3)
+        return choice, {"mean": float(jax.random.uniform(km, ())),
+                        "std": float(jax.random.uniform(ks, (), maxval=2.0)),
+                        "noise": torch.from_numpy(np.array(
+                            jax.random.normal(kn, shape, jnp.float32)))}
+    if name == "blur":
+        return choice, {"sigma": float(jax.random.uniform(k_a, (), maxval=1.5))}
+    if name == "rotate":
+        kx, ky, kz = jax.random.split(k_a, 3)
+        deg = [int(jax.random.randint(kx, (), -40, 40)), int(jax.random.randint(ky, (), -40, 40)),
+               int(jax.random.randint(kz, (), -180, 180))]
+        return choice, {"angles": [rad(d) for d in deg]}
+    if name == "bspline":
+        return choice, {"disp": torch.from_numpy(np.array(
+            jax.random.uniform(k_a, (3, 10, 10, 10), minval=0.0, maxval=10.0)))}
+    if name == "flip":
+        return choice, {"axis": int(jax.random.randint(k_a, (), 0, 2))}
+    if name in ("brightness", "contrast"):
+        return choice, {"c": int(jax.random.randint(k_a, (), -20, 20))}
+    if name == "translate":
+        return choice, {"shift": np.asarray(jax.random.randint(k_a, (2,), -40, 40)).tolist()}
+    if name in ("rotate_z", "rotate_x", "rotate_y"):
+        axis, lo, hi = {"rotate_z": (2, -180, 180), "rotate_x": (0, -40, 40),
+                        "rotate_y": (1, -40, 40)}[name]
+        angles = [0.0, 0.0, 0.0]
+        angles[axis] = rad(int(jax.random.randint(k_a, (), lo, hi)))
+        return choice, {"angles": angles}
+    if name == "imadjust":
+        return choice, {"gamma": float(jax.random.uniform(k_a, (), minval=1.0, maxval=2.0))}
+    return choice, {}
+
+
+def augment_batch_data(seed: int, zscored: bool, n: int = AUG_KEYS):
+    """(n, 16, 16, 16) image and label: [-1, 1] noise, or a z-scored image
+    and a label in [0, 5] (the monai pipeline's members)."""
+    rs = np.random.RandomState(seed)
+    img = rs.uniform(-1, 1, (n, *AUG_SHAPE)).astype(np.float32)
+    lbl = rs.uniform(-1, 1, (n, *AUG_SHAPE)).astype(np.float32)
+    if zscored:
+        img = (img - img.mean()) / img.std() * 1.3
+        lbl = (lbl + 1.0) * 2.5
+    return img, lbl
+
+
+def augment_atol(name: str, arr: np.ndarray) -> float:
+    r = float(arr.max() - arr.min())
+    return (AUG_RESAMPLING_ATOL if name in AUG_RESAMPLING else AUG_INTENSITY_ATOL) * max(r, 1.0)
+
+
+def check_augment_policy(draws, value_range, segmentation: bool, extended: bool) -> None:
+    """JAX ``augment_batch`` over AUG_KEYS samples from AUG_KEY against the
+    port's ``apply_choice`` of each sample's ``draws`` entry (the JAX draw of
+    ``split(AUG_KEY, AUG_KEYS)[i]``); every choice of the policy occurs."""
+    from mra_gan_tpu.data import augment as jaug
+    from mra_gan_tpu_torch.data.augment import BRANCHES, apply_choice
+
+    img, lbl = augment_batch_data(1, zscored=value_range is None)
+    j_img, j_lbl = jaug.augment_batch(jnp.asarray(img[..., None]), jnp.asarray(lbl[..., None]),
+                                      AUG_KEY, value_range=value_range,
+                                      segmentation=segmentation, extended=extended)
+    j_img, j_lbl = np.asarray(j_img)[..., 0], np.asarray(j_lbl)[..., 0]
+    for i, (choice, params) in enumerate(draws):
+        p_img, p_lbl = apply_choice(torch.from_numpy(img[i]), torch.from_numpy(lbl[i]),
+                                    choice, params, value_range, segmentation)
+        name = BRANCHES[choice]
+        for got, want, src in ((p_img, j_img[i], img[i]), (p_lbl, j_lbl[i], lbl[i])):
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=augment_atol(name, src),
+                                       err_msg=f"sample {i}: {name}")
+    assert {c for c, _ in draws} == set(range(13 if extended else 8))
