@@ -108,12 +108,37 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    128x256x256 single pass, which must refuse it with the advice, go on,
    and see the directory decode skip it and exit 1. Cuts: one epoch per
    driver run; two timed remat steps.
+14. data and spatial parallelism on 2 and then 4 ranks that share this one
+   card over gloo (NCCL does not let two ranks share a card; every
+   collective of a CUDA tensor is staged through the host), spawned with a
+   FileStore: the K-shard norm kernels (K = 2 and 4) at every generator
+   norm shape of the spatial steps' shards, forward and backward, bf16 and
+   float32, against their plain versions on the same gathered partials and
+   against the plain norm of the whole volume, K = 1 bit-equal to phase 2's
+   apply, the K-shard applies timed beside the K = 1 ones; the decode CLI
+   with --spatial_shard (shard depth 64) and --data_parallel on 2 ranks
+   against the one-device single pass and sliding window through the same
+   CLI (float32 within the generator bar; bf16 under 0.1% of voxels more
+   than one ulp off, and no farther from the float32 one-device decode than
+   the bf16 one-device decode is, x1.25 of the mean error; exact
+   launches: 17 stats + 17 K-shard applies per rank, and phase 5's launches
+   split over the ranks); the data-parallel step at 8 = 2 x 4, the spatial
+   step at 1 x 64^3 and 2 x 128^3 and the 2 x 2 data x space step at 2 x
+   64^3, 3 bf16 steps each against the one-device step (1e-2 at step 0, 0.15
+   after, against gross faults) and float32 steps under deterministic algorithms (3, and 2 at 2 x
+   128^3) at the JAX package's bars, parameters bit-equal across ranks, per-rank peak memory, exact
+   launches per rank and step; the training driver with
+   --data_parallel for one epoch on phase 11's data, its checkpoint
+   restored bit-equal into a one-device state. Times carry the label
+   "ranks share one card over gloo": no NCCL or scaling figure.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line {"kernels": [...]} with each kernel's launches on its main path
 (the decode for the forward kernels, the batch-8 train step for the
 backward ones), its largest error against the plain version, and its times
-at the main path's largest norm that it runs (bfloat16). ``--json-out PATH`` also writes
+at the main path's largest norm that it runs (bfloat16); the two apply
+kernels add their K-shard launches in phase 14's spatial step, their
+largest K-shard error and their K-shard times beside K = 1. ``--json-out PATH`` also writes
 every shape's numbers. The last line is {"ok": true, "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -123,6 +148,7 @@ import contextlib
 import functools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2438,6 +2464,635 @@ def single_pass_child(workdir: Path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data and spatial parallelism, ranks sharing the one card over gloo
+
+PAR_LABEL = "ranks share one card over gloo"
+PAR_STEPS = 3
+PAR_TIMEOUT_S = 900
+# label -> (kind, global batch, patch, (data, space)); the grid case runs on 4 ranks
+PAR_CASES = {"dp b8 64^3": ("dp", 8, PATCH, (2, 1)),
+             "sp b1 64^3": ("sp", 1, PATCH, (1, 2)),
+             "sp b2 128^3": ("sp", 2, (128,) * 3, (1, 2))}
+PAR_GRID = {"grid b2 64^3": ("sp", 2, PATCH, (2, 2))}
+PAR_K4_SPATIAL = (1, PATCH)  # the K = 4 kernel shapes: a 4-way spatial step at batch 1, 64^3
+# The loss trajectories are held at the JAX package's bars
+# (tests/test_parallel.py:130) in float32 with TF32 off and deterministic
+# algorithms (``reproducible``), where the parallel and one-device steps
+# differ by their sums' order only, the same in every run: Adam's first
+# update, lr * g / |g|, turns run-to-run noise in a small gradient into a
+# whole step, and without them the step-1 difference of the 2 x 2 grid read
+# 1.3e-3 to 1.8e-3 over four runs, against the bar's 2e-3. The bf16 runs (the
+# timed ones) round otherwise (cuDNN's algorithms at another local batch;
+# the one-device 16^3 trunk's slab norm against the shards' stats -> apply),
+# and Adam amplifies that (on an H100, five runs: up to 0.22% at step 0,
+# 1.85% at step 1, 4.5% at step 2; PERF.md). So bf16 is held at 1e-2 at
+# step 0 (2.5 bf16 ulps of relative error), and at steps 1-2 only against
+# gross faults (NaN, a diverged step), at 0.15, over three times the
+# largest measured; the float32 trajectories carry the updates' check.
+PAR_RTOL = (1e-3, 2e-3, 2e-2)
+# label -> float32 steps; the 2 x 128^3 case, whose shard depth of 64 is the
+# reason for depth sharding, takes 2 (an update checked; each of its float32
+# steps takes seconds)
+PAR_F32 = {"dp b8 64^3": 3, "sp b1 64^3": 3, "grid b2 64^3": 3, "sp b2 128^3": 2}
+PAR_BF16_RTOL = (1e-2, 0.15, 0.15)
+# A bf16 parallel decode is held to under 0.1% of voxels more than one bf16
+# ulp off the bf16 one-device decode, and to be no farther from the float32
+# one-device decode than the bf16 one-device decode is (mean |diff|, x1.25,
+# phase 2's rule for the backward).
+PAR_BF16_DECODE_SHARE = 1e-3
+PAR_BF16_DECODE = 1.25
+
+
+def par_shard_shapes(batch: int, spatial, shards: int) -> list:
+    """(local (N, C, D/K, H, W), act) of every distinct generator norm of a
+    spatial step's shard: the leaf applies at 2B and the chains at B."""
+    local = (spatial[0] // shards,) + tuple(spatial[1:])
+    out = []
+    for n in (2 * batch, batch):
+        for c, div, act in ((NGF, 1, "relu"), (2 * NGF, 2, "relu"),
+                            (4 * NGF, 4, "relu"), (4 * NGF, 4, "none")):
+            out.append(((n, c) + tuple(s // div for s in local), act))
+    return list(dict.fromkeys(out))
+
+
+def par_norm_kernels(K, group, rank: int, shards: int, cases) -> dict:
+    """Each rank's side of the K-shard norm kernels at the local shapes
+    ``cases``, bf16 and float32: its depth shard of a seeded volume (the
+    same volume on every rank) through stats -> gather -> K-shard apply and
+    bwd stats -> gather -> K-shard bwd apply, held against the plain
+    versions on the same gathered partials (one rounding, as phase 2) and
+    against the plain unsharded norm of the whole volume (phase 2's
+    whole-norm bars); the K = 1 entry of the sharded apply bit-equal to
+    phase 2's apply. Rank 0 then times, alone, the K-shard applies beside the
+    K = 1 applies at the same local shape (bf16)."""
+    import torch
+    import torch.distributed as dist
+
+    from mra_gan_tpu_torch.parallel.collectives import all_gather_stacked
+
+    errs = {"apply": 0.0, "bwd_apply": 0.0, "whole": 0.0, "whole_bwd": 0.0}
+    rows, timed = [], []
+    for i, (local, act) in enumerate(cases):
+        full = local[:2] + (local[2] * shards,) + local[3:]
+        d = local[2]
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1000 + i)
+            xf = _volume(gen, full, dtype)
+            gf = _volume(gen, full, dtype, 1.0, 0.0)
+            x = xf[:, :, rank * d:(rank + 1) * d].contiguous(memory_format=torch.channels_last_3d)
+            g = gf[:, :, rank * d:(rank + 1) * d].contiguous(memory_format=torch.channels_last_3d)
+            seg = K.forward_segments(x, shards)
+            buf = torch.empty((2, local[0], seg, local[1]), device=DEVICE)
+            K.instance_norm_stats(x, seg, out=buf)
+            parts = all_gather_stacked(buf, group)
+            y, m, r = K.instance_norm_apply_sharded(x, parts, act, 0.2)
+            fm, fr = K.finalize_plain(parts[:, 0], parts[:, 1], math.prod(local[2:]))
+            ya = K.apply_plain(x, fm, fr, act, 0.2)
+            e = float((y.float() - ya.float()).abs().max())
+            check((bf16_ulps(y, ya) <= 1.0 if bf16 else e <= 1e-5)
+                  and torch.allclose(m, fm, rtol=1e-5, atol=1e-6)
+                  and torch.allclose(r, fr, rtol=1e-5, atol=1e-6),
+                  f"K={shards} apply {local} {dtype} {act}: {e}")
+            errs["apply"] = max(errs["apply"], e)
+            yp, mp, rp = K.instance_norm_act_plain_fwd(xf, act, 0.2)
+            ypl = yp[:, :, rank * d:(rank + 1) * d]
+            e = float((y.float() - ypl.float()).abs().max())
+            # phase 2's whole-norm bars; in bf16 the plain norm centres in bf16, so
+            # its variance, and rstd, are not the kernels' float32 ones
+            check(bf16_ulps(y, ypl) <= 2.0 if bf16 else (
+                e <= 1e-5 and torch.allclose(m, mp, rtol=1e-5, atol=1e-6)
+                and torch.allclose(r, rp, rtol=1e-5, atol=1e-6)),
+                  f"K={shards} sharded norm {local} {dtype} {act} against the whole volume: {e}")
+            if not bf16:
+                errs["whole"] = max(errs["whole"], e)
+            if i == 0:  # the K = 1 entry of the sharded apply is phase 2's apply
+                own = torch.stack(K.instance_norm_stats(x, seg))
+                y1 = K.instance_norm_apply(x, own[0].contiguous(), own[1].contiguous(), act)[0]
+                check(torch.equal(y1, K.instance_norm_apply_sharded(x, own[None], act)[0]),
+                      f"K=1 sharded apply bit-equal to the apply {local} {dtype}")
+            # backward
+            bseg = K.backward_segments(x, g, shards)
+            bbuf = torch.empty((2, local[0], bseg, local[1]), device=DEVICE)
+            K.instance_norm_bwd_stats(x, g, m, r, bseg, act, 0.2, out=bbuf)
+            bparts = all_gather_stacked(bbuf, group)
+            dx = K.instance_norm_bwd_apply_sharded(x, g, m, r, bparts, act, 0.2)
+            gm, gzm = K.bwd_finalize_plain(bparts[:, 0], bparts[:, 1], math.prod(local[2:]))
+            dref = K.bwd_apply_plain(x, g, m, r, gm, gzm, act, 0.2)
+            dmax = float(dref.float().abs().max())
+            e = float((dx.float() - dref.float()).abs().max())
+            check(e <= (BF16_ULP if bf16 else 1e-5) * dmax,
+                  f"K={shards} bwd apply {local} {dtype} {act}: {e:.3g} of {dmax:.3g}")
+            errs["bwd_apply"] = max(errs["bwd_apply"], e)
+            # the whole volume's plain backward at the sharded forward's statistics
+            # (the whole volume's, the same on every rank), so that a relu mask
+            # at z ~ 0 is the same on both sides, as phase 2 holds them
+            dfull = K.instance_norm_act_bwd_plain(xf, gf, m, r, act, 0.2)
+            dpl = dfull[:, :, rank * d:(rank + 1) * d].float()
+            d32 = K.instance_norm_act_bwd_plain(xf.float(), gf.float(), m, r, act, 0.2)[
+                :, :, rank * d:(rank + 1) * d]
+            dmax = float(d32.abs().max())
+            diff = (dx.float() - dpl).abs() / dmax
+            if bf16:  # phase 2's bar: mean within 1 ulp, no farther from f32 than plain
+                ok = (float(diff.mean()) <= BF16_ULP and float((dx.float() - d32).abs().mean())
+                      <= 1.25 * float((dpl - d32).abs().mean()))
+            else:
+                ok = float(diff.max()) <= 1e-5
+            check(ok, f"K={shards} sharded bwd {local} {dtype} {act} against the whole volume: "
+                      f"{float(diff.max()):.3g} of max|dx|")
+            if not bf16:
+                errs["whole_bwd"] = max(errs["whole_bwd"], float(diff.max()) * dmax)
+            if bf16:
+                # the K-shard applies also at the one-volume count of the local
+                # shape (the rule before the whole volume's count divided by K),
+                # so that both rules are timed in one run
+                seg1, bseg1 = K.forward_segments(x), K.backward_segments(x, g)
+                own = torch.stack(K.instance_norm_stats(x, seg1))
+                bown = torch.stack(K.instance_norm_bwd_stats(x, g, m, r, bseg1, act, 0.2))
+                parts1 = all_gather_stacked(own.contiguous(), group)
+                bparts1 = all_gather_stacked(bown.contiguous(), group)
+            dist.barrier(group)
+            if bf16 and rank == 0:
+                es = x.element_size()
+                part = parts.numel() * 4
+                row = {"shape": list(local), "shards": shards, "act": act, "segments": seg,
+                       "bwd_segments": bseg, "k1_segments": seg1, "k1_bwd_segments": bseg1,
+                       "apply_ms": device_ms(lambda: K.instance_norm_apply_sharded(
+                           x, parts, act, 0.2), 30),
+                       "apply_local_s_ms": device_ms(lambda: K.instance_norm_apply_sharded(
+                           x, parts1, act, 0.2), 30),
+                       "apply_k1_ms": device_ms(lambda: K.instance_norm_apply_sharded(
+                           x, own[None], act, 0.2), 30),
+                       "bwd_apply_ms": device_ms(lambda: K.instance_norm_bwd_apply_sharded(
+                           x, g, m, r, bparts, act, 0.2), 30),
+                       "bwd_apply_local_s_ms": device_ms(
+                           lambda: K.instance_norm_bwd_apply_sharded(x, g, m, r, bparts1, act,
+                                                                     0.2), 30),
+                       "bwd_apply_k1_ms": device_ms(lambda: K.instance_norm_bwd_apply_sharded(
+                           x, g, m, r, bown[None], act, 0.2), 30),
+                       "apply_plain_ms": device_ms(lambda: K.apply_plain(
+                           x, *K.finalize_plain(parts[:, 0], parts[:, 1], math.prod(local[2:])),
+                           act, 0.2), 10),
+                       "bwd_apply_plain_ms": device_ms(lambda: K.bwd_apply_plain(
+                           x, g, m, r, *K.bwd_finalize_plain(bparts[:, 0], bparts[:, 1],
+                                                             math.prod(local[2:])), act, 0.2), 10)}
+                bw, flops = peak_rates(torch.cuda.get_device_name(0))
+                stat = 2 * local[0] * local[1] * 4
+                row["apply_bound_ms"] = 1e3 * max(
+                    (2 * x.numel() * es + part + stat) / bw,
+                    (APPLY_OPS[act] * x.numel() + MERGE_OPS * parts[:, 0].numel()) / flops)
+                row["bwd_apply_bound_ms"] = 1e3 * max(
+                    (3 * x.numel() * es + bparts.numel() * 4 + stat) / bw,
+                    ((BWD_APPLY_OPS + ACT_GRAD_OPS[act]) * x.numel() + 2 * bparts[:, 0].numel())
+                    / flops)
+                timed.append(row)
+            dist.barrier(group)
+            rows.append((local, str(dtype), act))
+    return {"errors": errs, "checked": len(rows), "timed": timed}
+
+
+def _par_hash(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, net in state.nets.items():
+        for key, v in net.state_dict().items():
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def par_global_batch(batch: int, patch, seed: int, steps: int = PAR_STEPS):
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    return [tuple(torch.from_numpy(rs.uniform(-1, 1, (batch, 1) + tuple(patch))
+                                   .astype(np.float32)) for _ in range(2))
+            for _ in range(steps)]
+
+
+def par_step_case(K, label: str, case, dtype, steps: int = PAR_STEPS) -> dict:
+    """One rank's side of a parallel step case in ``dtype``: ``steps`` steps
+    from the seeded state on this rank's part of the seeded global batches,
+    with the launch counters zeroed just before them: metrics, launches,
+    s/step, this rank's peak memory and a hash of its parameters."""
+    import torch
+
+    from mra_gan_tpu_torch.core.mesh import DATA_AXIS, SPACE_AXIS, make_mesh
+    from mra_gan_tpu_torch.models.cycle_gan import create_state
+    from mra_gan_tpu_torch.parallel.sharding import make_sharded_train_step, shard_state
+    from mra_gan_tpu_torch.parallel.spatial import make_spatial_train_step, shard_spatial_state
+
+    kind, batch, patch, (data, space) = case
+    cfg = train_config(dtype)
+    mesh = make_mesh(data, space)
+    state = create_state(cfg, SEED, patch, DEVICE)
+    if kind == "dp":
+        state = shard_state(state, mesh)
+        step, take = make_sharded_train_step(cfg, mesh)
+    else:
+        state = shard_spatial_state(state, mesh)
+        step, take = make_spatial_train_step(cfg, mesh, SPACE_AXIS,
+                                             DATA_AXIS if data > 1 else None)
+    inputs = [(take(a).to(DEVICE), take(b).to(DEVICE))
+              for a, b in par_global_batch(batch, patch, SEED + 14, steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    metrics, secs = [], []
+    for a, b in inputs:
+        t0 = time.perf_counter()
+        _, m = step(state, a, b, TRAIN_LR)
+        metrics.append({k: float(v) for k, v in m.items()})  # read back: the step has ended
+        secs.append(time.perf_counter() - t0)
+    launches = {**K.LAUNCHES, **{f"sharded {k}": v for k, v in K.SHARDED_LAUNCHES.items()}}
+    out = {"metrics": metrics, "step_s": secs, "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "hash": _par_hash(state),
+           "local_batch": int(inputs[0][0].shape[0]), "local_patch": list(inputs[0][0].shape[2:])}
+    del state, step, inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(rank: int, world: int, store: str, plan: dict) -> None:
+    """The body of one rank of phase 14: join the gloo group on the card,
+    run the plan's parts in order (the same on every rank), write what it
+    measured to the plan's directory."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from mra_gan_tpu_torch.core.mesh import init_distributed, make_mesh
+    from mra_gan_tpu_torch.ops.kernels import instance_norm as K
+    from mra_gan_tpu_torch.parallel import collectives
+
+    init_distributed(DEVICE, "gloo", store, rank, world, timeout_s=PAR_TIMEOUT_S)
+    out = {}
+    try:
+        world_group = make_mesh().group("data")
+        if plan.get("norm_cases"):
+            out["kernels"] = par_norm_kernels(K, world_group, rank, world, plan["norm_cases"])
+        for tag, argv in plan.get("decodes", {}).items():
+            from mra_gan_tpu_torch import test as cli
+
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            failed = cli.main(argv)
+            torch.cuda.synchronize()
+            out[tag] = {"failed": failed, "s": time.perf_counter() - t0,
+                        "launches": {**K.LAUNCHES, **{f"sharded {k}": v for k, v
+                                                      in K.SHARDED_LAUNCHES.items()}}}
+        for label, case in plan.get("steps", {}).items():
+            out[label] = par_step_case(K, label, case, torch.bfloat16)
+        for label, case in plan.get("steps_f32", {}).items():
+            with reproducible(True):
+                out[f"{label} f32"] = par_step_case(K, label, case, torch.float32,
+                                                    PAR_F32[label])
+        if plan.get("driver"):
+            from mra_gan_tpu_torch import train as driver
+
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            res = driver.main(plan["driver"])
+            torch.cuda.synchronize()
+            out["driver"] = {"s": time.perf_counter() - t0, "epochs": res["epochs"],
+                             "launches": dict(K.LAUNCHES), "hash": _par_hash(res["state"]),
+                             "step": res["state"].step}
+        out["host_staged"] = dict(collectives.HOST_STAGED)
+        with open(Path(plan["dir"]) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, plan: dict, workdir: Path) -> list:
+    """Spawn ``world`` ranks of ``parallel_rank`` on the card and return what
+    each wrote; a rank that fails or a run past PAR_TIMEOUT_S fails the phase,
+    and every rank is ended."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    plan = {**plan, "dir": str(workdir)}
+    ctx = mp.start_processes(parallel_rank, args=(world, str(workdir / f"store{world}"), plan),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + PAR_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+            check(time.perf_counter() < deadline, f"{world} ranks within {PAR_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out = []
+    for r in range(world):
+        with open(workdir / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def par_one_device(K, case, dtype, steps: int = PAR_STEPS) -> dict:
+    """The one-device step on the same seeded state and global batches."""
+    import torch
+
+    from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+
+    _, batch, patch, _ = case
+    cfg = train_config(dtype)
+    state = create_state(cfg, SEED, patch, DEVICE)
+    step = make_train_step(cfg)
+    metrics = [{k: float(v) for k, v in step(state, a.to(DEVICE), b.to(DEVICE), TRAIN_LR)[1]
+                .items()} for a, b in par_global_batch(batch, patch, SEED + 14, steps)]
+    del state, step
+    torch.cuda.empty_cache()
+    return {"metrics": metrics}
+
+
+def par_step_launches(K, kind: str, local_batch: int, local_patch, patch) -> dict:
+    """A rank's launches per step: the data-parallel step keeps phase 7's
+    routes at its local batch; the spatial step runs its 68 generator norms
+    as stats + K-shard apply and bwd stats + K-shard bwd apply, and its 12
+    discriminator norms on gathered volumes on their own routes."""
+    import torch
+
+    dtype = torch.bfloat16
+    if kind == "dp":
+        return {**forward_launches(K, 4 * generator_norms(local_batch, patch)
+                                   + 4 * patchgan_norms_at(local_batch, patch), dtype),
+                **backward_launches(K, 4 * generator_norms(local_batch, patch)
+                                    + 4 * patchgan_norms_at(local_batch, patch), dtype),
+                "sharded instance_norm_apply": 0, "sharded instance_norm_bwd_apply": 0}
+    gen = 4 * 17
+    fd = forward_launches(K, 4 * patchgan_norms_at(local_batch, patch), dtype)
+    bd = backward_launches(K, 4 * patchgan_norms_at(local_batch, patch), dtype)
+    return {"instance_norm_slab": fd["instance_norm_slab"],
+            "instance_norm_stats": gen + fd["instance_norm_stats"],
+            "instance_norm_apply": gen + fd["instance_norm_apply"],
+            "instance_norm_bwd_slab": bd["instance_norm_bwd_slab"],
+            "instance_norm_bwd_stats": gen + bd["instance_norm_bwd_stats"],
+            "instance_norm_bwd_apply": gen + bd["instance_norm_bwd_apply"],
+            "sharded instance_norm_apply": gen, "sharded instance_norm_bwd_apply": gen}
+
+
+def _tanh_units(v):
+    import numpy as np
+
+    return np.asarray(v, np.float64) / 127.5 - 1.0
+
+
+def phase_parallel(K, tree, results: dict, decode: dict, phase13: dict, driver_dir: Path,
+                   workdir: Path) -> dict:
+    """Phase 14: the parallel paths at full width on ranks that share this
+    one card over gloo (NCCL does not let two ranks share a card), so every
+    collective of a CUDA tensor is staged through the host; the times show
+    that the paths run, not how they scale."""
+    import numpy as np
+    import torch
+
+    from mra_gan_tpu_torch import test as cli
+    from mra_gan_tpu_torch.checkpoint import CheckpointManager
+    from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
+    from mra_gan_tpu_torch.data import nifti
+    from mra_gan_tpu_torch.models.cycle_gan import create_state
+
+    t_start = time.perf_counter()
+    fails = []
+
+    def expect(cond: bool, what: str) -> None:
+        # every comparison is printed before the phase fails on any of them
+        if not cond:
+            fails.append(what)
+            print(f"[parallel] FAILED: {what}", flush=True)
+
+    # the decode CLI's inputs: phase 4's generator, one seeded VOLUME
+    ck = workdir / "ck" / "smoke"
+    ck.mkdir(parents=True)
+    torch.save(state_dict_from_jax(tree, "resnet_6blocks"), ck / "latest_net_G_A.pth")
+    vol = (np.random.RandomState(SEED + 14).rand(*VOLUME) * 300).astype(np.float32)
+    nifti.save(nifti.NiftiImage(data=vol, affine=np.diag([0.8, 0.8, 1.5, 1.0])),
+               workdir / "in.nii")
+
+    def argv(out, *extra):
+        return ["--image", str(workdir / "in.nii"), "--result", str(workdir / out),
+                "--checkpoints_dir", str(workdir / "ck"), "--name", "smoke",
+                "--ngf", str(NGF), "--patch_size", *map(str, PATCH), "--stride_inplane",
+                str(STRIDE), "--stride_layer", str(STRIDE), "--decode_batch",
+                str(DECODE_BATCH), "--device", DEVICE, *extra]
+
+    decodes = {}
+    for prec in ("bfloat16", "float32"):
+        decodes[f"shard {prec}"] = argv(f"shard_{prec}.nii", "--spatial_shard",
+                                        "--precision", prec)
+        decodes[f"dp {prec}"] = argv(f"dp_{prec}.nii", "--data_parallel", "--precision", prec)
+    # the one-device references: phase 5's single pass and sliding window, through the CLI
+    ref_s = {}
+    for prec in ("bfloat16", "float32"):
+        for tag, extra in (("single", ["--single_pass"]), ("window", [])):
+            t0 = time.perf_counter()
+            check(cli.main(argv(f"{tag}_{prec}.nii", "--precision", prec, *extra)) == [],
+                  f"one-device {tag} decode")
+            ref_s[f"{tag} {prec}"] = time.perf_counter() - t0
+    cases = {**PAR_CASES, **PAR_GRID}
+    one = {label: par_one_device(K, case, torch.bfloat16) for label, case in cases.items()}
+    with reproducible(True):
+        one.update({f"{label} f32": par_one_device(K, cases[label], torch.float32, steps)
+                    for label, steps in PAR_F32.items()})
+    driver_argv = ["--data_path", str(driver_dir / "data"), "--ngf", str(NGF), "--ndf", str(NDF),
+                   "--patch_size", *map(str, PATCH), "--no_lsgan", "--device", DEVICE,
+                   "--seed", str(SEED), "--batch_size", "8", "--num_samples",
+                   str(DRIVER_SAMPLES), "--workers", "2", "--niter", "1", "--niter_decay", "0",
+                   "--print_freq", "8", "--checkpoints_dir", str(workdir / "ck"), "--name",
+                   "dp_driver", "--cache_dir", str(driver_dir / "ck" / "b1" / "cache"),
+                   "--data_parallel"]
+    norm_k2 = list(dict.fromkeys(c for _, b, p, (_, sp) in PAR_CASES.values() if sp == 2
+                                 for c in par_shard_shapes(b, p, 2)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    two = run_ranks(2, {"norm_cases": norm_k2, "decodes": decodes, "steps": PAR_CASES,
+                        "steps_f32": {k: v for k, v in PAR_CASES.items() if k in PAR_F32},
+                        "driver": driver_argv}, workdir)
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = run_ranks(4, {"norm_cases": par_shard_shapes(*PAR_K4_SPATIAL, 4),
+                         "steps": PAR_GRID,
+                         "steps_f32": {k: v for k, v in PAR_GRID.items() if k in PAR_F32}},
+                     workdir)
+    four_s = time.perf_counter() - t0
+
+    out = {"label": PAR_LABEL, "spawn_s": {"2 ranks": two_s, "4 ranks": four_s}}
+    # the K-shard norm kernels
+    for world, ranks in ((2, two), (4, four)):
+        errs = {k: max(r["kernels"]["errors"][k] for r in ranks) for k in ranks[0]["kernels"]["errors"]}
+        timed = ranks[0]["kernels"]["timed"]
+        out[f"kernels K={world}"] = {"errors": errs, "timed": timed,
+                                     "checked": ranks[0]["kernels"]["checked"]}
+        print(f"[parallel] K={world} norm kernels: {ranks[0]['kernels']['checked']} shape x "
+              f"dtype cases, max error apply {errs['apply']:.3g} bwd apply "
+              f"{errs['bwd_apply']:.3g}; float32 against the whole volume {errs['whole']:.3g} / "
+              f"{errs['whole_bwd']:.3g}", flush=True)
+        for row in timed:
+            print(f"[parallel]   {row['shape']} {row['act']}: apply K={world} S={row['segments']} "
+                  f"{row['apply_ms']:.4f} ms (at S={row['k1_segments']} "
+                  f"{row['apply_local_s_ms']:.4f}; K=1 at S={row['k1_segments']} "
+                  f"{row['apply_k1_ms']:.4f}, plain {row['apply_plain_ms']:.4f}, bound "
+                  f"{row['apply_bound_ms']:.4f}); bwd apply K={world} S={row['bwd_segments']} "
+                  f"{row['bwd_apply_ms']:.4f} ms (at S={row['k1_bwd_segments']} "
+                  f"{row['bwd_apply_local_s_ms']:.4f}; K=1 at S={row['k1_bwd_segments']} "
+                  f"{row['bwd_apply_k1_ms']:.4f}, plain {row['bwd_apply_plain_ms']:.4f}, bound "
+                  f"{row['bwd_apply_bound_ms']:.4f})", flush=True)
+        for name, key in (("instance_norm_apply", "apply"), ("instance_norm_bwd_apply",
+                                                                "bwd_apply")):
+            results[name].setdefault("sharded", []).extend(
+                {"shards": world, "shape": row["shape"], "act": row["act"],
+                 "ms": row[f"{key}_ms"], "local_s_ms": row[f"{key}_local_s_ms"],
+                 "k1_ms": row[f"{key}_k1_ms"],
+                 "plain_ms": row[f"{key}_plain_ms"], "bound_ms": row[f"{key}_bound_ms"],
+                 "library_ms": None} for row in timed)
+            results[name]["max_abs_err_sharded"] = max(
+                results[name].get("max_abs_err_sharded", 0.0), errs[key])
+
+    # the decodes through the CLI
+    per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
+    n_batches = EXPECTED_GRID[1]
+    for prec in ("bfloat16", "float32"):
+        shard = [r[f"shard {prec}"] for r in two]
+        dp = [r[f"dp {prec}"] for r in two]
+        expect(all(r["failed"] == [] for r in shard + dp), f"parallel decodes {prec} ran")
+        for r in shard:
+            l = r["launches"]
+            expect(l["instance_norm_stats"] == 17 and l["instance_norm_apply"] == 17
+                  and l["sharded instance_norm_apply"] == 17 and l["instance_norm_slab"] == 0
+                  and not any(l[k] for k in K.BACKWARD),
+                  f"--spatial_shard {prec}: 17 stats + 17 sharded apply per rank: {l}")
+        total = {k: sum(r["launches"][k] for r in dp) for k in K.FORWARD + K.BACKWARD}
+        expect(total == {**{k: 0 for k in K.BACKWARD}, **times(per_forward, n_batches)},
+              f"--data_parallel {prec}: phase 5's launches split over the ranks: {total}")
+        for tag, ref_tag in (("shard", "single"), ("dp", "window")):
+            got = _tanh_units(nifti.load(workdir / f"{tag}_{prec}.nii").data)
+            ref = _tanh_units(nifti.load(workdir / f"{ref_tag}_{prec}.nii").data)
+            expect(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                  f"{tag} {prec} decode shape, finite")
+            diff = np.abs(got - ref)
+            row = {"s": max(r["s"] for r in (shard if tag == "shard" else dp)),
+                   "one_device_s": ref_s[f"{ref_tag} {prec}"], "max_abs": float(diff.max())}
+            if prec == "float32":
+                ok = bool((diff <= 1e-4 + 1e-3 * np.abs(ref)).all())
+                what = f"max |diff| {diff.max():.3g} (generator bar rtol 1e-3 atol 1e-4)"
+            else:
+                # one bf16 ulp of a unit-range output, as bf16_ulps counts them:
+                # the ulp at max(|ref|, 1) = 2^-7; beside it, against the ulp at
+                # each voxel's own value (floored at 2^-7)
+                share = float((diff > 2.0 ** -7).mean())
+                own = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -7))) - 7)
+                f32 = _tanh_units(nifti.load(workdir / f"{ref_tag}_float32.nii").data)
+                err, err_one = float(np.abs(got - f32).mean()), float(np.abs(ref - f32).mean())
+                row.update(share_over_1ulp=share, share_over_own_ulp=float((diff > own).mean()),
+                           mean_abs=float(diff.mean()), mean_err_f32=err,
+                           one_device_mean_err_f32=err_one)
+                ok = share < PAR_BF16_DECODE_SHARE and err <= PAR_BF16_DECODE * err_one + 1e-6
+                what = (f"{share:.4%} of voxels more than one bf16 ulp (2^-7) off the bf16 "
+                        f"one-device decode, {row['share_over_own_ulp']:.2%} more than their "
+                        f"own value's ulp (max {diff.max():.3g}, mean {diff.mean():.3g}); mean "
+                        f"|error| against the float32 one-device decode {err:.3g}, the bf16 "
+                        f"one-device decode's {err_one:.3g}")
+            row["ok"], row["what"] = ok, what
+            out[f"decode {tag} {prec}"] = row
+            print(f"[parallel] decode --{'spatial_shard' if tag == 'shard' else 'data_parallel'} "
+                  f"{prec}, 2 {PAR_LABEL}: {row['s']:.2f} s/volume (one device "
+                  f"{row['one_device_s']:.2f} s); {what}", flush=True)
+    for key, row in out.items():
+        if key.startswith("decode "):
+            expect(row.pop("ok"), f"{key} against the one-device decode: {row['what']}")
+
+    # the steps
+    plain_128 = phase13["remat"]["b2 128^3"]["plain"]["peak_gib"]
+    for ranks, cases in ((two, PAR_CASES), (four, PAR_GRID)):
+        for label, case in cases.items():
+            rows = [r[label] for r in ranks]
+            expect(len({r["hash"] for r in rows}) == 1,
+                   f"{label}: parameters bit-equal across the {len(rows)} ranks")
+            worst = {}
+            for tag, bars in (("", PAR_BF16_RTOL), (" f32", PAR_RTOL)):
+                if f"{label}{tag}" not in one:
+                    continue
+                want = one[f"{label}{tag}"]["metrics"]
+                runs = [r[f"{label}{tag}"] for r in ranks]
+                expect(len({r["hash"] for r in runs}) == 1,
+                       f"{label}{tag}: parameters bit-equal across the ranks")
+                rel = [max(abs(r["metrics"][k][n] - w) / abs(w) for r in runs
+                           for n, w in want[k].items()) for k in range(len(want))]
+                worst[tag.strip() or "bf16"] = rel
+                for k in range(len(want)):
+                    bar = bars[k]
+                    for name, w in want[k].items():
+                        for r in runs:
+                            v = r["metrics"][k][name]
+                            expect(abs(v - w) <= bar * abs(w) + 1e-4,
+                                   f"{label}{tag} step {k} {name}: {v} against one device {w}")
+            per_step = par_step_launches(K, case[0], rows[0]["local_batch"],
+                                         rows[0]["local_patch"], case[2])
+            for r in rows:
+                expect(r["launches"] == times(per_step, PAR_STEPS),
+                      f"{label}: launches {r['launches']}, want {PAR_STEPS} x {per_step}")
+            s_step = sum(max(r["step_s"][k] for r in rows) for k in range(1, PAR_STEPS)) / (
+                PAR_STEPS - 1)
+            peaks = [r["peak_gib"] for r in rows]
+            out[label] = {"s_per_step": s_step, "peak_gib": peaks, "launches_per_step": per_step,
+                          "losses": rows[0]["metrics"][-1], "ranks": len(rows),
+                          "max_rel_loss_diff_per_step": worst}
+            beside = f" (one device, phase 13: {plain_128:.2f} GiB)" if "128" in label else ""
+            print(f"[parallel] step {label}, {len(rows)} {PAR_LABEL}: {s_step:.4f} s/step "
+                  f"(steps 2-{PAR_STEPS}); per-rank peak {[round(p, 2) for p in peaks]} GiB"
+                  f"{beside}; launches per rank and step {per_step}; largest relative loss "
+                  f"difference from one device per step {worst}; parameters bit-equal",
+                  flush=True)
+            if label == "sp b1 64^3":  # the measured run's count, equal to the expected one
+                for name in ("instance_norm_apply", "instance_norm_bwd_apply"):
+                    results[name]["launches_sharded"] = rows[0]["launches"][f"sharded {name}"]
+
+    # the driver: rank 0 wrote the checkpoint; it restores into a one-device state
+    drv = [r["driver"] for r in two]
+    expect(len({d["hash"] for d in drv}) == 1 and all(d["step"] == drv[0]["step"] for d in drv),
+          "driver --data_parallel: ranks end bit-equal")
+    state = CheckpointManager(workdir / "ck", "dp_driver").restore(
+        "latest", create_state(train_config(torch.bfloat16), SEED + 1, PATCH, DEVICE))
+    expect(_par_hash(state) == drv[0]["hash"],
+          "driver --data_parallel: the checkpoint restores into a one-device state bit-equal")
+    n_lines = _loss_lines_finite(workdir / "ck" / "dp_driver" / "loss_log.txt")
+    steps = sum(e["steps"] for e in drv[0]["epochs"])
+    from mra_gan_tpu_torch.core.memory import TRIAL_STEPS
+
+    want = times(par_step_launches(K, "dp", 4, PATCH, PATCH), steps + TRIAL_STEPS)
+    for d in drv:  # the preflight's two trial steps, then the epoch, on every rank
+        expect({k: d["launches"][k] for k in K.FORWARD + K.BACKWARD}
+              == {k: want[k] for k in K.FORWARD + K.BACKWARD},
+              f"driver --data_parallel launches {d['launches']}, want {want}")
+    expect(n_lines == steps and steps == DRIVER_PAIRS * DRIVER_SAMPLES // 8,
+          f"driver --data_parallel: {n_lines} loss lines for {steps} steps")
+    out["driver"] = {"s": max(d["s"] for d in drv), "steps": steps, "epochs": drv[0]["epochs"]}
+    del state
+    torch.cuda.empty_cache()
+    staged = {k: max(r["host_staged"][k] for r in two + four) for k in two[0]["host_staged"]}
+    out["host_staged"] = staged
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[parallel] driver --data_parallel on 2 {PAR_LABEL}: {steps} steps in "
+          f"{out['driver']['s']:.2f} s (preflight and loader included); checkpoint restored "
+          f"bit-equal into a one-device state", flush=True)
+    print(f"[parallel] collectives staged through the host (gloo, CUDA tensors; calls, the "
+          f"most on a rank): {staged}", flush=True)
+    print(f"[phase 14] in {out['seconds']:.1f} s ({PAR_LABEL}; no NCCL figure)", flush=True)
+    check(not fails, f"phase 14: {len(fails)} comparisons failed: {fails}")
+    return out
+
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2518,12 +3173,12 @@ def main(argv=None) -> int:
         ckpt = phase_checkpoint(K, Path(tmp))
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         serving = phase_serve(K, tree, decode, Path(tmp))
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        train_driver = phase_driver(K, train, results, Path(tmp))
-        t13 = time.perf_counter()
-        # phase 13's driver runs, on phase 11's data and warm cache
-        phase13 = {"augment_driver": phase_augment_driver(K, train, train_driver, Path(tmp))}
-        t13 = time.perf_counter() - t13
+    # phase 11's data and warm cache, read again by phases 13 and 14
+    driver_dir = Path(tempfile.mkdtemp(dir=build_dir))
+    train_driver = phase_driver(K, train, results, driver_dir)
+    t13 = time.perf_counter()
+    phase13 = {"augment_driver": phase_augment_driver(K, train, train_driver, driver_dir)}
+    t13 = time.perf_counter() - t13
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         zoo = phase_zoo(K, bw, flops, results, Path(tmp))
     t0 = time.perf_counter()
@@ -2535,6 +3190,9 @@ def main(argv=None) -> int:
         phase13["single_pass"] = phase_single_pass(Path(tmp))
     phase13["seconds"] = t13 + time.perf_counter() - t0
     print(f"[phase 13] in {phase13['seconds']:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        parallel = phase_parallel(K, tree, results, decode, phase13, driver_dir, Path(tmp))
+    shutil.rmtree(driver_dir)
 
     kernels = []
     for k, r in results.items():
@@ -2566,9 +3224,12 @@ def main(argv=None) -> int:
                          "plain_ms": train_head["plain_ms"],
                          "bound_ms": train_head["bound_ms"],
                          "library_ms": train_head["library_ms"]},
+            **({k: r[k] for k in ("launches_sharded", "max_abs_err_sharded", "sharded")
+                if k in r}),
             **({"note": r["note"]} if "note" in r else {})})
     summary = {"decode": decode, "train": train, "train_parity": parity, "checkpoint": ckpt,
                "serve": serving, "train_driver": train_driver, "zoo": zoo, "phase13": phase13,
+               "parallel": parallel,
                "conv_formats": conv_rows,
                "seconds": time.perf_counter() - t_start}
     if args.json_out:

@@ -27,6 +27,13 @@ never drawn from, and the live one is kept. The JAX package falls back to
 resetting a pool whose layout differs (single-chip cell layout against the
 spatial step's plain one, :55-150); the port stores its pools in one layout
 only, so it has no such fallback.
+
+A parallel run saves in this same format. The depth-sharded pools of the
+spatial step (``state.pool_shard``) are all-gathered along depth, so
+``state_to_dict``, and with it ``save``, is collective over the shard
+group; only rank 0 of the default group writes the files. ``restore`` on a
+sharded state takes each rank's depth shard of the saved pools, so a
+checkpoint of any run restores into any layout.
 """
 from __future__ import annotations
 
@@ -37,8 +44,10 @@ from pathlib import Path
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 from ..models.cycle_gan import CycleGANConfig, CycleGANState
+from ..parallel.collectives import all_gather_stacked
 from .io import reference_state_dict
 
 FORMAT = "mra_gan_tpu_torch.cycle_gan_state/1"
@@ -82,9 +91,31 @@ def _optimizer_to_dict(opt: torch.optim.Optimizer) -> dict:
             "param_groups": sd["param_groups"]}
 
 
+def _whole_pool(state: CycleGANState, images: torch.Tensor) -> torch.Tensor:
+    # a sharded pool's images gathered along depth (collective), else itself
+    if state.pool_shard is None:
+        return images
+    return torch.cat(all_gather_stacked(images, state.pool_shard.group).unbind(0), dim=2)
+
+
+def _pool_part(state: CycleGANState, images: torch.Tensor) -> torch.Tensor:
+    # this rank's depth shard of whole pool images
+    axis = state.pool_shard
+    if axis is None:
+        return images
+    rows = images.shape[2] // axis.size
+    return images[:, :, axis.index * rows:(axis.index + 1) * rows]
+
+
+def is_writer() -> bool:
+    """Whether this process writes a run's files: rank 0 of a joined
+    process group, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def state_to_dict(state: CycleGANState) -> dict:
     """What ``ckpt_{epoch}.pt`` holds: plain containers of CPU tensors, copies
-    of the state's."""
+    of the state's, the pools whole (collective for a sharded state)."""
     return {
         "format": FORMAT,
         "config": config_to_dict(state.cfg),
@@ -93,9 +124,9 @@ def state_to_dict(state: CycleGANState) -> dict:
                  for name, net in state.nets.items()},
         "opt_g": _optimizer_to_dict(state.opt_g),
         "opt_d": _optimizer_to_dict(state.opt_d),
-        "pool_fake_a": {"images": _cpu(state.pool_fake_a.images),
+        "pool_fake_a": {"images": _cpu(_whole_pool(state, state.pool_fake_a.images)),
                         "count": state.pool_fake_a.count},
-        "pool_fake_b": {"images": _cpu(state.pool_fake_b.images),
+        "pool_fake_b": {"images": _cpu(_whole_pool(state, state.pool_fake_b.images)),
                         "count": state.pool_fake_b.count},
         "generator": state.generator.get_state(),
         "dropout_generator": {"device": state.dropout_generator.device.type,
@@ -170,7 +201,7 @@ def _check(raw: dict, state: CycleGANState) -> None:
                     raise ValueError(f"checkpoint {name}.state.{i}.{k} has shape "
                                      f"{tuple(v.shape)}, its parameter's {tuple(params[i].shape)}")
     for name in ("pool_fake_a", "pool_fake_b"):
-        _check_shapes(name, {"images": raw[name]["images"]},
+        _check_shapes(name, {"images": _pool_part(state, raw[name]["images"])},
                       {"images": getattr(state, name).images})
     if raw["generator"].numel() != state.generator.get_state().numel():
         raise ValueError("checkpoint generator state does not fit this state's pool generator")
@@ -209,7 +240,7 @@ def load_state(state: CycleGANState, raw: dict) -> CycleGANState:
             relayout_optimizer_state(opt)
         for name in ("pool_fake_a", "pool_fake_b"):
             pool = getattr(state, name)
-            pool.images.copy_(raw[name]["images"])  # cast to the live dtype
+            pool.images.copy_(_pool_part(state, raw[name]["images"]))  # to the live dtype
             pool.count = int(raw[name]["count"])
     state.generator.set_state(raw["generator"])
     drop = raw["dropout_generator"]
@@ -234,8 +265,11 @@ class CheckpointManager:
     def save(self, epoch, state: CycleGANState, also_latest: bool = True) -> None:
         """Write ``ckpt_{epoch}.pt`` and ``{epoch}_net_*.pth``, and the same
         as ``latest`` unless ``also_latest`` is False or ``epoch`` is
-        'latest' itself."""
+        'latest' itself. Collective for a sharded state (every rank calls
+        it); only rank 0 writes."""
         raw = state_to_dict(state)
+        if not is_writer():
+            return
         epochs = [epoch] + (["latest"] if also_latest and str(epoch) != "latest" else [])
         for e in epochs:
             _atomic_save(raw, self.path(e))

@@ -22,20 +22,31 @@ usable). ``--no_mem_check`` or ``MRA_GAN_TPU_NO_MEM_CHECK=1`` skip it. On the
 CPU it prints nothing and returns None, as the JAX preflight does where the
 backend cannot report; the peak reader is a parameter so that tests can
 drive the logic there.
+
+A parallel step's preflight runs on every rank of its mesh together: each
+rank's trial steps take its part of the zero batch (``take``), and the peak
+is the largest over the mesh's axes (``axes``: space, then data, the order
+in which the step reduces its gradients), never over the world group, whose
+idle ranks (``--space_devices`` below the world size) take no part. A CUDA
+out-of-memory error is folded into the same reduction, so that every rank of
+the mesh ends together; an error that leaves a rank's peers waiting inside a
+collective of the trial step itself (ranks out of memory at different
+points) still ends them only at the process group's timeout.
 """
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..checkpoint.manager import load_state, state_to_dict
 from ..models.cycle_gan import CycleGANState
+from ..parallel.collectives import all_reduce_
 
 TRIAL_STEPS = 2
 TRAIN_ADVICE = ("reduce --batch_size or --patch_size, enable --remat, or "
-                "depth-shard the step with --spatial_parallel (not ported yet)")
+                "depth-shard the step with --spatial_parallel")
 
 PeakReader = Callable[[Callable[[], object]], int]
 
@@ -66,10 +77,16 @@ def state_bytes(state: CycleGANState) -> int:
 
 
 def step_memory_estimate(step, state: CycleGANState, batch_size: int, lr: float,
-                         peak_reader: Optional[PeakReader] = None) -> Optional[dict]:
+                         peak_reader: Optional[PeakReader] = None,
+                         take: Optional[Callable] = None,
+                         axes: Sequence = ()) -> Optional[dict]:
     """{'peak': the peak bytes of TRIAL_STEPS steps, 'state': the state's
     bytes before them}, with the state put back afterwards, also when the
-    trial raises. None on the CPU unless a ``peak_reader`` is given."""
+    trial raises. None on the CPU unless a ``peak_reader`` is given.
+    ``take`` gives a parallel step its rank's part of the global batch, and
+    the peak is then the largest over the ranks of ``axes`` (ShardAxis,
+    collective); an out-of-memory error on any of them raises
+    ``torch.cuda.OutOfMemoryError`` on all of them."""
     if peak_reader is None:
         if state.device.type != "cuda":
             return None
@@ -77,31 +94,50 @@ def step_memory_estimate(step, state: CycleGANState, batch_size: int, lr: float,
     cfg, patch = state.cfg, state.patch_shape
     real_a = torch.zeros((batch_size, cfg.input_nc, *patch), device=state.device)
     real_b = torch.zeros((batch_size, cfg.output_nc, *patch), device=state.device)
+    if take is not None:
+        real_a, real_b = take(real_a), take(real_b)
     resident = state_bytes(state)
     saved = state_to_dict(state)
     grads = [(p, p.grad) for net in state.nets.values() for p in net.parameters()]
+    peak, oom = 0, False
     try:
         peak = peak_reader(lambda: [step(state, real_a, real_b, lr)
                                     for _ in range(TRIAL_STEPS)])
+    except torch.cuda.OutOfMemoryError:
+        oom = True  # answered below, outside the handler: its traceback holds the trial's tensors
+        if not axes:
+            raise
     finally:
         load_state(state, saved)
         for p, g in grads:
             p.grad = g
-    return {"peak": int(peak), "state": resident}
+    if axes:
+        if oom and state.device.type == "cuda":
+            torch.cuda.empty_cache()
+        most = torch.tensor([peak, resident, oom], dtype=torch.float64, device=state.device)
+        for axis in axes:
+            all_reduce_(most, axis.group, op="max")
+        peak, resident, oom = most.tolist()
+        if oom:
+            raise torch.cuda.OutOfMemoryError("out of device memory in a rank's trial steps")
+    return {"peak": int(peak), "state": int(resident)}
 
 
 def preflight(step, state: CycleGANState, batch_size: int, lr: float,
               what: str = "train step", limit_bytes: Optional[int] = None,
               advice: str = TRAIN_ADVICE,
-              peak_reader: Optional[PeakReader] = None) -> Optional[dict]:
+              peak_reader: Optional[PeakReader] = None,
+              take: Optional[Callable] = None, axes: Sequence = ()) -> Optional[dict]:
     """Print the trial's peak against the limit and return
     ``step_memory_estimate``'s dict; raise SystemExit carrying ``advice``
     when the peak exceeds the limit or the trial runs out of memory. None,
-    silently, when skipped or on the CPU."""
+    silently, when skipped or on the CPU. ``take`` and ``axes`` as in
+    ``step_memory_estimate``: every rank of the axes ends together."""
     if os.environ.get("MRA_GAN_TPU_NO_MEM_CHECK"):
         return None
     try:
-        est = step_memory_estimate(step, state, batch_size, lr, peak_reader)
+        parallel = {} if take is None else {"take": take, "axes": axes}
+        est = step_memory_estimate(step, state, batch_size, lr, peak_reader, **parallel)
         oom = False
     except torch.cuda.OutOfMemoryError:
         oom = True  # answered below, outside the handler: its traceback holds the trial's tensors

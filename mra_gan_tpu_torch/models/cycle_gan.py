@@ -22,9 +22,31 @@ fake_a, rec_b, idt_a, idt_b) and the D loss four (real and fake apart).
 The correlation-coefficient losses are computed on the detached fakes and
 logged, not optimized (JAX :338-341). Everything runs on the device the state
 was created on, in channels_last_3d on CUDA, with the configured compute
-dtype over float32 parameters."""
+dtype over float32 parameters.
+
+The same step runs one rank's part of a parallel step (JAX :274-287,
+:410-460) when called inside a shard context (core.spatial_ctx), as
+parallel/sharding.py and parallel/spatial.py do:
+
+- under ``spatial_sharding`` the volumes are depth shards: the generators
+  run shard-aware (halo convs, norms over the whole volume), and the
+  discriminators run on volumes all-gathered along depth under
+  ``spatial_unsharded``, the gather's backward returning each shard's
+  gradient to the rank that made it;
+- under a data axis (``data_sharding``, or the 2-D grid) the batch is split:
+  the pools see the fakes all-gathered over it, every rank runs the same
+  ``pool_query`` with the same draws and keeps its rows;
+- losses, and so the metrics, are the global ones on every rank
+  (ops/losses.py), while each rank differentiates its own shard's terms;
+  the gradients are then summed over every shard axis in one flat bucket
+  per optimizer and divided by the number of ranks. That counts each
+  gradient once: a term computed on gathered volumes comes back R times
+  through the gather's reduce-scatter, and the average divides it out.
+  Parameters stay bit-equal across ranks (each all-reduce leaves the same
+  bits on every rank, and Adam is elementwise)."""
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import itertools
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -35,7 +57,10 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtypes import set_conv_precision
+from ..core.spatial_ctx import (data_shard_info, shard_axes, spatial_shard_info,
+                                spatial_unsharded)
 from ..ops.losses import cor_coe_loss, gan_loss, l1_loss
+from ..parallel.collectives import all_gather, all_gather_stacked, all_reduce_
 from .networks import Dropout, check_patch, define_d, define_g, remat_segments
 
 _CL = torch.channels_last_3d
@@ -176,6 +201,9 @@ class CycleGANState:
     dropout_generator: torch.Generator
     device: torch.device
     step: int = 0
+    # the depth-shard axis whose shards the pools hold (the spatial step,
+    # parallel/spatial.py shard_spatial_state); None: whole patches
+    pool_shard: Optional[object] = None
 
     @property
     def nets(self) -> Dict[str, nn.Module]:
@@ -221,11 +249,30 @@ def create_state(cfg: CycleGANConfig, seed: int = 0,
         generator=gen, dropout_generator=drop_gen, device=dev)
 
 
-def _optimizer_step(opt: torch.optim.Adam, loss: torch.Tensor, lr: float) -> None:
+def _average_over_ranks(grads, axes) -> None:
+    """Sum the gradients over every shard axis, one flat float32 bucket per
+    call, and divide by the number of ranks; in place."""
+    live = [g for g in grads if g is not None]
+    if not axes or not live:
+        return
+    flat = torch.cat([g.reshape(-1) for g in live])
+    ranks = 1
+    for axis in axes:
+        all_reduce_(flat, axis.group)
+        ranks *= axis.size
+    flat /= ranks
+    offset = 0
+    for g in live:
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+
+
+def _optimizer_step(opt: torch.optim.Adam, loss: torch.Tensor, lr: float, axes=()) -> None:
     # Gradients of the optimizer's own parameters only; a norm-dead bias is
     # not in the graph and keeps .grad None, which Adam skips.
     params = [p for group in opt.param_groups for p in group["params"]]
     grads = torch.autograd.grad(loss, params, allow_unused=True)
+    _average_over_ranks(grads, axes)
     for p, g in zip(params, grads):
         p.grad = g
     for group in opt.param_groups:
@@ -241,9 +288,14 @@ def _checkpointed(segment: nn.Module, x: torch.Tensor,
     the first forward for the recompute, and left afterwards where that
     forward left it: the recompute draws the same masks, and the stream goes
     on as without remat. The recompute runs the whole segment (no early
-    stop), so its norms launch once more in every backward."""
+    stop), so its norms launch once more in every backward. It runs in the
+    backward, after the shard context has closed, so it runs in a copy of
+    the context of the first forward: a sharded segment recomputes with its
+    halos and its whole-volume statistics, and its collectives come in the
+    same order on every rank."""
     start = generator.get_state()
     first = [True]
+    context = contextvars.copy_context()
 
     def run(inp):
         if first[0]:
@@ -252,7 +304,7 @@ def _checkpointed(segment: nn.Module, x: torch.Tensor,
         now = generator.get_state()
         generator.set_state(start)
         try:
-            return segment(inp)
+            return context.run(segment, inp)
         finally:
             generator.set_state(now)
 
@@ -271,7 +323,12 @@ def make_train_step(cfg: CycleGANConfig):
     names (G_A, G_B, cycle_A, cycle_B, idt_A, idt_B, cor_coe_GA, cor_coe_GB,
     D_A, D_B) to float32 scalars on the device; nothing is read back to the
     host. ``pool_draws`` = {"fake_a": (p, slot), "fake_b": (p, slot)}
-    replaces the pools' own draws (tests)."""
+    replaces the pools' own draws (tests), one per image of the global
+    batch.
+
+    Called inside a shard context, the step is one rank's part of the
+    parallel step (module docstring): real_a and real_b are the rank's
+    rows, or depth shards, and the metrics the global values."""
     lam_idt = cfg.lambda_identity
     # instance norm and none are per sample: independent applies stack
     fuse = cfg.norm in ("instance", "none")
@@ -301,8 +358,8 @@ def make_train_step(cfg: CycleGANConfig):
             else:
                 fake_b, fake_a = g_a(real_a), g_b(real_b)
             rec_a, rec_b = g_b(fake_b), g_a(fake_a)
-        m = {"G_A": gan_loss(s.d_a(fake_b), True, cfg.gan_mode),
-             "G_B": gan_loss(s.d_b(fake_a), True, cfg.gan_mode),
+        m = {"G_A": gan_loss(apply_d(s.d_a, fake_b), True, cfg.gan_mode),
+             "G_B": gan_loss(apply_d(s.d_b, fake_a), True, cfg.gan_mode),
              "cycle_A": l1_loss(rec_a, real_a) * cfg.lambda_a,
              "cycle_B": l1_loss(rec_b, real_b) * cfg.lambda_b}
         if lam_idt > 0:
@@ -316,6 +373,15 @@ def make_train_step(cfg: CycleGANConfig):
             m["cor_coe_GA"] = cor_coe_loss(fake_b, real_a) * cfg.lambda_co_a
             m["cor_coe_GB"] = cor_coe_loss(fake_a, real_b) * cfg.lambda_co_b
         return loss, fake_a, fake_b, m
+
+    def apply_d(d: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        # depth shards are gathered; the discriminator runs on whole volumes
+        sp = spatial_shard_info()
+        if sp is None:
+            return d(x)
+        xg = all_gather(x, sp.group, dim=2)
+        with spatial_unsharded():
+            return d(xg)
 
     def apply_g(s: CycleGANState, g: nn.Module, x: torch.Tensor) -> torch.Tensor:
         if not cfg.remat:
@@ -332,10 +398,10 @@ def make_train_step(cfg: CycleGANConfig):
         for name, d, real, fake in (("D_A", s.d_a, real_b, fake_b),
                                     ("D_B", s.d_b, real_a, fake_a)):
             if fuse:
-                pred = d(torch.cat([real, fake]))
+                pred = apply_d(d, torch.cat([real, fake]))
                 pred_real, pred_fake = pred[:bsz], pred[bsz:]
             else:
-                pred_real, pred_fake = d(real), d(fake)
+                pred_real, pred_fake = apply_d(d, real), apply_d(d, fake)
             out[name] = 0.5 * (gan_loss(pred_real, True, cfg.gan_mode)
                                + gan_loss(pred_fake, False, cfg.gan_mode))
         return out["D_A"] + out["D_B"], out
@@ -344,16 +410,28 @@ def make_train_step(cfg: CycleGANConfig):
         x = x.to(s.device, cfg.dtype)
         return x.contiguous(memory_format=_CL) if x.is_cuda else x
 
+    def query(s: CycleGANState, pool: ImagePool, fakes: torch.Tensor, draws):
+        # over a split batch every rank queries with the global batch's
+        # fakes and the same draws, and keeps its rows
+        dp = data_shard_info()
+        if dp is None:
+            return pool_query(pool, fakes, s.generator, draws)
+        rows = fakes.shape[0]
+        everyone = torch.cat(all_gather_stacked(fakes, dp.group).unbind(0))
+        mixed = pool_query(pool, everyone, s.generator, draws)
+        return mixed[dp.index * rows:(dp.index + 1) * rows]
+
     def train_step(state: CycleGANState, real_a: torch.Tensor, real_b: torch.Tensor,
                    lr: float, pool_draws: Optional[dict] = None):
         real_a, real_b = prepare(state, real_a), prepare(state, real_b)
         draws = pool_draws or {}
+        axes = shard_axes()
         loss, fake_a, fake_b, metrics = g_loss(state, real_a, real_b)
-        _optimizer_step(state.opt_g, loss, lr)
-        fake_b = pool_query(state.pool_fake_b, fake_b, state.generator, draws.get("fake_b"))
-        fake_a = pool_query(state.pool_fake_a, fake_a, state.generator, draws.get("fake_a"))
+        _optimizer_step(state.opt_g, loss, lr, axes)
+        fake_b = query(state, state.pool_fake_b, fake_b, draws.get("fake_b"))
+        fake_a = query(state, state.pool_fake_a, fake_a, draws.get("fake_a"))
         loss, d_metrics = d_loss(state, real_a, real_b, fake_a, fake_b)
-        _optimizer_step(state.opt_d, loss, lr)
+        _optimizer_step(state.opt_d, loss, lr, axes)
         metrics.update(d_metrics)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -25,6 +25,17 @@ exactly 0. Such a conv (``dead_bias=True``) adds ``bias.detach()``, as the
 JAX package ``stop_gradient``s it (networks.py ``Conv3D.dead_bias``): the
 bias keeps its checkpoint slot and its forward add, its ``.grad`` stays
 None and Adam leaves it where it is. Only instance norm makes a bias dead.
+
+Inside ``core.spatial_ctx.spatial_sharding`` (a volume depth-sharded over a
+process group) the convs are shard-aware, as the JAX ``Conv3D`` and
+``ConvTranspose3D`` are (networks.py:135-160, 300-316): a conv's depth
+padding is a halo of zero rows exchanged with the neighbours
+(ops/conv.py ``extend_sharded_d``); the replication pads exchange edge
+halos; a kernel == stride transposed conv (the DynUNet's) is shard-local;
+a stride-2 transposed conv runs over the shard extended by the rows its
+outputs reach into, then is cropped to the shard's outputs. The norms merge
+the statistics of all shards (ops/norm.py). Batch norm normalizes each
+rank's own tensor, as the JAX package's does under ``shard_map``.
 """
 from __future__ import annotations
 
@@ -34,7 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import conv3d, conv_transpose3d, replication_pad3d
+from ..core.spatial_ctx import data_shard_info, spatial_shard_info
+from ..ops.conv import _keep_layout, conv3d, conv_transpose3d, extend_sharded_d, replication_pad3d
 from ..ops.init import get_initializer, init_conv_
 from ..ops.norm import instance_norm_act
 
@@ -78,6 +90,10 @@ class Conv3d(_ConvBase):
         self.stride, self.padding = _triple(stride), _triple(padding)
 
     def forward(self, x):
+        pd = self.padding[0]
+        if pd and spatial_shard_info() is not None:
+            return conv3d(extend_sharded_d(x, pd, pd, "zero"), self.weight, self.live_bias(),
+                          self.stride, (0, *self.padding[1:]))
         return conv3d(x, self.weight, self.live_bias(), self.stride, self.padding)
 
 
@@ -92,8 +108,32 @@ class ConvTranspose3d(_ConvBase):
         self.output_padding = _triple(output_padding)
 
     def forward(self, x):
+        if spatial_shard_info() is not None:
+            return self._sharded_forward(x)
         return conv_transpose3d(x, self.weight, self.live_bias(), self.stride, self.padding,
                                 self.output_padding)
+
+    def _sharded_forward(self, x):
+        """The transposed conv of a depth shard: kernel == stride with no
+        padding is shard-local; a stride-2 form whose output is twice its
+        input (k + output_padding - 2 pad == 2) runs over the shard extended
+        by the zero-or-neighbour rows its outputs reach into and is cropped
+        to the shard's 2 D/K output rows (the JAX package rewrites it as a
+        subpixel conv with halos; the function is the same)."""
+        k, s, p, op = (self.weight.shape[2], self.stride[0], self.padding[0],
+                       self.output_padding[0])
+        if k == s and p == 0 and op == 0:
+            return conv_transpose3d(x, self.weight, self.live_bias(), self.stride, self.padding,
+                                    self.output_padding)
+        if s != 2 or k + op - 2 * p != 2:
+            raise ValueError("depth-sharded ConvTranspose3D supports stride-2 (subpixel) or "
+                             "kernel==stride (blocked) forms only")
+        d = x.shape[2]
+        lo = max(0, (k - 1 - p) // 2)  # output row 0 reaches input row -lo
+        hi = max(0, (2 * d - 1 + p) // 2 - (d - 1))
+        y = conv_transpose3d(extend_sharded_d(x, lo, hi, "zero"), self.weight,
+                             self.live_bias(), self.stride, self.padding, self.output_padding)
+        return _keep_layout(y[:, :, 2 * lo:2 * lo + 2 * d], x)
 
 
 class ReplicationPad3d(nn.Module):
@@ -156,7 +196,14 @@ class Dropout(nn.Module):
     The JAX package draws six independent masks per step from keys split off
     the step's rng (mra_gan_tpu/models/cycle_gan.py:403-408); a JAX key
     cannot be turned into a torch generator's stream, so the port's masks
-    are its own, and only its own resume is exact."""
+    are its own, and only its own resume is exact.
+
+    Under the data-parallel step (``core.spatial_ctx.data_sharding`` with
+    ``rows``, the step's rows per rank) the module draws the mask of the
+    global batch, as one device would, and keeps this rank's rows of each
+    stacked block: the masks, and the generator's stream, are the
+    one-device step's (JAX gives each device its slice of one global mask,
+    parallel/sharding.py:91-113)."""
 
     def __init__(self, p: float = 0.5, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -165,11 +212,30 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=self.generator)
+        dp = data_shard_info()
+        if dp is not None and dp.size > 1:
+            u = _global_rows_uniform(x, dp, self.generator)
+        else:
+            u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=self.generator)
         return x * (u >= self.p).to(x.dtype) * (1.0 / (1.0 - self.p))
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+def _global_rows_uniform(x: torch.Tensor, dp, generator) -> torch.Tensor:
+    # x stacks blocks of dp.rows rows, each this rank's part of a block of
+    # dp.rows * dp.size global rows: draw the global tensor, keep our rows
+    if not dp.rows or x.shape[0] % dp.rows:
+        raise ValueError(f"data-parallel dropout needs the step's rows per rank "
+                         f"(data_sharding(group, rows=...)); got {dp.rows} for a batch of "
+                         f"{x.shape[0]}")
+    blocks, rows = x.shape[0] // dp.rows, dp.rows
+    u = torch.empty((blocks * rows * dp.size, *x.shape[1:]), dtype=torch.float32,
+                    device=x.device).uniform_(generator=generator)
+    keep = torch.arange(rows, device=x.device) + dp.index * rows
+    keep = (torch.arange(blocks, device=x.device)[:, None] * rows * dp.size + keep).reshape(-1)
+    return u[keep]
 
 
 def _act_module(act: str) -> nn.Module:
@@ -642,19 +708,33 @@ def define_d(input_nc: int, ndf: int, net_d: str, n_layers_d: int = 3, norm: str
     return _init_weights(net, init_type, init_gain, generator)
 
 
-def spatial_granularity(net: nn.Module) -> Tuple[int, int, int]:
-    """Per-axis divisibility a whole-volume forward needs (JAX :632): 4 for
-    resnet (two stride-2 halvings), 2**num_downs for a U-Net, the per-axis
-    product of the auto-schedule's strides for a DynUNet."""
-    if isinstance(net, UnetGenerator3D):
-        return (2 ** net.num_downs,) * 3
-    if isinstance(net, DynUNet3D):
+def granularity(net_g: str, dynet_sizes: Sequence[int] = (128, 128, 64),
+                dynet_spacings: Sequence[float] = (1.5, 1.5, 1.5)) -> Tuple[int, int, int]:
+    """Per-axis divisibility a whole-volume forward of the generator named
+    ``net_g`` needs (JAX :632): 4 for resnet (two stride-2 halvings),
+    2**num_downs for a U-Net, the per-axis product of the auto-schedule's
+    strides for a DynUNet. By name, so that a config's rule needs no
+    network."""
+    if net_g in RESNET_BLOCKS:
+        return (4, 4, 4)
+    if net_g in UNET_DOWNS:
+        return (2 ** UNET_DOWNS[net_g],) * 3
+    if net_g == "Dynet":
         out = [1, 1, 1]
-        for s in dynunet_schedule(net.sizes, net.spacings)[1]:
+        for s in dynunet_schedule(dynet_sizes, dynet_spacings)[1]:
             out = [o * int(v) for o, v in zip(out, s)]
         return tuple(out)
+    raise ValueError(f"unknown generator {net_g!r}")
+
+
+def spatial_granularity(net: nn.Module) -> Tuple[int, int, int]:
+    """``granularity`` of a generator built by ``define_g``."""
+    if isinstance(net, UnetGenerator3D):
+        return granularity({v: k for k, v in UNET_DOWNS.items()}[net.num_downs])
+    if isinstance(net, DynUNet3D):
+        return granularity("Dynet", net.sizes, net.spacings)
     if isinstance(net, ResnetGenerator3D):
-        return (4, 4, 4)
+        return granularity(next(iter(RESNET_BLOCKS)))
     raise TypeError(f"{type(net).__name__} is not a generator")
 
 

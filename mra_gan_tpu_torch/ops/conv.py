@@ -7,13 +7,22 @@ parameters. torch's ConvTranspose3d already has the reference's semantics
 (out = (in - 1) * stride - 2 * pad + k + output_padding).
 
 On CUDA the generator runs in channels_last_3d (NDHWC in memory, the layout of
-the norm kernels); each op here returns that layout when its input has it."""
+the norm kernels); each op here returns that layout when its input has it.
+
+Under ``core.spatial_ctx.spatial_sharding`` a volume is depth-sharded over a
+process group: ``extend_sharded_d`` grows a shard by halo rows from its
+neighbours (edge or zero rows at the volume's two ends), and
+``replication_pad3d`` pads depth that way and H and W locally (JAX
+ops/conv.py:96-150)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..core.spatial_ctx import spatial_shard_info
+from ..parallel.collectives import neighbour_exchange
 
 _CL = torch.channels_last_3d
 
@@ -40,7 +49,23 @@ def conv_transpose3d(x: torch.Tensor, weight: torch.Tensor,
     return _keep_layout(y, x)
 
 
+def extend_sharded_d(x: torch.Tensor, lo: int, hi: int, boundary: str = "edge") -> torch.Tensor:
+    """Extend a depth shard (N, C, D/K, H, W) by ``lo`` rows above and ``hi``
+    below, from the neighbouring shards, and at the volume's ends the edge
+    row repeated ('edge') or zeros ('zero'): the shard's part of the whole
+    volume padded so (JAX ``extend_sharded_d``). Needs lo, hi <= D/K; only
+    inside ``spatial_sharding``."""
+    axis = spatial_shard_info()
+    if axis is None:
+        raise RuntimeError("extend_sharded_d needs spatial_sharding()")
+    return neighbour_exchange(x, lo, hi, boundary, axis.group)
+
+
 def replication_pad3d(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Edge-replicate ``pad`` voxels on each side of D, H and W (torch
-    nn.ReplicationPad3d)."""
+    nn.ReplicationPad3d); under spatial sharding the depth pad is a halo
+    exchange with edge rows at the volume's ends."""
+    if spatial_shard_info() is not None:
+        x = extend_sharded_d(x, pad, pad, "edge")
+        return _keep_layout(F.pad(x, (pad, pad, pad, pad, 0, 0), mode="replicate"), x)
     return _keep_layout(F.pad(x, (pad,) * 6, mode="replicate"), x)

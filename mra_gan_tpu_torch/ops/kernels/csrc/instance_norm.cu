@@ -44,6 +44,14 @@
 //      bit for bit, and the blocks of segment 0 write mean and rstd), then
 //      reads x once more and writes y once; z is formed in f32 and rounded
 //      once to x's dtype.
+// Depth-sharded volumes (K ranks each holding an equal (N, C, D/K, H, W)
+// shard; mra_gan_tpu/ops/norm.py:37-50 pmeans the local means there): the
+// stats kernel runs on each rank's shard unchanged (equal shards give every
+// rank the same S), the (N, S, C) partials of the K ranks are all-gathered
+// rank-major, and apply_kernel merges all K * S of them in its prologue,
+// each with its own segment's count, over K * V voxels. The merge folds the
+// partials in one fixed order, so every rank computes the same mean and rstd
+// bits. K = 1 is the single-volume case above, the same arithmetic.
 // Offsets are int64: a batch-8 full-volume tensor passes 2^31 elements.
 //
 // Backward (the analytic VJP, mra_gan_tpu/ops/norm.py:_in_vjp_bwd):
@@ -76,7 +84,9 @@
 //      C) f32 partial sums of g' and g'z;
 //   2. bwd_apply_kernel adds the S partials of its (n, channels) in its
 //      prologue (every block in the same order, so all agree bit for bit),
-//      divides by V, then reads x and g again and writes dx.
+//      divides by V, then reads x and g again and writes dx. Under depth
+//      sharding it adds the all-gathered K * S partials of the K ranks in one
+//      fixed order and divides by K * V, as apply_kernel merges.
 //
 // z is formed by one function, normalize(), in every kernel, forward and
 // backward, so a relu or leaky_relu mask at z ~ 0 is the same in all
@@ -336,13 +346,15 @@ stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
 }
 
 // Same grid and block as stats_kernel; shared memory as stats_kernel's.
-// part_mean, part_m2 are the stats kernel's (N, S, C) partials on this grid.
+// part_mean, part_m2 hold K shards' (N, S, C) partials from the stats kernel
+// on this grid, shard k's at offset k * kstride floats; V is one shard's
+// voxels, and the statistics are those of all K * V.
 template <typename T, int VEC, int ACT>
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(const T* __restrict__ x, const float* __restrict__ part_mean,
              const float* __restrict__ part_m2, float* __restrict__ mean,
              float* __restrict__ rstd, T* __restrict__ y, int64_t V, int C, int S,
-             float eps, float slope) {
+             int K, int64_t kstride, float eps, float slope) {
   extern __shared__ float smem[];
   const int G = C / VEC;
   const int gx = blockDim.x, R = blockDim.y;
@@ -351,16 +363,18 @@ apply_kernel(const T* __restrict__ x, const float* __restrict__ part_mean,
   const int s = blockIdx.x;
   const int64_t n = blockIdx.y;
 
-  // The merge: lane ty folds partials ty, ty + R, ... in order, then the
-  // lanes' tree. Every block of (n, channels) does the same, in the same order.
+  // The merge: lane ty folds partials ty, ty + R, ... of the K * S (shard k's
+  // segment j is partial k * S + j) in order, then the lanes' tree. Every
+  // block of (n, channels), on every rank, does the same, in the same order.
   float cnt = 0.f, mu[VEC], rs[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) mu[i] = rs[i] = 0.f;
   if (g < G) {
-    for (int j = ty; j < S; j += R) {
+    for (int jj = ty; jj < K * S; jj += R) {
+      const int k = jj / S, j = jj - k * S;
       const float nb = (float)(seg_begin(j + 1, V, S) - seg_begin(j, V, S));
       if (nb > 0.f) {
-        const int64_t o = (n * S + j) * C + (int64_t)g * VEC;
+        const int64_t o = k * kstride + (n * S + j) * C + (int64_t)g * VEC;
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
           float na = cnt;
@@ -377,7 +391,7 @@ apply_kernel(const T* __restrict__ x, const float* __restrict__ part_mean,
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     mu[i] = s_mean[tx * VEC + i];
-    rs[i] = inv_std(s_m2[tx * VEC + i], V, eps);
+    rs[i] = inv_std(s_m2[tx * VEC + i], K * V, eps);
   }
   if (g >= G) return;
   if (s == 0 && ty == 0) {
@@ -664,13 +678,15 @@ bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 // Same grid, block and shared memory as bwd_stats_kernel; part_g, part_gz
-// are its (N, S, C) partials on this grid.
+// hold K shards' (N, S, C) partials from it on this grid, shard k's at offset
+// k * kstride floats, as apply_kernel takes them; the means are over K * V.
 template <typename T, int VEC, int ACT>
 __global__ void __launch_bounds__(kThreads)
 bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  const float* __restrict__ mean, const float* __restrict__ rstd,
                  const float* __restrict__ part_g, const float* __restrict__ part_gz,
-                 T* __restrict__ dx, int64_t V, int C, int S, float slope) {
+                 T* __restrict__ dx, int64_t V, int C, int S, int K, int64_t kstride,
+                 float slope) {
   extern __shared__ float smem[];
   using P = Pack<T, VEC>;
   const int G = C / VEC;
@@ -680,14 +696,16 @@ bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int s = blockIdx.x;
   const int64_t n = blockIdx.y;
 
-  // The merge: lane ty adds partials ty, ty + R, ... in order, then the
-  // lanes' tree. Every block of (n, channels) does the same, in the same order.
+  // The merge: lane ty adds partials ty, ty + R, ... of the K * S in order,
+  // then the lanes' tree. Every block of (n, channels), on every rank, does
+  // the same, in the same order.
   float m[2 * VEC];  // mean(g') then mean(g'z)
 #pragma unroll
   for (int i = 0; i < 2 * VEC; ++i) m[i] = 0.f;
   if (grp < G) {
-    for (int j = ty; j < S; j += R) {
-      const int64_t o = (n * S + j) * C + (int64_t)grp * VEC;
+    for (int jj = ty; jj < K * S; jj += R) {
+      const int k = jj / S, j = jj - k * S;
+      const int64_t o = k * kstride + (n * S + j) * C + (int64_t)grp * VEC;
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         m[i] += part_g[o + i];
@@ -698,7 +716,7 @@ bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
   sum_lanes<2 * VEC>(m, smem);
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 2 * VEC; ++i) m[i] = smem[tx * 2 * VEC + i] / (float)V;
+  for (int i = 0; i < 2 * VEC; ++i) m[i] = smem[tx * 2 * VEC + i] / (float)(K * V);
   if (grp >= G) return;
 
   float mu[VEC], rs[VEC];
@@ -820,12 +838,16 @@ int mra_in_stats(const void* x, void* part_mean, void* part_m2, int64_t N, int64
   });
 }
 
-// x, y (N, V, C) in `dtype`; part_mean, part_m2 (N, S, C) from mra_in_stats
-// with the same S; mean, rstd (N, C), written here. All stats float32.
+// x, y (N, V, C) in `dtype`; part_mean, part_m2 the (N, S, C) partials of
+// mra_in_stats with the same S for each of K equal shards, shard k's at
+// offset k * kstride floats (K = 1: one volume); mean, rstd (N, C) over all
+// K * V voxels, written here. All stats float32.
 int mra_in_apply(const void* x, const void* part_mean, const void* part_m2, void* mean,
-                 void* rstd, void* y, int64_t N, int64_t V, int C, int S, int dtype, int vec,
-                 int act, float eps, float slope, void* stream) {
-  if (!valid(N, V, C, S, vec)) return (int)cudaErrorInvalidValue;
+                 void* rstd, void* y, int64_t N, int64_t V, int C, int S, int K,
+                 int64_t kstride, int dtype, int vec, int act, float eps, float slope,
+                 void* stream) {
+  if (!valid(N, V, C, S, vec) || K < 1 || (K > 1 && kstride < N * S * C))
+    return (int)cudaErrorInvalidValue;
   return dispatch(dtype, vec, act, [&](auto t, auto v, auto a) {
     MRA_KERNEL_TYPES(t, v, a);
     const Geometry geo = geometry<VEC>(N, C, S);
@@ -835,7 +857,7 @@ int mra_in_apply(const void* x, const void* part_mean, const void* part_m2, void
     apply_kernel<T, VEC, ACT><<<geo.grid, geo.block, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x), static_cast<const float*>(part_mean),
         static_cast<const float*>(part_m2), static_cast<float*>(mean),
-        static_cast<float*>(rstd), static_cast<T*>(y), V, C, S, eps, slope);
+        static_cast<float*>(rstd), static_cast<T*>(y), V, C, S, K, kstride, eps, slope);
     return (int)cudaGetLastError();
   });
 }
@@ -885,11 +907,15 @@ int mra_in_bwd_stats(const void* x, const void* g, const void* mean, const void*
 }
 
 // x, g, dx (N, V, C) in `dtype`; mean, rstd (N, C) float32; part_g,
-// part_gz (N, S, C) float32 from mra_in_bwd_stats with the same S.
+// part_gz the (N, S, C) float32 sums of mra_in_bwd_stats with the same S for
+// each of K equal shards, shard k's at offset k * kstride floats (K = 1: one
+// volume).
 int mra_in_bwd_apply(const void* x, const void* g, const void* mean, const void* rstd,
                      const void* part_g, const void* part_gz, void* dx, int64_t N, int64_t V,
-                     int C, int S, int dtype, int vec, int act, float slope, void* stream) {
-  if (!valid(N, V, C, S, vec)) return (int)cudaErrorInvalidValue;
+                     int C, int S, int K, int64_t kstride, int dtype, int vec, int act,
+                     float slope, void* stream) {
+  if (!valid(N, V, C, S, vec) || K < 1 || (K > 1 && kstride < N * S * C))
+    return (int)cudaErrorInvalidValue;
   return dispatch(dtype, vec, act, [&](auto t, auto v, auto a) {
     MRA_KERNEL_TYPES(t, v, a);
     const Geometry geo = geometry<VEC>(N, C, S);
@@ -899,7 +925,7 @@ int mra_in_bwd_apply(const void* x, const void* g, const void* mean, const void*
             static_cast<const T*>(x), static_cast<const T*>(g),
             static_cast<const float*>(mean), static_cast<const float*>(rstd),
             static_cast<const float*>(part_g), static_cast<const float*>(part_gz),
-            static_cast<T*>(dx), V, C, S, slope);
+            static_cast<T*>(dx), V, C, S, K, kstride, slope);
     return (int)cudaGetLastError();
   });
 }

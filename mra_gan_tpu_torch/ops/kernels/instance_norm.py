@@ -15,6 +15,17 @@ Port of mra_gan_tpu/ops/pallas/instance_norm.py (``_fwd`` :108, ``_bwd``
   g' z (N, S, C)
 - ``instance_norm_bwd_apply`` x, g, mean, rstd, those sums -> dx
 
+Under depth sharding (K ranks of a process group, each holding an equal
+(N, C, D/K, H, W) shard) the two apply kernels merge the partials of all K
+shards, all-gathered rank-major into one (K, 2, N, S, C) buffer, in their
+prologue: ``instance_norm_apply_sharded`` and
+``instance_norm_bwd_apply_sharded`` (the same kernels, launched with K).
+``instance_norm_two_pass_sharded`` and ``instance_norm_bwd_two_pass_sharded``
+are the routes, stats -> gather -> apply, whatever ``uses_slab`` says: a slab
+kernel cannot see the other shards. Their segment count follows from the
+shape alone, so every rank picks the same S, and keeps the K * S partials
+an apply block merges within what one volume's merge reads.
+
 Forward and backward each take one of two routes, picked by ``uses_slab``
 from the shape and dtype alone, so a norm's two directions take the same
 one: where one (n, 32-byte channel chunk) instance fits in SLAB_BYTES of
@@ -25,7 +36,8 @@ bwd stats then bwd apply).
 
 A wrapper given a CPU tensor runs its plain version; given a CUDA tensor it
 launches its kernel or raises (wrong dtype, shape or layout, failed build,
-refused launch). Each launch adds one to ``LAUNCHES[<wrapper name>]``;
+refused launch). Each launch adds one to ``LAUNCHES[<wrapper name>]``, and a launch
+of an apply kernel with K > 1 shards also to ``SHARDED_LAUNCHES[<wrapper name>]``;
 ``instance_norm_act_bwd_fused`` adds one to ``GRAD_RELAYOUTS["count"]`` for
 each gradient it had to copy into a fresh channels_last_3d tensor.
 
@@ -40,9 +52,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from ...parallel.collectives import all_gather_stacked, group_size
 
 EPS = 1e-5
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
@@ -62,13 +76,15 @@ SLAB_CHUNK = 32          # kSlabChunk in the .cu: bytes of channels per voxel in
 FORWARD = ("instance_norm_slab", "instance_norm_stats", "instance_norm_apply")
 BACKWARD = ("instance_norm_bwd_slab", "instance_norm_bwd_stats", "instance_norm_bwd_apply")
 LAUNCHES = {k: 0 for k in FORWARD + BACKWARD}
+SHARDED_LAUNCHES = {"instance_norm_apply": 0, "instance_norm_bwd_apply": 0}
 GRAD_RELAYOUTS = {"count": 0}
 
 
 def reset_launches() -> None:
     """Zero every launch counter and the gradient relayout counter."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SHARDED_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     GRAD_RELAYOUTS["count"] = 0
 
 
@@ -178,9 +194,22 @@ def stats_plain(x: torch.Tensor, segments: int) -> Tuple[torch.Tensor, torch.Ten
     return mean.transpose(1, 2).contiguous(), m2.transpose(1, 2).contiguous()
 
 
+def _concat_shards(part: torch.Tensor) -> torch.Tensor:
+    # (K, N, S, C) partials of K shards -> (N, K * S, C), shard-major
+    k, n, s, c = part.shape
+    return part.permute(1, 0, 2, 3).reshape(n, k * s, c)
+
+
 def finalize_plain(part_mean: torch.Tensor, part_m2: torch.Tensor, voxels: int,
                    eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chan's parallel merge of the segment partials -> mean, rstd (N, C)."""
+    """Chan's parallel merge of the segment partials -> mean, rstd (N, C).
+    The partials are (N, S, C) of one volume of ``voxels``, or (K, N, S, C)
+    of K equal depth shards of ``voxels`` each, merged as their
+    concatenation (N, K * S, C) over K * voxels: shard k's segment j is
+    segment k * S + j of the whole, and has the same count."""
+    if part_mean.dim() == 4:
+        voxels *= part_mean.shape[0]
+        part_mean, part_m2 = _concat_shards(part_mean), _concat_shards(part_m2)
     counts = _segment_sizes(voxels, part_mean.shape[1], part_mean.device).view(1, -1, 1)
     mean = (part_mean * counts).sum(1) / voxels
     m2 = part_m2.sum(1) + (counts * (part_mean - mean[:, None]).square()).sum(1)
@@ -227,8 +256,12 @@ def bwd_stats_plain(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
 
 def bwd_finalize_plain(part_g: torch.Tensor, part_gz: torch.Tensor,
                        voxels: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Segment sums (N, S, C) -> mean(g'), mean(g' z) (N, C): the merge in
-    the bwd apply kernel's prologue."""
+    """Segment sums (N, S, C), or (K, N, S, C) of K equal shards of
+    ``voxels`` each -> mean(g'), mean(g' z) (N, C) over all of them: the
+    merge in the bwd apply kernel's prologue."""
+    if part_g.dim() == 4:
+        voxels *= part_g.shape[0]
+        part_g, part_gz = _concat_shards(part_g), _concat_shards(part_gz)
     return part_g.sum(1) / voxels, part_gz.sum(1) / voxels
 
 
@@ -292,24 +325,45 @@ def num_segments(n: int, voxels: int, c: int, vec: int,
     return max(1, min(want, most))
 
 
-def forward_segments(x: torch.Tensor) -> int:
-    """The two-pass forward's segment count for x."""
+def _shard_width(x: torch.Tensor, shards: int, width: int) -> int:
+    # A depth shard's width from its shape alone, 16 bytes where C allows
+    # it: every rank's shard has the same shape, so every rank picks the
+    # same S whatever its pointers' alignment, and the gathered partials
+    # line up. One volume keeps the width its pointers allow.
+    if shards == 1:
+        return width
+    vec = 16 // x.element_size()
+    return 1 if x.shape[1] % vec else vec
+
+
+def forward_segments(x: torch.Tensor, shards: int = 1) -> int:
+    """The two-pass forward's segment count for x, or for x one of
+    ``shards`` equal depth shards of a volume: then the whole volume's
+    count divided by the shards. Each apply block so merges the whole
+    volume's S partials, not K times them, and where K divides that count
+    the K shards' segments are the whole volume's, so the merged statistics
+    are the unsharded norm's bit for bit."""
     n, c = x.shape[:2]
-    return num_segments(n, math.prod(x.shape[2:]), c, vector_width(x), _FWD_TARGET_BLOCKS)
+    voxels = math.prod(x.shape[2:]) * shards
+    vec = _shard_width(x, shards, vector_width(x))
+    return max(1, num_segments(n, voxels, c, vec, _FWD_TARGET_BLOCKS) // shards)
 
 
-def backward_segments(x: torch.Tensor, g: torch.Tensor) -> int:
+def backward_segments(x: torch.Tensor, g: torch.Tensor, shards: int = 1) -> int:
     """The two-pass backward's segment count for x and g: ``num_segments``,
-    but at most sqrt(V * itemsize / 8). Each bwd apply block reads all S
-    partial sums of its channels (8 bytes a channel each) besides its own
-    V / S voxels of x and g (2 * itemsize bytes a channel each); the bound
-    keeps the first under half of the second. Without it the 64^3 and 32^3
-    backwards at batch 1 and 2 took several times the segments and ran
-    slower on the H100."""
+    but at most sqrt(V * itemsize / (8 K)). Each bwd apply block reads all
+    K * S partial sums of its channels (8 bytes a channel each) besides its
+    own V / S voxels of x and g (2 * itemsize bytes a channel each); the
+    bound keeps the first under half of the second. Without it the 64^3 and
+    32^3 backwards at batch 1 and 2 took several times the segments and
+    ran slower on the H100. For x one of K = ``shards`` equal depth shards
+    the block target is not divided by K, unlike the forward's count: at
+    the 2 x 128^3 shard a backward with half the blocks ran 22% slower."""
     n, c = x.shape[:2]
     voxels = math.prod(x.shape[2:])
-    most = max(1, math.isqrt(voxels * x.element_size() // 8))
-    return min(num_segments(n, voxels, c, pair_width(x, g)), most)
+    most = max(1, math.isqrt(voxels * x.element_size() // (8 * shards)))
+    vec = _shard_width(x, shards, pair_width(x, g))
+    return min(num_segments(n, voxels, c, vec), most)
 
 
 # ---------------------------------------------------------------------------
@@ -323,13 +377,13 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library("instance_norm")))
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
     lib.mra_in_stats.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32, p]
-    lib.mra_in_apply.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, i32, f32,
-                                 f32, p]
+    lib.mra_in_apply.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, i32, i64, i32, i32,
+                                 i32, f32, f32, p]
     lib.mra_in_slab.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, f32, f32, p]
     lib.mra_in_bwd_stats.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, i32,
                                      f32, p]
-    lib.mra_in_bwd_apply.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, i32,
-                                     f32, p]
+    lib.mra_in_bwd_apply.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i64, i32,
+                                     i32, i32, f32, p]
     lib.mra_in_bwd_slab.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, f32, p]
     for fn in (lib.mra_in_stats, lib.mra_in_apply, lib.mra_in_slab,
                lib.mra_in_bwd_stats, lib.mra_in_bwd_apply, lib.mra_in_bwd_slab):
@@ -388,14 +442,31 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def instance_norm_stats(x: torch.Tensor, segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _partials_out(out: Optional[torch.Tensor], n: int, segments: int, c: int, device,
+                  what: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    # the two (N, S, C) halves of a (2, N, S, C) buffer, or two fresh tensors
+    if out is None:
+        return (torch.empty((n, segments, c), device=device, dtype=torch.float32),
+                torch.empty((n, segments, c), device=device, dtype=torch.float32))
+    _check_stats(out, (2, n, segments, c), device, what)
+    return out[0], out[1]
+
+
+def instance_norm_stats(x: torch.Tensor, segments: int, out: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, C, D, H, W) -> (mean, M2) of each of ``segments`` voxel segments,
-    each (N, segments, C) float32."""
+    each (N, segments, C) float32; written into ``out[0]`` and ``out[1]``
+    when given a (2, N, segments, C) float32 buffer (the sharded route
+    gathers it in one collective)."""
     if x.device.type == "cpu":
-        return stats_plain(x, segments)
+        part_mean, part_m2 = stats_plain(x, segments)
+        if out is None:
+            return part_mean, part_m2
+        out[0].copy_(part_mean)
+        out[1].copy_(part_m2)
+        return out[0], out[1]
     n, v, c = _check_volume(x, "instance_norm_stats")
-    part_mean = torch.empty((n, segments, c), device=x.device, dtype=torch.float32)
-    part_m2 = torch.empty_like(part_mean)
+    part_mean, part_m2 = _partials_out(out, n, segments, c, x.device, "instance_norm_stats")
     err = _lib().mra_in_stats(x.data_ptr(), part_mean.data_ptr(), part_m2.data_ptr(),
                               n, v, c, segments, _DTYPE_CODES[x.dtype],
                               vector_width(x), _stream(x))
@@ -422,16 +493,57 @@ def instance_norm_apply(x: torch.Tensor, part_mean: torch.Tensor, part_m2: torch
     segments = part_mean.shape[1]
     for t in (part_mean, part_m2):
         _check_stats(t, (n, segments, c), x.device, "instance_norm_apply")
+    return _launch_apply(x, part_mean.data_ptr(), part_m2.data_ptr(), segments, 1, 0, act,
+                         negative_slope, eps)
+
+
+def _launch_apply(x, mean_ptr: int, m2_ptr: int, segments: int, shards: int, kstride: int,
+                  act: str, negative_slope: float, eps: float):
+    n, v, c = x.shape[0], math.prod(x.shape[2:]), x.shape[1]
     mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
     rstd = torch.empty_like(mean)
     y = torch.empty_like(x, memory_format=torch.channels_last_3d)
-    err = _lib().mra_in_apply(x.data_ptr(), part_mean.data_ptr(), part_m2.data_ptr(),
-                              mean.data_ptr(), rstd.data_ptr(), y.data_ptr(), n, v, c, segments,
+    err = _lib().mra_in_apply(x.data_ptr(), mean_ptr, m2_ptr, mean.data_ptr(), rstd.data_ptr(),
+                              y.data_ptr(), n, v, c, segments, shards, kstride,
                               _DTYPE_CODES[x.dtype], vector_width(x), ACTS[act], eps,
                               negative_slope, _stream(x))
     _raise_on(err, "instance_norm_apply")
     LAUNCHES["instance_norm_apply"] += 1
+    if shards > 1:
+        SHARDED_LAUNCHES["instance_norm_apply"] += 1
     return y, mean, rstd
+
+
+def _check_gathered(partials: torch.Tensor, x: torch.Tensor, what: str) -> Tuple[int, int]:
+    # (K, 2, N, S, C) float32, contiguous, on x's device -> (K, S)
+    n, c = x.shape[:2]
+    if partials.dim() != 5 or partials.shape[1] != 2 or partials.shape[2] != n \
+            or partials.shape[4] != c:
+        raise ValueError(f"{what}: gathered partials must be (K, 2, {n}, S, {c}), got "
+                         f"{tuple(partials.shape)}")
+    _check_stats(partials, tuple(partials.shape), x.device, what)
+    return partials.shape[0], partials.shape[3]
+
+
+def instance_norm_apply_sharded(x: torch.Tensor, partials: torch.Tensor, act: str = "none",
+                                negative_slope: float = 0.2, eps: float = EPS
+                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``instance_norm_apply`` of one depth shard x with the statistics of
+    all K shards: ``partials`` (K, 2, N, S, C) float32 holds each shard's
+    stats-kernel (mean, M2) partials, rank-major, as the all-gather of the
+    (2, N, S, C) buffers of ``instance_norm_stats(x, S, out=...)`` leaves
+    them. One launch of the apply kernel with K; the plain merge on the
+    CPU."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        mean, rstd = finalize_plain(partials[:, 0], partials[:, 1], math.prod(x.shape[2:]), eps)
+        return apply_plain(x, mean, rstd, act, negative_slope), mean, rstd
+    _check_volume(x, "instance_norm_apply_sharded")
+    shards, segments = _check_gathered(partials, x, "instance_norm_apply_sharded")
+    half = partials[0, 0].numel()
+    return _launch_apply(x, partials.data_ptr(), partials.data_ptr() + 4 * half, segments,
+                         shards, 2 * half, act, negative_slope, eps)
 
 
 def instance_norm_slab(x: torch.Tensor, act: str = "none", negative_slope: float = 0.2,
@@ -462,20 +574,26 @@ def instance_norm_slab(x: torch.Tensor, act: str = "none", negative_slope: float
 
 def instance_norm_bwd_stats(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
                             rstd: torch.Tensor, segments: int, act: str = "none",
-                            negative_slope: float = 0.2) -> Tuple[torch.Tensor, torch.Tensor]:
+                            negative_slope: float = 0.2, out: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, g (N, C, D, H, W) and the forward's mean, rstd (N, C) -> sums of
     g' and g' z over each of ``segments`` voxel segments, each (N, segments,
-    C) float32."""
+    C) float32; written into ``out[0]`` and ``out[1]`` when given a (2, N,
+    segments, C) float32 buffer."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
-        return bwd_stats_plain(x, g, mean, rstd, segments, act, negative_slope)
+        part_g, part_gz = bwd_stats_plain(x, g, mean, rstd, segments, act, negative_slope)
+        if out is None:
+            return part_g, part_gz
+        out[0].copy_(part_g)
+        out[1].copy_(part_gz)
+        return out[0], out[1]
     n, v, c = _check_volume(x, "instance_norm_bwd_stats")
     _check_grad(g, x, "instance_norm_bwd_stats")
     for t in (mean, rstd):
         _check_stats(t, (n, c), x.device, "instance_norm_bwd_stats")
-    part_g = torch.empty((n, segments, c), device=x.device, dtype=torch.float32)
-    part_gz = torch.empty_like(part_g)
+    part_g, part_gz = _partials_out(out, n, segments, c, x.device, "instance_norm_bwd_stats")
     err = _lib().mra_in_bwd_stats(x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                                   part_g.data_ptr(), part_gz.data_ptr(), n, v, c, segments,
                                   _DTYPE_CODES[x.dtype], pair_width(x, g), ACTS[act],
@@ -506,14 +624,50 @@ def instance_norm_bwd_apply(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor
     segments = part_g.shape[1]
     for t in (part_g, part_gz):
         _check_stats(t, (n, segments, c), x.device, "instance_norm_bwd_apply")
+    return _launch_bwd_apply(x, g, mean, rstd, part_g.data_ptr(), part_gz.data_ptr(), segments,
+                             1, 0, act, negative_slope)
+
+
+def _launch_bwd_apply(x, g, mean, rstd, g_ptr: int, gz_ptr: int, segments: int, shards: int,
+                      kstride: int, act: str, negative_slope: float) -> torch.Tensor:
+    n, v, c = x.shape[0], math.prod(x.shape[2:]), x.shape[1]
     dx = torch.empty_like(x, memory_format=torch.channels_last_3d)
     err = _lib().mra_in_bwd_apply(x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                                  part_g.data_ptr(), part_gz.data_ptr(), dx.data_ptr(), n, v, c,
-                                  segments, _DTYPE_CODES[x.dtype], pair_width(x, g), ACTS[act],
+                                  g_ptr, gz_ptr, dx.data_ptr(), n, v, c, segments, shards,
+                                  kstride, _DTYPE_CODES[x.dtype], pair_width(x, g), ACTS[act],
                                   negative_slope, _stream(x))
     _raise_on(err, "instance_norm_bwd_apply")
     LAUNCHES["instance_norm_bwd_apply"] += 1
+    if shards > 1:
+        SHARDED_LAUNCHES["instance_norm_bwd_apply"] += 1
     return dx
+
+
+def instance_norm_bwd_apply_sharded(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                                    rstd: torch.Tensor, partials: torch.Tensor,
+                                    act: str = "none", negative_slope: float = 0.2
+                                    ) -> torch.Tensor:
+    """``instance_norm_bwd_apply`` of one depth shard with the sums of all K
+    shards: ``partials`` (K, 2, N, S, C) float32 holds each shard's (g', g'
+    z) sums, rank-major, as the all-gather of the buffers of
+    ``instance_norm_bwd_stats(..., out=...)`` leaves them; the means are
+    over K times the shard's voxels. One launch of the bwd apply kernel
+    with K; the plain merge on the CPU."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        gmean, gzmean = bwd_finalize_plain(partials[:, 0], partials[:, 1],
+                                           math.prod(x.shape[2:]))
+        return bwd_apply_plain(x, g, mean, rstd, gmean, gzmean, act, negative_slope)
+    n, v, c = _check_volume(x, "instance_norm_bwd_apply_sharded")
+    _check_grad(g, x, "instance_norm_bwd_apply_sharded")
+    for t in (mean, rstd):
+        _check_stats(t, (n, c), x.device, "instance_norm_bwd_apply_sharded")
+    shards, segments = _check_gathered(partials, x, "instance_norm_bwd_apply_sharded")
+    half = partials[0, 0].numel()
+    return _launch_bwd_apply(x, g, mean, rstd, partials.data_ptr(),
+                             partials.data_ptr() + 4 * half, segments, shards, 2 * half, act,
+                             negative_slope)
 
 
 def instance_norm_bwd_slab(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
@@ -551,6 +705,22 @@ def instance_norm_two_pass(x: torch.Tensor, act: str = "none", negative_slope: f
     return instance_norm_apply(x, part_mean, part_m2, act, negative_slope, eps)
 
 
+def instance_norm_two_pass_sharded(x: torch.Tensor, group, act: str = "none",
+                                   negative_slope: float = 0.2, eps: float = EPS):
+    """The forward of one depth shard of a volume split over the ranks of
+    ``group``, rank r holding depth rows [r D/K, (r + 1) D/K): stats into a
+    (2, N, S, C) buffer, one all-gather of it over the group (rank-major),
+    and the K-shard apply. On CUDA two launches, on the CPU the plain
+    versions. Returns (y, mean, rstd), mean and rstd those of the whole
+    volume, equal bit for bit on every rank."""
+    n, c = x.shape[:2]
+    segments = forward_segments(x, group_size(group))
+    buf = torch.empty((2, n, segments, c), device=x.device, dtype=torch.float32)
+    instance_norm_stats(x, segments, out=buf)
+    return instance_norm_apply_sharded(x, all_gather_stacked(buf, group), act,
+                                       negative_slope, eps)
+
+
 def instance_norm_act_fwd(x: torch.Tensor, act: str = "none", negative_slope: float = 0.2,
                           eps: float = EPS):
     """The kernel path: one slab launch where ``uses_slab`` holds, else the
@@ -576,6 +746,32 @@ def instance_norm_bwd_two_pass(x: torch.Tensor, g: torch.Tensor, mean: torch.Ten
     return instance_norm_bwd_apply(x, g, mean, rstd, part_g, part_gz, act, negative_slope)
 
 
+def instance_norm_bwd_two_pass_sharded(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                                       rstd: torch.Tensor, group, act: str = "none",
+                                       negative_slope: float = 0.2) -> torch.Tensor:
+    """The backward of ``instance_norm_two_pass_sharded`` over the same
+    group: bwd stats into a (2, N, S, C) buffer, one all-gather of it, the
+    K-shard bwd apply. A CUDA g that is not channels_last_3d or not 16-byte
+    aligned is copied first, as ``instance_norm_act_bwd_fused`` does, and
+    counted. Returns dx."""
+    g = _kernel_grad(g)
+    n, c = x.shape[:2]
+    segments = backward_segments(x, g, group_size(group))
+    buf = torch.empty((2, n, segments, c), device=x.device, dtype=torch.float32)
+    instance_norm_bwd_stats(x, g, mean, rstd, segments, act, negative_slope, out=buf)
+    return instance_norm_bwd_apply_sharded(x, g, mean, rstd, all_gather_stacked(buf, group),
+                                           act, negative_slope)
+
+
+def _kernel_grad(g: torch.Tensor) -> torch.Tensor:
+    # a CUDA gradient in the kernels' layout and alignment, a copy counted
+    if g.is_cuda and (g.data_ptr() % 16
+                      or not g.is_contiguous(memory_format=torch.channels_last_3d)):
+        g = g.clone(memory_format=torch.channels_last_3d)
+        GRAD_RELAYOUTS["count"] += 1
+    return g
+
+
 def instance_norm_act_bwd_fused(x: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
                                 rstd: torch.Tensor, act: str = "none",
                                 negative_slope: float = 0.2) -> torch.Tensor:
@@ -585,9 +781,6 @@ def instance_norm_act_bwd_fused(x: torch.Tensor, g: torch.Tensor, mean: torch.Te
     over, for example from a replication pad's backward) or not 16-byte
     aligned is copied into a fresh channels_last_3d tensor first, and the
     copy counted in ``GRAD_RELAYOUTS``."""
-    if g.is_cuda and (g.data_ptr() % 16
-                      or not g.is_contiguous(memory_format=torch.channels_last_3d)):
-        g = g.clone(memory_format=torch.channels_last_3d)
-        GRAD_RELAYOUTS["count"] += 1
+    g = _kernel_grad(g)
     route = instance_norm_bwd_slab if uses_slab(x.shape, x.dtype) else instance_norm_bwd_two_pass
     return route(x, g, mean, rstd, act, negative_slope)

@@ -2,10 +2,22 @@
 GAN loss (LSGAN = MSE, vanilla = BCE on a sigmoid output), the L1 cycle and
 identity criterion, and the Pearson correlation loss 1 - r^2. Every
 reduction is float32 whatever the compute dtype (float64 for a float64
-input, so that a float64 run can serve as a reference)."""
+input, so that a float64 run can serve as a reference).
+
+Inside a shard context (core.spatial_ctx: the depth shards of a volume, the
+batch rows of a data-parallel step, or both) every reduction covers all
+shards, as JAX ``_gmean``/``_gsum`` do (losses.py:27-50): the local means
+are averaged and the local sums added over each group, so the value is the
+one-device loss on every rank. The gradient is the local loss's: each rank
+differentiates its own shard's term and the train step averages the
+parameter gradients over the ranks (models/cycle_gan.py), which gives the
+gradient of the global mean exactly once."""
 from __future__ import annotations
 
 import torch
+
+from ..core.spatial_ctx import shard_axes
+from ..parallel.collectives import all_reduce_
 
 # vanilla GAN's clip: above the float32 ulp at 1.0, so 1 - eps stays below 1
 VANILLA_EPS = 1e-6
@@ -13,6 +25,28 @@ VANILLA_EPS = 1e-6
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _global(local: torch.Tensor, mean: bool) -> torch.Tensor:
+    # the value reduced over every shard axis (uniform shards), the gradient
+    # the local one's
+    axes = shard_axes()
+    if not axes:
+        return local
+    total = local.detach().reshape(1).clone()
+    for axis in axes:
+        all_reduce_(total, axis.group)
+        if mean:
+            total /= axis.size
+    return local + (total[0] - local.detach())
+
+
+def _gmean(x: torch.Tensor) -> torch.Tensor:
+    return _global(x.mean(), mean=True)
+
+
+def _gsum(x: torch.Tensor) -> torch.Tensor:
+    return _global(x.sum(), mean=False)
 
 
 def gan_loss(pred: torch.Tensor, target_is_real: bool, mode: str = "lsgan") -> torch.Tensor:
@@ -23,20 +57,20 @@ def gan_loss(pred: torch.Tensor, target_is_real: bool, mode: str = "lsgan") -> t
     which clamps the log at -100 instead."""
     pred = _f32(pred)
     if mode == "lsgan":
-        return (pred - (1.0 if target_is_real else 0.0)).square().mean()
+        return _gmean((pred - (1.0 if target_is_real else 0.0)).square())
     if mode == "vanilla":
         p = pred.clamp(VANILLA_EPS, 1.0 - VANILLA_EPS)
-        return (-torch.log(p) if target_is_real else -torch.log1p(-p)).mean()
+        return _gmean(-torch.log(p) if target_is_real else -torch.log1p(-p))
     raise ValueError(f"unknown gan loss mode {mode!r}")
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return (_f32(pred) - _f32(target)).abs().mean()
+    return _gmean((_f32(pred) - _f32(target)).abs())
 
 
 def cor_coe_loss(y_pred: torch.Tensor, y_target: torch.Tensor) -> torch.Tensor:
-    """1 - Pearson r^2 over all elements."""
+    """1 - Pearson r^2 over all elements (of every shard)."""
     x, y = _f32(y_pred), _f32(y_target)
-    xc, yc = x - x.mean(), y - y.mean()
-    r = (xc * yc).sum() / (torch.sqrt((xc * xc).sum()) * torch.sqrt((yc * yc).sum()))
+    xc, yc = x - _gmean(x), y - _gmean(y)
+    r = _gsum(xc * yc) / (torch.sqrt(_gsum(xc * xc)) * torch.sqrt(_gsum(yc * yc)))
     return 1.0 - r * r

@@ -12,46 +12,69 @@ not). A CPU tensor takes the plain versions, which follow the JAX
 hand-written kernels (ops/kernels/csrc/instance_norm.cu), forward and
 backward. The JAX package's grouped-lane variant
 (``instance_norm_act_grouped``) is a TPU layout rewrite of the same function
-and maps to the same call here."""
+and maps to the same call here.
+
+Under ``core.spatial_ctx.spatial_sharding`` x is one rank's depth shard of a
+volume split over a process group, and the statistics are those of the
+whole volume (JAX ``_spatial_mean`` pmeans the shards' means, norm.py:37-50):
+the forward runs stats -> all-gather of the partials -> the K-shard apply,
+and the backward bwd stats -> all-gather -> the K-shard bwd apply, over the
+group the forward saw (the backward runs after the context has closed).
+That route is taken whatever ``uses_slab`` says, on the kernels on CUDA and
+their plain versions on the CPU."""
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..core.spatial_ctx import spatial_shard_info
 from .kernels.instance_norm import (
     EPS,
     instance_norm_act_bwd_fused,
     instance_norm_act_bwd_plain,
     instance_norm_act_fwd,
     instance_norm_act_plain_fwd,
+    instance_norm_bwd_two_pass_sharded,
+    instance_norm_two_pass_sharded,
 )
 
 
 class InstanceNormAct(torch.autograd.Function):
     """act(instance_norm(x)) with the analytic backward; saves x, mean and
-    rstd (not y)."""
+    rstd (not y). ``axis`` (a core.spatial_ctx.ShardAxis, or None) is the
+    depth-shard group the statistics span."""
 
     @staticmethod
-    def forward(ctx, x, eps, act, negative_slope):
-        fwd = instance_norm_act_plain_fwd if x.device.type == "cpu" else instance_norm_act_fwd
-        y, mean, rstd = fwd(x, act, negative_slope, eps)
+    def forward(ctx, x, eps, act, negative_slope, axis=None):
+        if axis is not None:
+            y, mean, rstd = instance_norm_two_pass_sharded(x, axis.group, act,
+                                                           negative_slope, eps)
+        else:
+            fwd = instance_norm_act_plain_fwd if x.device.type == "cpu" else instance_norm_act_fwd
+            y, mean, rstd = fwd(x, act, negative_slope, eps)
         ctx.save_for_backward(x, mean, rstd)
-        ctx.act, ctx.negative_slope = act, negative_slope
+        ctx.act, ctx.negative_slope, ctx.axis = act, negative_slope, axis
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, mean, rstd = ctx.saved_tensors
-        bwd = (instance_norm_act_bwd_plain if x.device.type == "cpu"
-               else instance_norm_act_bwd_fused)
-        return bwd(x, g, mean, rstd, ctx.act, ctx.negative_slope), None, None, None
+        if ctx.axis is not None:
+            dx = instance_norm_bwd_two_pass_sharded(x, g, mean, rstd, ctx.axis.group, ctx.act,
+                                                    ctx.negative_slope)
+        else:
+            bwd = (instance_norm_act_bwd_plain if x.device.type == "cpu"
+                   else instance_norm_act_bwd_fused)
+            dx = bwd(x, g, mean, rstd, ctx.act, ctx.negative_slope)
+        return dx, None, None, None, None
 
 
 def instance_norm_act(x: torch.Tensor, eps: float = EPS, act: str = "none",
                       negative_slope: float = 0.2) -> torch.Tensor:
-    """act in {'none', 'relu', 'leaky_relu', 'tanh'}."""
-    return InstanceNormAct.apply(x, eps, act, negative_slope)
+    """act in {'none', 'relu', 'leaky_relu', 'tanh'}; over the whole volume
+    of a depth shard inside ``spatial_sharding``."""
+    return InstanceNormAct.apply(x, eps, act, negative_slope, spatial_shard_info())
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:

@@ -90,11 +90,17 @@ class BaseOptions:
         parser.add_argument("--num_samples", type=int, default=2,
                             help="random patches per volume per epoch")
         parser.add_argument("--data_parallel", action="store_true",
-                            help="not ported (ROADMAP Queue A, parallelism)")
+                            help="shard the batch over all ranks")
         parser.add_argument("--spatial_parallel", action="store_true",
-                            help="not ported (ROADMAP Queue A, parallelism)")
+                            help="depth-shard every patch over the ranks "
+                                 "(train patches too large for one card's "
+                                 "memory; patch depth must be divisible by "
+                                 "4*spatial ranks). Combine with "
+                                 "--data_parallel for a 2-D dp x sp grid")
         parser.add_argument("--space_devices", type=int, default=0,
-                            help="with --spatial_parallel only")
+                            help="ranks on the spatial axis (0 = all "
+                                 "when --spatial_parallel alone; required "
+                                 "with --data_parallel + --spatial_parallel)")
         parser.add_argument("--seed", type=int, default=0, help="global PRNG seed")
         parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                             help="run on the GPU (default) or, explicitly, on the CPU")

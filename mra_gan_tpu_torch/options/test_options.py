@@ -5,10 +5,11 @@ Every flag of the JAX package's decode parser, with its default, plus
 ``--device``. ``--suffix`` renames the run directory as the JAX parse does
 (base_options.py:145-146). Flags that a one-GPU decode has no use for
 (training data, loader, discriminator and seed flags, ``--gpu_ids``) are
-accepted and ignored, as the JAX decode ignores them; flags that select a
-path not ported yet (``--spatial_shard``, ``--data_parallel``,
-``--spatial_parallel``) are refused by the CLI when set, naming their
-ROADMAP item.
+accepted and ignored, as the JAX decode ignores them. ``--spatial_shard``
+and ``--data_parallel`` split the decode over the ranks of a process group
+(torchrun's, or one the caller joined); ``--spatial_parallel`` and
+``--space_devices`` are training flags the decode accepts and ignores, as
+the JAX decode does.
 """
 from __future__ import annotations
 
@@ -87,15 +88,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="name suffix template: e.g. {model}_{netG}")
     p.add_argument("--model", type=str, default="test", help="cycle_gan | test")
     p.add_argument("--phase", type=str, default="test")
-    # unported paths: refused when set
     p.add_argument("--spatial_shard", action="store_true",
-                   help="not ported (ROADMAP Queue A, parallelism)")
+                   help="decode the WHOLE volume in one pass with the volume "
+                        "depth-sharded across the ranks (halo-exchange convs) "
+                        "instead of sliding-window patching")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported (ROADMAP Queue A, parallelism)")
+                   help="deal the sliding window's patches over the ranks")
     p.add_argument("--spatial_parallel", action="store_true",
-                   help="not ported (ROADMAP Queue A, parallelism)")
+                   help="a training flag; ignored by the decode")
     p.add_argument("--space_devices", type=int, default=0,
-                   help="with --spatial_parallel only")
+                   help="a training flag; ignored by the decode")
     # the JAX decode's parser holds these as well; a decode does not read them
     ignored = p.add_argument_group("accepted and ignored (training, data loading, "
                                    "devices, other networks)")

@@ -1,1 +1,2 @@
-"""Whole-volume forward on one device (counterpart of mra_gan_tpu/parallel)."""
+"""Parallel decodes and train steps over torch.distributed process groups
+(counterpart of mra_gan_tpu/parallel)."""

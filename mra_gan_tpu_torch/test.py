@@ -22,6 +22,16 @@ written is reported and skipped, and the rest still decode.
 decode (JAX test.py:135-155): 'exact' uploads in the compute dtype and
 downloads float32, 'f32' is float32 both ways, 'f16' uploads in the compute
 dtype and downloads float16.
+
+Over several ranks (``torchrun --nproc_per_node R -m mra_gan_tpu_torch.test
+... --spatial_shard``, NCCL, one card each; or ranks whose process group the
+caller joined first, as the tests and ``chip_smoke.py`` do over gloo),
+--spatial_shard edge-pads the volume to (g[0] R, g[1], g[2]) and runs one
+forward depth-sharded over the ranks (``sharded_generator_apply``), and
+--data_parallel deals the sliding window's patches over them
+(``sharded_sliding_window``); every rank decodes and only rank 0 writes.
+With one rank both fall through to the one-device decode, as the JAX CLI's
+``len(jax.devices()) > 1`` guard does (JAX test.py:109-133).
 """
 from __future__ import annotations
 
@@ -35,8 +45,10 @@ import numpy as np
 import torch
 
 from .checkpoint.io import has_dropout_layout, read_reference_pth
+from .checkpoint.manager import is_writer
 from .core.device import resolve_device
 from .core.dtypes import compute_dtype
+from .core.mesh import Mesh, distributed_world, init_distributed, make_mesh
 from .data import nifti
 from .data.transforms import (
     from_tanh_range,
@@ -48,9 +60,13 @@ from .data.transforms import (
 )
 from .infer.sliding_window import sliding_window_inference
 from .models.cycle_gan import CycleGANConfig, GenerateFn, make_generate_fn
-from .models.networks import check_patch
+from .models.networks import check_patch, spatial_granularity
 from .options.test_options import parse
-from .parallel.spatial import single_pass_apply
+from .parallel.spatial import (
+    sharded_generator_apply,
+    sharded_sliding_window,
+    single_pass_apply,
+)
 
 
 def checkpoint_path(opt: argparse.Namespace) -> Path:
@@ -87,12 +103,15 @@ WIRE = {"exact": (torch.float32, None), "f32": (torch.float32, torch.float32),
 
 
 def inference(opt: argparse.Namespace, gen: Optional[GenerateFn] = None, img=None,
-              save_pool=None, save_futures=None, save: bool = True) -> nifti.NiftiImage:
+              save_pool=None, save_futures=None, save: bool = True,
+              mesh: Optional[Mesh] = None) -> nifti.NiftiImage:
     """Decode ``opt.image`` (or ``img``, a NiftiImage already read) with
     ``gen`` (loaded from ``opt`` when None) and return the result. With
     ``save``, write it to ``opt.result``: in this thread, or, given
     ``save_pool`` (an executor), as a task whose (path, future) pair is
-    appended to ``save_futures`` for the caller to collect."""
+    appended to ``save_futures`` for the caller to collect. Given a ``mesh``
+    of several ranks, --spatial_shard and --data_parallel decode over it;
+    every rank returns the result and only rank 0 saves it."""
     if gen is None:
         gen = load_generator(opt)
     patch = tuple(int(p) for p in opt.patch_size)
@@ -118,6 +137,20 @@ def inference(opt: argparse.Namespace, gen: Optional[GenerateFn] = None, img=Non
     if opt.single_pass:
         out = single_pass_apply(gen, vol)
         mode = "single-pass"
+    elif opt.spatial_shard and mesh is not None:
+        # one whole-volume forward, depth-sharded over the ranks (JAX
+        # test.py:113-128): edge-pad to (g[0] * ranks, g[1], g[2])
+        shp, g = vol.shape, spatial_granularity(gen.net)
+        mult = (g[0] * mesh.data, g[1], g[2])
+        volp = np.pad(vol, [(0, -n % m) for n, m in zip(shp, mult)], mode="edge")
+        out = sharded_generator_apply(mesh, gen, volp)[:shp[0], :shp[1], :shp[2]]
+        mode = "sharded single-pass"
+    elif opt.data_parallel and mesh is not None:
+        out = sharded_sliding_window(mesh, vol, gen, patch_size=patch,
+                                     stride_inplane=opt.stride_inplane,
+                                     stride_layer=opt.stride_layer, blend=opt.blend,
+                                     batch=opt.decode_batch)
+        mode = "sharded sliding-window"
     else:
         down, up = WIRE[opt.wire]
         out = sliding_window_inference(vol, gen, patch_size=patch,
@@ -136,6 +169,7 @@ def inference(opt: argparse.Namespace, gen: Optional[GenerateFn] = None, img=Non
     result = nifti.NiftiImage(data=np.asarray(out, np.float32), affine=work.affine)
     if opt.resample:
         result = resample_to_reference(result, original, "bspline")
+    save = save and is_writer()
     if save and save_pool is not None:
         save_futures.append((opt.result, save_pool.submit(nifti.save, result, opt.result)))
     elif save:
@@ -145,17 +179,24 @@ def inference(opt: argparse.Namespace, gen: Optional[GenerateFn] = None, img=Non
 
 
 def refuse_unported(opt: argparse.Namespace) -> None:
-    """NotImplementedError, naming its ROADMAP item, for a flag that selects
-    a path the port does not have yet; the JAX package's ValueError for a
-    U-Net patch smaller than the net's depth allows."""
-    for flag in ("spatial_shard", "data_parallel", "spatial_parallel"):
-        if getattr(opt, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet; see ROADMAP Queue A, "
-                                      f"parallelism")
+    """The JAX package's ValueError for a U-Net patch smaller than the
+    net's depth allows."""
     check_patch(opt.netG, opt.patch_size)
 
 
-def decode_directory(opt: argparse.Namespace, gen: GenerateFn) -> List[str]:
+def decode_mesh(opt: argparse.Namespace) -> Optional[Mesh]:
+    """The ranks' mesh (all on the data axis) when --spatial_shard or
+    --data_parallel is given and the process group has several ranks,
+    joining torchrun's group if the caller has joined none; else None, and
+    the decode is the one-device one."""
+    if not (opt.spatial_shard or opt.data_parallel) or distributed_world() <= 1:
+        return None
+    init_distributed(opt.device)
+    return make_mesh()
+
+
+def decode_directory(opt: argparse.Namespace, gen: GenerateFn,
+                     mesh: Optional[Mesh] = None) -> List[str]:
     """Decode every .nii/.nii.gz of the directory ``opt.image`` into the
     directory ``opt.result`` under its own name; returns the names skipped.
     Two IO threads overlap the host's work with the decode: one reads the
@@ -198,7 +239,8 @@ def decode_directory(opt: argparse.Namespace, gen: GenerateFn) -> List[str]:
                 img = next_img.result() if next_idx == i else nifti.load(str(p))
                 if i + 1 < len(files):
                     next_img, next_idx = io_pool.submit(nifti.load, str(files[i + 1])), i + 1
-                inference(sub, gen, img=img, save_pool=io_pool, save_futures=save_futures)
+                inference(sub, gen, img=img, save_pool=io_pool, save_futures=save_futures,
+                          mesh=mesh)
             except Exception as e:
                 # one volume that cannot be read or decoded (a truncated file,
                 # an unsupported datatype, a CUDA OOM): report it and go on
@@ -217,11 +259,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     script, the exit code is 1 if there were any."""
     opt = parse(argv)
     refuse_unported(opt)
+    mesh = decode_mesh(opt)
     gen = load_generator(opt)
     if not Path(opt.image).is_dir():
-        inference(opt, gen)
+        inference(opt, gen, mesh=mesh)
         return []
-    return decode_directory(opt, gen)
+    return decode_directory(opt, gen, mesh)
 
 
 if __name__ == "__main__":

@@ -25,9 +25,20 @@ run resumed at an epoch boundary is bit-equal to the straight one;
 generators' activations in the backward (models/cycle_gan.py). Before the
 first step, unless given ``--no_mem_check``, two trial steps measure the
 step's device memory against ``--hbm_limit_gib`` or the card and refuse a
-step that does not fit (core/memory.py). ``--data_parallel`` and
-``--spatial_parallel`` are not ported yet and raise NotImplementedError
-naming their ROADMAP item.
+step that does not fit (core/memory.py).
+
+``--data_parallel`` splits each batch over the ranks, ``--spatial_parallel``
+depth-shards each patch over ``--space_devices`` ranks (all of them by
+default), and both together make a 2-D data x space grid, with the JAX
+driver's SystemExits (train.py:89-155). The ranks are torchrun's (``torchrun
+--nproc_per_node R -m mra_gan_tpu_torch.train --data_parallel ...``, NCCL,
+one card each) or those of a group the caller joined before calling
+``main``; with one rank the flags fall through to the one-device step, as
+the JAX driver's device-count guards do. Every rank's loader draws the same
+global batch as a one-device run and the rank takes its part, so a run is
+the one-device run; rank 0 alone logs and writes. Spatial-only over fewer
+ranks than the world leaves the rest idle, as the JAX driver leaves devices
+idle.
 """
 from __future__ import annotations
 
@@ -40,15 +51,19 @@ import numpy as np
 import torch
 
 from .checkpoint import CheckpointManager
+from .checkpoint.manager import is_writer
 from .core.device import resolve_device
 from .core.dtypes import compute_dtype
 from .core.memory import preflight
+from .core.mesh import DATA_AXIS, SPACE_AXIS, distributed_world, init_distributed, make_mesh
 from .data import nifti
 from .data.augment import augment_batch, step_generators
 from .data.dataset import PatchLoader, UnpairedVolumeDataset
 from .models.cycle_gan import CycleGANConfig, create_state, make_train_step
 from .models.networks import check_patch
 from .options.train_options import TrainOptions
+from .parallel.sharding import make_sharded_train_step, shard_state
+from .parallel.spatial import make_spatial_train_step, shard_spatial_state, spatial_depth_rule
 from .training.schedules import LRScheduler
 from .utils import StepTimer, Visualizer, print_networks
 
@@ -66,19 +81,58 @@ def config_from_opt(opt: argparse.Namespace) -> CycleGANConfig:
         dynet_spacings=tuple(float(v) for v in opt.dynet_spacings), remat=opt.remat)
 
 
-def refuse_unported(opt: argparse.Namespace) -> None:
-    """NotImplementedError, naming its ROADMAP item, for a flag that selects
-    a path the port does not have yet."""
-    for flag in ("data_parallel", "spatial_parallel"):
-        if getattr(opt, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet; see ROADMAP Queue A, "
-                                      f"parallelism")
+def check_parallel(opt: argparse.Namespace, cfg: CycleGANConfig, patch, world: int):
+    """The JAX driver's SystemExits for the parallel flags (train.py:89-145)
+    and its warning for --spatial_parallel on one device. Returns (data
+    ranks, space ranks) of the grid to build, or None for the one-device
+    step."""
+    if opt.data_parallel and not opt.spatial_parallel and world > 1 \
+            and opt.batch_size % world != 0:
+        raise SystemExit(
+            f"--data_parallel requires batch_size ({opt.batch_size}) divisible "
+            f"by the device count ({world}); pick e.g. "
+            f"--batch_size {-(-opt.batch_size // world) * world}")
+    if opt.spatial_parallel and world <= 1:
+        print("WARNING: --spatial_parallel ignored — only one device is "
+              "visible; running the single-chip step")
+    if opt.spatial_parallel and world > 1:
+        both, ns = opt.data_parallel, opt.space_devices
+        if ns > world:
+            raise SystemExit(f"--space_devices {ns} exceeds the device count ({world})")
+        if both:
+            if ns <= 0 or world % ns:
+                raise SystemExit("--data_parallel + --spatial_parallel needs "
+                                 f"--space_devices dividing the device count ({world})")
+            nd = world // ns
+        else:
+            ns, nd = ns or world, 1  # spatial-only: the first ns ranks, the rest idle
+        g, min_shard = spatial_depth_rule(cfg)
+        d0 = int(patch[0])
+        if d0 % ns or (d0 // ns) % g[0] or d0 // ns < min_shard:
+            raise SystemExit(
+                f"--spatial_parallel over {ns} devices requires a per-device "
+                f"patch depth (D/{ns} of D={d0}) divisible by {g[0]} and >= "
+                f"{min_shard} for net_g={cfg.net_g}")
+        if int(patch[1]) % g[1] or int(patch[2]) % g[2]:
+            raise SystemExit(
+                f"--spatial_parallel requires in-plane patch dims "
+                f"{tuple(patch[1:])} divisible by {g[1:]} for net_g={cfg.net_g}")
+        if both and opt.batch_size % nd:
+            raise SystemExit(f"batch_size ({opt.batch_size}) must be divisible by the "
+                             f"data-axis size ({nd})")
+        return nd, ns
+    if opt.data_parallel and world > 1:
+        return world, 1
+    return None
 
 
-def to_step_layout(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_step_layout(batch: np.ndarray, device: torch.device, take=None) -> torch.Tensor:
     """A loader batch, (B, X, Y, Z, C) numpy, as the step's (B, C, X, Y, Z)
-    on ``device``; to CUDA from pinned memory, without waiting for the copy."""
+    on ``device`` (a parallel step's ``take`` picks this rank's part first);
+    to CUDA from pinned memory, without waiting for the copy."""
     t = torch.from_numpy(batch).permute(0, 4, 1, 2, 3)
+    if take is not None:
+        t = take(t)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
@@ -99,11 +153,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     per epoch (epoch, lr, steps, wall_s, and the StepTimer's data_s and
     comp_s)}."""
     opt = TrainOptions().parse(argv)
-    refuse_unported(opt)
     device = resolve_device(opt.device)
     cfg = config_from_opt(opt)
     patch = tuple(int(p) for p in opt.patch_size)
     check_patch(cfg.net_g, patch)
+    grid = check_parallel(opt, cfg, patch, distributed_world())
+    if grid is not None:
+        device = init_distributed(device)
     dataset = UnpairedVolumeDataset(
         opt.data_path, patch_size=patch, pipeline=opt.pipeline, num_samples=opt.num_samples,
         shuffle_labels=(opt.pipeline == "legacy"), which_direction=opt.which_direction,
@@ -114,11 +170,29 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     state = create_state(cfg, opt.seed, patch, device)
     print_networks(state.nets, verbose=opt.verbose)
-    step = make_train_step(cfg)
+    take = None
+    if grid is None:
+        step = make_train_step(cfg)
+    else:
+        nd, ns = grid
+        mesh = make_mesh(nd, ns)
+        if not mesh.axes:
+            print(f"rank {torch.distributed.get_rank()} idle: --space_devices {ns} of "
+                  f"{distributed_world()} ranks")
+            return {"state": None, "epochs": []}
+        if opt.spatial_parallel:
+            state = shard_spatial_state(state, mesh, SPACE_AXIS)
+            step, take = make_spatial_train_step(cfg, mesh, SPACE_AXIS,
+                                                 DATA_AXIS if opt.data_parallel else None)
+        else:
+            state = shard_state(state, mesh)
+            step, take = make_sharded_train_step(cfg, mesh)
     if not opt.no_mem_check:
         lim = opt.hbm_limit_gib
+        parallel = {} if take is None else {
+            "take": take, "axes": [mesh.axis(a) for a in (SPACE_AXIS, DATA_AXIS)]}
         preflight(step, state, opt.batch_size, opt.lr,
-                  limit_bytes=int(lim * 2 ** 30) if lim else None)
+                  limit_bytes=int(lim * 2 ** 30) if lim else None, **parallel)
 
     ckpt = CheckpointManager(opt.checkpoints_dir, opt.name)
     if opt.continue_train and ckpt.has(opt.which_epoch):
@@ -130,12 +204,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     sched = LRScheduler(opt.lr_policy, opt.lr, niter=opt.niter, niter_decay=opt.niter_decay,
                         epoch_count=opt.epoch_count, lr_decay_iters=opt.lr_decay_iters)
-    visualizer = Visualizer(opt)
+    visualizer = Visualizer(opt) if is_writer() else None
     total_steps = 0
     last_metric = None
     metrics = None
     dumps_left, dump_idx = opt.dump_patches, 0
     dump_dir = Path(opt.checkpoints_dir) / opt.name / "patch_dumps"
+    if not is_writer():
+        dumps_left = 0
     if dumps_left:
         dump_dir.mkdir(parents=True, exist_ok=True)
     # legacy patches live in [-1, 1]; monai images are z-scored, so each
@@ -166,12 +242,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 _dump_patches(dump_dir, dump_idx, image_b, label_b, n)
                 dump_idx += n
                 dumps_left -= n
-            # AtoB: image -> real_A, label -> real_B
-            real_a, real_b = to_step_layout(image_b, device), to_step_layout(label_b, device)
+            # AtoB: image -> real_A, label -> real_B. Augmentation draws per
+            # sample of the global batch, so a parallel run augments the
+            # global batch and then takes its part.
+            part = None if opt.augment else take
+            real_a = to_step_layout(image_b, device, part)
+            real_b = to_step_layout(label_b, device, part)
             if opt.augment:
                 real_a, real_b = augment_batch(
                     real_a, real_b, step_generators(opt.seed, epoch, i, device),
                     value_range=value_range, extended=opt.augment_extended)
+                if take is not None:
+                    real_a, real_b = take(real_a), take(real_b)
             state, metrics = step(state, real_a, real_b, lr)
             total_steps += opt.batch_size
             epoch_iter += opt.batch_size
@@ -181,8 +263,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 msteps += 1
                 sampled_step = total_steps
                 timer.step_done()
-                visualizer.print_current_losses(epoch, epoch_iter, metrics_host,
-                                                timer.t_comp / opt.batch_size, timer.t_data)
+                if visualizer is not None:
+                    visualizer.print_current_losses(epoch, epoch_iter, metrics_host,
+                                                    timer.t_comp / opt.batch_size, timer.t_data)
             if total_steps % opt.save_latest_freq == 0:
                 print(f"saving the latest model (epoch {epoch}, total_steps {total_steps})")
                 ckpt.save("latest", state, also_latest=False)

@@ -175,7 +175,8 @@ def test_single_pass_out_of_memory_raises_the_decode_advice(monkeypatch):
             single_pass_apply(gen, vol)
         msg = str(ei.value)
         assert "(12, 12, 9)" in msg and "sliding-window" in msg
-        assert "--spatial_shard" in msg and "not ported" in msg and "--remat" not in msg
+        assert "shard the whole volume across a mesh with --spatial_shard" in msg
+        assert "not ported" not in msg and "--remat" not in msg
 
 
 def test_the_directory_decode_skips_the_volume_that_does_not_fit(tmp_path, monkeypatch, capsys):

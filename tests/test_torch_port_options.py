@@ -1,8 +1,8 @@
 """The port's options layer and model registry against the JAX package's:
 the two-phase parse with model-injected flags, every JAX training flag with
 its default, opt.txt byte for byte (apart from --device), --suffix and the
-inverted --no_lsgan; and the refusals of the training driver's unported
-flags."""
+inverted --no_lsgan; and the parallel flags' fall-through to the one-device
+step on a world of one rank."""
 import argparse
 import importlib.util
 import os
@@ -138,13 +138,32 @@ def test_suffix_templating_and_cache_dir(tmp_path):
     assert opt.cache_dir == os.path.join(str(tmp_path), opt.name, "cache")
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--data_parallel"], "parallelism"), (["--spatial_parallel"], "parallelism"),
+@pytest.mark.parametrize("flags, printed", [
+    (["--data_parallel"], None),
+    (["--spatial_parallel"], "WARNING: --spatial_parallel ignored — only one device is "
+                             "visible; running the single-chip step"),
 ], ids=["data_parallel", "spatial_parallel"])
-def test_train_refuses_unported_paths(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A, {item}"):
-        port_train.main(["--checkpoints_dir", str(tmp_path), "--data_path",
-                         str(tmp_path / "none"), "--device", "cpu", *flags])
+def test_train_refuses_unported_paths(tmp_path, capsys, flags, printed):
+    """The parallel flags are ported (tests/test_torch_port_parallel_cli.py
+    runs them on several ranks). With a world of one rank they fall through
+    to the one-device step, as the JAX driver does on one device, with its
+    warning for --spatial_parallel: the run is the plain run's, bit for
+    bit."""
+    from torch_port_util import write_train_data
+
+    data = write_train_data(tmp_path / "data", n=1, shape=(20, 20, 20))
+    base = ["--data_path", str(data), "--patch_size", "16", "16", "16", "--ngf", "4",
+            "--ndf", "4", "--n_layers_D", "1", "--precision", "float32", "--niter", "1",
+            "--niter_decay", "0", "--num_samples", "1", "--workers", "0", "--device", "cpu"]
+    plain = port_train.main([*base, "--checkpoints_dir", str(tmp_path / "a")])["state"]
+    capsys.readouterr()
+    run = port_train.main([*base, "--checkpoints_dir", str(tmp_path / "b"), *flags])["state"]
+    out = capsys.readouterr().out
+    assert (printed in out) if printed else "WARNING" not in out
+    assert run.step == plain.step == 1
+    for name, net in plain.nets.items():
+        for key, v in net.state_dict().items():
+            assert torch.equal(run.nets[name].state_dict()[key], v), f"{name} {key}"
 
 
 def _run(args):

@@ -31,6 +31,7 @@ from mra_gan_tpu_torch.models.networks import (
     define_d,
     define_g,
     dynunet_schedule,
+    granularity,
     spatial_granularity,
 )
 
@@ -135,7 +136,7 @@ def test_schedule_and_granularity_match_jax(sizes, spacings):
 def test_granularity_of_every_generator_matches_jax():
     for name in ("resnet_6blocks", "resnet_9blocks", "unet_custom", "unet_128", "unet_256"):
         assert spatial_granularity(define_g(1, 1, 4, name)) == jax_spatial_granularity(
-            jax_define_g(1, 4, name)), name
+            jax_define_g(1, 4, name)) == granularity(name), name
     assert spatial_granularity(define_g(1, 1, 4, "Dynet")) == (32, 32, 16)
 
 

@@ -393,3 +393,121 @@ def check_augment_policy(draws, value_range, segmentation: bool, extended: bool)
             np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=augment_atol(name, src),
                                        err_msg=f"sample {i}: {name}")
     assert {c for c, _ in draws} == set(range(13 if extended else 8))
+
+
+# ---------------------------------------------------------------------------
+# parallel steps: the port's on gloo ranks (torch_port_parallel_ranks.py)
+# against the JAX package's on the conftest's fake devices
+
+
+def _grad_close(got: dict, want32: dict, want64: dict, where: str) -> None:
+    """Step-0 gradients of a parallel step held at float32's reduction-order
+    tolerance: per network, no farther from the float64 one-device step's
+    than twice the float32 one-device step's own distance plus 2e-3 of the
+    network's largest gradient (the float32 steps' error reaches 1e-2 of
+    scale at the generators' stems; the sharded norms merge their
+    statistics in another order), and the network's gradient norm within 1%
+    of float64's: a gradient counted R times, or 1/R times, is off by 50%
+    and more."""
+    for name, w64 in want64.items():
+        assert set(got[name]) == set(w64), f"{where}: {name}"
+        scale = max(float(w.abs().max()) for w in w64.values())
+        dist = lambda grads: max(float((grads[k].double() - w).abs().max())  # noqa: E731
+                                 for k, w in w64.items())
+        assert dist(got[name]) <= 2 * dist(want32[name]) + 2e-3 * scale, \
+            f"{where}: {name} {dist(got[name])} against {dist(want32[name])} (scale {scale})"
+        norm = lambda grads: float(sum(g.double().square().sum() for g in grads.values()))  # noqa: E731
+        assert abs(norm(got[name]) / norm(w64) - 1.0) < 2e-2, f"{where}: {name} norm"
+
+
+def one_device_steps(cfg, nets: dict, patch, batches, draws, lr: float = STEP_LR):
+    """The port's one-device step from ``nets`` over the NCDHW ``batches``:
+    (metrics per step, step-0 gradients, the step-0 gradients of the same
+    step in float64)."""
+    import dataclasses
+
+    from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+
+    def run(c, n_steps):
+        state = create_state(c, 0, tuple(patch), device="cpu")
+        for name, net in state.nets.items():
+            net.load_state_dict(nets[name])
+            net.to(c.dtype)
+        step = make_train_step(c)
+        metrics, grads = [], None
+        for k, (a, b) in enumerate(batches[:n_steps]):
+            _, m = step(state, torch.from_numpy(a), torch.from_numpy(b), lr,
+                        pool_draws=draws[k] if draws else None)
+            metrics.append({n: float(v) for n, v in m.items()})
+            if k == 0:
+                grads = {n: {key: p.grad.clone() for key, p in net.named_parameters()
+                             if p.grad is not None} for n, net in state.nets.items()}
+        return metrics, grads
+
+    metrics, grads = run(cfg, len(batches))
+    _, grads64 = run(dataclasses.replace(cfg, dtype=torch.float64), 1)
+    return metrics, grads, grads64
+
+
+def parallel_steps_match_jax(common: dict, patch, batch: int, data: int, space: int, tmp_path,
+                             bad_batches=(), steps: int = 3, seed: int = 0):
+    """The port's parallel step (data-parallel for space 1, else spatial,
+    2-D for data > 1) on data x space gloo ranks against the JAX package's
+    ``make_sharded_train_step``/``make_spatial_train_step`` on as many fake
+    devices, from the same weights, over the same batches with the pools
+    fed the JAX steps' draws: the loss trajectory at JAX's own bars
+    (tests/test_parallel.py:130, rtol 1e-3, 2e-3, 2e-2, atol 1e-4); the
+    step-0 parameter gradients against the port's one-device step at
+    float32 reduction-order tolerance; parameters bit-equal across ranks
+    afterwards. Returns the ranks' results (for their ``errors`` on
+    ``bad_batches``)."""
+    from mra_gan_tpu.core.mesh import DATA_AXIS, SPACE_AXIS
+    from mra_gan_tpu.core.mesh import make_mesh as jax_make_mesh
+    from mra_gan_tpu.parallel.sharding import make_sharded_train_step, shard_state
+    from mra_gan_tpu.parallel.spatial import make_spatial_train_step, shard_spatial_state
+    from torch_port_parallel_ranks import rank_steps, start_ranks
+
+    jcfg, jstate, cfg, state = train_states(common, patch, seed)
+    nets = {n: net.state_dict() for n, net in state.nets.items()}
+    rs = np.random.RandomState(seed + 7)
+    ndhwc = [tuple(rs.uniform(-1, 1, (batch, *patch, 1)).astype(np.float32) for _ in range(2))
+             for _ in range(steps)]
+    batches = [tuple(np.ascontiguousarray(np.moveaxis(t, -1, 1)) for t in ab) for ab in ndhwc]
+    rngs = [jax.random.PRNGKey(3 + k) for k in range(steps)]
+    draws = ([jax_step_pool_draws(r, batch, cfg.pool_size) for r in rngs]
+             if cfg.pool_size else None)
+    bad = [np.ascontiguousarray(np.moveaxis(b, -1, 1)) for b in bad_batches]
+    wait = start_ranks(rank_steps, data * space, tmp_path, common, patch, nets, batches,
+                       draws, data, space, STEP_LR, bad, timeout_s=240)
+
+    mesh = jax_make_mesh(jax.devices()[:data * space], data=data, space=space)
+    if space == 1:
+        jstep, sh = make_sharded_train_step(jcfg, mesh)
+        jstate = shard_state(jstate, mesh)
+    else:
+        jstep, sh = make_spatial_train_step(jcfg, mesh, SPACE_AXIS,
+                                            data_axis=DATA_AXIS if data > 1 else None)
+        jstate = shard_spatial_state(jstate, mesh, SPACE_AXIS, jcfg)
+    want = []
+    for (a, b), rng in zip(ndhwc, rngs):
+        jstate, m = jstep(jstate, jax.device_put(a, sh), jax.device_put(b, sh), rng, STEP_LR)
+        want.append({n: float(v) for n, v in jax.device_get(m).items()})
+    one_m, one_g, one_g64 = one_device_steps(cfg, nets, patch, batches, draws)
+    results = wait()
+
+    for k in range(steps):
+        rtol = (1e-3, 2e-3, 2e-2)[min(k, 2)]
+        assert set(results[0]["metrics"][k]) == set(want[k])
+        for name, w in want[k].items():
+            for r in results:
+                np.testing.assert_allclose(r["metrics"][k][name], w, rtol=rtol, atol=1e-4,
+                                           err_msg=f"step {k}: {name}")
+            np.testing.assert_allclose(one_m[k][name], w, rtol=rtol, atol=1e-4,
+                                       err_msg=f"one device, step {k}: {name}")
+    _grad_close(results[0]["grads"], one_g, one_g64, "step-0 gradients")
+    for r in results[1:]:
+        assert r["counts"] == results[0]["counts"]
+        for name, sd in results[0]["params"].items():
+            for key, v in sd.items():
+                assert torch.equal(r["params"][name][key], v), f"{name} {key} differs across ranks"
+    return results
