@@ -11,14 +11,16 @@ mra_gan_tpu/data/dataset.py:46-406).
   draws a random label volume (``shuffle_labels``).
 
 Every draw comes from a Philox generator keyed by (seed, epoch, volume), so
-the batch stream is the JAX package's for the same seed. The NIfTI reader is
-the pure-Python one (data/nifti.py) and the patch gather is numpy: the JAX
-package's own fallbacks; its native C++ reader and gather are not ported
-yet (ROADMAP Queue A, options and drivers). The loader yields numpy
-(B, X, Y, Z, 1) float32 batches; the training driver lays them out for the
-step. One departure from the JAX loader: a volume that fails to load ends
-the epoch with its error, where the JAX loader's prefetch thread drops the
-error and ends the epoch short.
+the batch stream is the JAX package's for the same seed. NIfTI volumes are
+read by the native C++ reader and patches gathered by its threaded gather
+(data/native.py, built at first use), as the JAX loader does; where the
+library cannot be built, by the pure-Python reader (data/nifti.py) and
+numpy, the JAX package's own fallbacks. Both give the same batches, bit for
+bit (the reader's scl_slope/scl_inter rounds as numpy does). The loader
+yields numpy (B, X, Y, Z, 1) float32 batches; the training driver lays them
+out for the step. One departure from the JAX loader: a volume that fails to
+load ends the epoch with its error, where the JAX loader's prefetch thread
+drops the error and ends the epoch short.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import nifti
+from . import native, nifti
 from .transforms import (
     crop_foreground,
     pad_to_size,
@@ -198,6 +200,12 @@ class UnpairedVolumeDataset:
 
     @staticmethod
     def _load(path) -> nifti.NiftiImage:
+        """The native C++ reader, else the pure-Python one (JAX
+        dataset.py:196-205)."""
+        fast = native.load_nifti(path) if native.available() else None
+        if fast is not None:
+            data, affine = fast
+            return nifti.NiftiImage(data=data, affine=affine)
         return nifti.load(path)
 
     def _preprocess(self, idx: int, lbl_idx: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -266,8 +274,11 @@ class UnpairedVolumeDataset:
 
     @staticmethod
     def _gather(volume: np.ndarray, starts: np.ndarray, patch) -> np.ndarray:
-        """(n, p0, p1, p2) patches of ``volume`` at ``starts``."""
+        """(n, p0, p1, p2) patches of ``volume`` at ``starts``: the native
+        threaded gather, else numpy (JAX dataset.py:274-285)."""
         vol = np.ascontiguousarray(volume, np.float32)
+        if native.available():
+            return native.extract_patches(vol, starts, tuple(patch))
         return np.stack([
             vol[s[0]:s[0] + patch[0], s[1]:s[1] + patch[1], s[2]:s[2] + patch[2]]
             for s in starts])

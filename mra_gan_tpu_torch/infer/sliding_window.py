@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.networks import BatchNorm3d
+
 
 def compute_grid_starts(size: int, patch: int, stride: int) -> list:
     """Start offsets covering [0, size) with the last window clamped flush to
@@ -47,6 +49,16 @@ def patch_grid(shape: Sequence[int], patch: Sequence[int], strides: Sequence[int
     return [(a, b, c) for a in axes[0] for b in axes[1] for c in axes[2]]
 
 
+def per_call(generate_fn, batch: int) -> int:
+    """The patches one call of ``generate_fn`` takes: ``batch``, or 1 for a
+    generator that holds a ``BatchNorm3d`` (``--norm batch``), whose output
+    for one patch depends on the others in its batch."""
+    net = getattr(generate_fn, "net", None)
+    if net is not None and any(isinstance(m, BatchNorm3d) for m in net.modules()):
+        return 1
+    return int(batch)
+
+
 @torch.inference_mode()
 def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64, 64),
                              stride_inplane: int = 32, stride_layer: int = 32,
@@ -58,7 +70,10 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
     the reference. generate_fn: a models.cycle_gan.GenerateFn, (B, 1, px, py,
     pz) -> same shape. The volume goes to the device once and the result
     comes back once, float32 (X, Y, Z) on the host. The last batch may be
-    short; instance norm is per sample, so that changes nothing.
+    short. ``batch`` is the patches a generator call takes; a generator that
+    holds a batch norm (``--norm batch``), whose statistics are its batch's,
+    takes one a call, the reference's batch of 1. So every patch is
+    normalized alone, and ``batch`` changes the amortization only.
 
     The two dtypes set only the precision on the wire (JAX
     sliding_window.py:56-86); the blending is float32 on the device.
@@ -83,6 +98,7 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
     acc = torch.zeros(padded, dtype=torch.float32, device=dev)
     wsum = torch.zeros(padded, dtype=torch.float32, device=dev)
     starts = patch_grid(vshape, patch, strides)
+    batch = per_call(generate_fn, batch)
     for i in range(0, len(starts), batch):
         chunk = starts[i:i + batch]
         x = torch.stack([vol[a:a + patch[0], b:b + patch[1], c:c + patch[2]]

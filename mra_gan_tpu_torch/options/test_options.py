@@ -63,7 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--blend", type=str, default="gaussian", choices=["gaussian", "uniform"],
                    help="patch overlap blending window")
     p.add_argument("--decode_batch", type=int, default=8,
-                   help="patches decoded per generator call")
+                   help="patches decoded per generator call in the sliding-window "
+                        "decodes (one device and --data_parallel); a --norm batch "
+                        "generator decodes one a call, the reference's batch of 1, "
+                        "so only the amortization changes")
     p.add_argument("--single_pass", action="store_true",
                    help="decode the WHOLE volume in one generator forward "
                         "(no patching, no seams; needs the activations to fit)")

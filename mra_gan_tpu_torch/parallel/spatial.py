@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from ..core.mesh import DATA_AXIS, SPACE_AXIS, Mesh
 from ..core.spatial_ctx import spatial_sharding
-from ..infer.sliding_window import gaussian_window, patch_grid
+from ..infer.sliding_window import gaussian_window, patch_grid, per_call
 from ..models.networks import ResnetGenerator3D, granularity, spatial_granularity
 from ..ops.conv import conv3d
 from .collectives import all_gather_stacked, all_reduce_, neighbour_exchange
@@ -128,7 +128,10 @@ def sharded_sliding_window(mesh: Mesh, volume: np.ndarray, generate_fn,
     rank blends its patches into its own float32 accumulators (a padding
     entry weighs 0, so it is not run at all), one all-reduce adds the
     accumulators, and every rank returns acc / max(wsum, 1e-8), float32
-    (X, Y, Z)."""
+    (X, Y, Z). As in the one-device window, a generator that holds a batch
+    norm takes one patch a call, so the output does not depend on
+    ``batch``: under --norm batch it is JAX's at one patch per device, its
+    CLI's default."""
     if blend not in ("gaussian", "uniform"):
         raise ValueError(f"unknown blend {blend!r}")
     axis = mesh.axis(DATA_AXIS)
@@ -142,6 +145,7 @@ def sharded_sliding_window(mesh: Mesh, volume: np.ndarray, generate_fn,
     vol = F.pad(host.to(dev), [x for v, p in reversed(list(zip(vshape, padded)))
                                for x in (0, p - v)])
     starts = patch_grid(vshape, patch, strides)
+    batch = per_call(generate_fn, batch)
     per_step = batch * n_dev
     n_steps = -(-len(starts) // per_step)
     mine = [starts[t * per_step + axis.index * batch + i]

@@ -56,7 +56,8 @@ def _loader(mod, root, cache, pipeline, direction, workers, resample=False):
         "legacy-BtoA-w2", "legacy-AtoB-w2-resample"])
 def test_batches_bit_equal_to_jax_every_epoch(data_root, tmp_path, monkeypatch, pipeline,
                                               direction, workers, resample):
-    # the JAX package's pure-Python reader and numpy gather, as the port has
+    # the JAX package's pure-Python reader and numpy gather against the port's
+    # native ones (tests/test_torch_port_native.py holds native against JAX's)
     monkeypatch.setattr(jax_native, "available", lambda: False)
     port = _loader(port_dataset, data_root, tmp_path / "port", pipeline, direction, workers,
                    resample)

@@ -1,15 +1,23 @@
 """The port's decoders (mra_gan_tpu_torch/infer/sliding_window.py and
 parallel/spatial.py) against the JAX package's, with the same generator
-weights, in float32 on the CPU at rtol 1e-3 / atol 1e-4."""
+weights, in float32 on the CPU at rtol 1e-3 / atol 1e-4. Under --norm batch
+the port's window normalizes each patch alone (the reference's batch of 1):
+held against JAX's window at batch 1, and independent of the batch."""
 import numpy as np
 import pytest
+import torch
 
 from mra_gan_tpu.infer import sliding_window as jax_sw
+from mra_gan_tpu.models.networks import define_g as jax_define_g
 from mra_gan_tpu.parallel.spatial import single_pass_apply as jax_single_pass
+from mra_gan_tpu_torch import test as port_cli
+from mra_gan_tpu_torch.checkpoint.io import save_reference_pth, state_dict_from_jax
+from mra_gan_tpu_torch.data import nifti
 from mra_gan_tpu_torch.infer import sliding_window as port_sw
+from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
 from mra_gan_tpu_torch.parallel.spatial import single_pass_apply
 
-from torch_port_util import jax_forward, jax_generator, port_generate_fn
+from torch_port_util import jax_forward, jax_generator, jax_params, port_generate_fn
 
 
 @pytest.fixture(scope="module")
@@ -74,3 +82,64 @@ def test_single_pass_matches_jax(nets):
     got = single_pass_apply(port_fn, vol)
     assert got.shape == ref.shape == vol.shape
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4)
+
+
+# --norm batch: the ROADMAP's measurement of the fault (a 20 x 24 x 18 volume,
+# 8^3 patches at stride 4: 80 patches)
+BN_VOLUME, BN_KW = (20, 24, 18), dict(patch_size=(8, 8, 8), stride_inplane=4, stride_layer=4)
+
+
+@pytest.fixture(scope="module")
+def batch_norm_nets():
+    jnet = jax_define_g(1, 4, "resnet_6blocks", norm="batch")
+    params = jax_params(jnet, (8, 8, 8), seed=13)
+    gen = make_generate_fn(CycleGANConfig(ngf=4, norm="batch", dtype=torch.float32), "g_a",
+                           device="cpu")
+    gen.net.load_state_dict(state_dict_from_jax(params, "resnet_6blocks"))
+    vol = np.random.RandomState(13).uniform(-1, 1, BN_VOLUME).astype(np.float32)
+    return jax_forward(jnet, params), gen, vol
+
+
+def test_batch_norm_window_is_independent_of_decode_batch(batch_norm_nets):
+    _, gen, vol = batch_norm_nets
+    one = port_sw.sliding_window_inference(vol, gen, **BN_KW, batch=1)
+    eight = port_sw.sliding_window_inference(vol, gen, **BN_KW, batch=8)
+    np.testing.assert_allclose(eight, one, rtol=0, atol=1e-5)
+    # the generator alone, at batch 8, still takes the batch's statistics
+    x = torch.from_numpy(vol[:16, :16, :16].copy()).reshape(8, 1, 8, 8, 8)
+    apart = torch.cat([gen(x[i:i + 1]) for i in range(8)])
+    assert float((gen(x) - apart).abs().max()) > 1e-2
+
+
+def test_batch_norm_window_matches_jax_at_decode_batch_1(batch_norm_nets):
+    jax_fn, gen, vol = batch_norm_nets
+    ref = jax_sw.sliding_window_inference(vol, jax_fn, **BN_KW, batch=1)
+    got = port_sw.sliding_window_inference(vol, gen, **BN_KW, batch=8)
+    assert got.shape == ref.shape == BN_VOLUME
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4)
+
+
+def test_batch_norm_cli_decode_is_independent_of_decode_batch(batch_norm_nets, tmp_path):
+    _, gen, _ = batch_norm_nets
+    (tmp_path / "ck" / "run").mkdir(parents=True)
+    save_reference_pth(gen.net, tmp_path / "ck" / "run" / "latest_net_G_A.pth")
+    rs = np.random.RandomState(14)
+    (tmp_path / "in").mkdir()
+    for i, shape in enumerate([(21, 18, 13), (16, 20, 10)]):
+        nifti.save(nifti.NiftiImage(data=(rs.rand(*shape) * 80 + 10).astype(np.float32),
+                                    affine=np.diag([1.0, 1.0, 1.5, 1.0])),
+                   tmp_path / "in" / f"{i}.nii.gz")
+    outs = {}
+    for batch in (1, 8):
+        outs[batch] = tmp_path / f"out{batch}"
+        assert port_cli.main([
+            "--image", str(tmp_path / "in"), "--result", str(outs[batch]),
+            "--checkpoints_dir", str(tmp_path / "ck"), "--name", "run", "--device", "cpu",
+            "--ngf", "4", "--norm", "batch", "--patch_size", "8", "8", "8",
+            "--stride_inplane", "4", "--stride_layer", "4", "--precision", "float32",
+            "--decode_batch", str(batch)]) == []
+    for name in ("0.nii.gz", "1.nii.gz"):
+        one, eight = nifti.load(outs[1] / name).data, nifti.load(outs[8] / name).data
+        assert one.shape == eight.shape and np.all(np.isfinite(one))
+        # atol 1e-5 on the generator's [-1, 1], in the CLI's 0-255 output
+        np.testing.assert_allclose(eight, one, rtol=0, atol=1e-5 * 127.5)

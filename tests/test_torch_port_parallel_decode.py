@@ -10,7 +10,8 @@ over by ``state_dict_from_jax``), at the generator bar (rtol 1e-3, atol
   ``single_pass_apply``;
 - ``sharded_sliding_window`` on 2 ranks against JAX's on 2 devices and
   against ``sliding_window_inference``, with a ragged last round (the
-  padding entries of the round-robin)."""
+  padding entries of the round-robin); under --norm batch at batch 3
+  against JAX's at its CLI's one patch per device."""
 from __future__ import annotations
 
 import jax
@@ -82,6 +83,24 @@ def test_sharded_sliding_window_matches_jax_and_the_one_device_decode(tmp_path):
     np.testing.assert_array_equal(results[0], results[1])
     np.testing.assert_allclose(results[0], want, rtol=1e-3, atol=1e-4)
     one = sliding_window_inference(vol, _port_gen(fields, sd), **kw)
+    np.testing.assert_allclose(results[0], one, rtol=1e-5, atol=1e-6)
+
+
+def test_batch_norm_sharded_window_matches_jax_at_one_patch_per_device(tmp_path):
+    fields = dict(ngf=4, net_g="resnet_6blocks", norm="batch")
+    jnet = jax_define_g(1, 4, "resnet_6blocks", norm="batch")
+    params = jax_params(jnet, (8, 8, 8), seed=9)
+    sd = state_dict_from_jax(params, "resnet_6blocks")
+    vol = np.random.RandomState(9).uniform(-1, 1, (20, 24, 18)).astype(np.float32)
+    kw = dict(patch_size=(8, 8, 8), stride_inplane=4, stride_layer=4)
+    wait = start_ranks(rank_sliding_window, 2, tmp_path, fields, sd, vol, {**kw, "batch": 3})
+    jparams = jax.tree.map(jnp.asarray, params)
+    want = jax_sharded_window(make_mesh(jax.devices()[:2]), vol,
+                              lambda x: jnet.apply(jparams, x, train=False), **kw)
+    results = wait()
+    np.testing.assert_array_equal(results[0], results[1])
+    np.testing.assert_allclose(results[0], want, rtol=1e-3, atol=1e-4)
+    one = sliding_window_inference(vol, _port_gen(fields, sd), **kw, batch=8)
     np.testing.assert_allclose(results[0], one, rtol=1e-5, atol=1e-6)
 
 
