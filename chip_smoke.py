@@ -57,7 +57,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    in-process decode, exactly 4 x phase 5's forward launches per volume and
    no backward; served s/volume, one volume's read and write seconds; then
    the directory decode CLI (read ahead, writes behind) on the same volumes
-   against the serial sum read + decode + write;
+   against the serial sum read + decode + write; then python -m
+   mra_gan_tpu_torch.evaluate (in process) on the served volumes against
+   their inputs on the card and on the CPU: every pair's SSIM, PSNR, MAE and
+   Pearson r within EVAL_RTOL relative of each other, seconds per pair;
 11. the port's native data path (data/native.py: data/csrc/nifti_io.cc built
    with g++ into build/native/; g++ --version, seconds, the error if any;
    it fails the phase where g++ and zlib.h are there), then the training
@@ -73,7 +76,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    --continue_train --epoch_count 2 bit-equal to 2 straight epochs (step lr
    policy, 2 samples a volume); and the PatchLoader's own pairs/s, cold and
    warm, at workers 1 and 4, with the native reader and gather and with them
-   patched off in process, in turns, every run's batches bit-equal;
+   patched off in process, in turns, every run's batches bit-equal; and the
+   loader's global view against its rank views at R = 2 and 4
+   (PatchLoader(rows=...), what each rank of a --data_parallel group
+   loads), in turns, cold and warm: per rank, host seconds an epoch and
+   pairs/s of its rows, the rows bit-equal to the global view's;
 12. the rest of the zoo at full width (ngf = ndf = 32, bf16 over f32
    parameters, 64^3 patches, LSGAN, the Dynet at the options' default
    --dynet_sizes 128 128 64): the norm kernels against their plain
@@ -137,9 +144,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    deterministic algorithms at the JAX package's bars, parameters bit-equal
    across ranks, per-rank peak memory, exact
    launches per rank and step; the training driver with
-   --data_parallel for one epoch on phase 11's data, its checkpoint
-   restored bit-equal into a one-device state. Times carry the label
-   "ranks share one card over gloo": no NCCL or scaling figure.
+   --data_parallel --augment for one epoch on phase 11's data, its
+   checkpoint restored bit-equal into a one-device state, its s/step,
+   data-wait share, each rank's loader host seconds and augmentation ms;
+   the driver's rank view against its global view (every rank loading and
+   augmenting the whole batch, then taking its part) and the one-device
+   driver, under deterministic algorithms: step inputs and parameters
+   bit-equal to the global view's, inputs bit-equal to the one-device
+   driver's rows, step-0 losses within PAR_BF16_RTOL; and repair A of the
+   memory preflight: 4 ranks, rank 1 capped at PAR_OOM_CAP_GIB so that its
+   trial step runs out of memory while its peers wait in the step's
+   collectives, every rank ending with the preflight's SystemExit, and how
+   long after rank 1 they ended. Times carry the label "ranks share one
+   card over gloo": no NCCL or scaling figure.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line {"kernels": [...]} with each kernel's launches on its main path
@@ -1533,6 +1550,46 @@ def phase_serve(K, tree, decode: dict, workdir: Path) -> dict:
             "gzip_bytes_per_volume": len(whole)}
 
 
+EVAL_RTOL = 1e-5  # evaluate's metrics on the card against the CPU, relative
+
+
+def phase_evaluate(workdir: Path) -> dict:
+    """Phase 10, evaluate: python -m mra_gan_tpu_torch.evaluate (in process)
+    on phase 10's served volumes against their inputs, on the card and then
+    on the CPU: every pair's SSIM, PSNR, MAE and Pearson r, and their mean,
+    the same within EVAL_RTOL relative; seconds per pair on each."""
+    import contextlib as ctx
+    import io
+
+    from mra_gan_tpu_torch import evaluate
+
+    rows, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with ctx.redirect_stdout(out):
+            evaluate.main(["--pred", str(workdir / "served"), "--target",
+                           str(workdir / "volumes"), "--device", dev])
+        secs[dev] = time.perf_counter() - t0
+        rows[dev] = [json.loads(line) for line in out.getvalue().splitlines()]
+    check([r["file"] for r in rows["cuda"]] == [r["file"] for r in rows["cpu"]]
+          and len(rows["cpu"]) == SERVE_VOLUMES + 1, f"evaluate's pairs: {rows}")
+    worst = {}
+    for gpu, cpu in zip(rows["cuda"], rows["cpu"]):
+        for k in ("ssim", "psnr", "mae", "pearson_r"):
+            rel = abs(gpu[k] - cpu[k]) / abs(cpu[k])
+            worst[k] = max(worst.get(k, 0.0), rel)
+            check(rel <= EVAL_RTOL, f"evaluate {gpu['file']} {k}: card {gpu[k]!r}, "
+                  f"CPU {cpu[k]!r} (relative {rel:.3g} > {EVAL_RTOL})")
+    per_pair = {dev: t / SERVE_VOLUMES for dev, t in secs.items()}
+    print(f"[evaluate] {SERVE_VOLUMES} served {VOLUME} volumes against their inputs: "
+          f"{per_pair['cuda']:.3f} s/pair on the card, {per_pair['cpu']:.3f} on the CPU "
+          f"(NIfTI reads included); mean {rows['cuda'][-1]}; the largest relative "
+          f"difference card/CPU {worst}", flush=True)
+    return {"s_per_pair": per_pair, "mean": rows["cuda"][-1], "mean_cpu": rows["cpu"][-1],
+            "max_rel_diff": worst}
+
+
 def _driver_data(root: Path) -> None:
     """DRIVER_PAIRS image/label pairs of the VOLUME shape: an ellipsoid of
     random intensities in a zero background (the foreground crop's box), the
@@ -1789,7 +1846,61 @@ def phase_loader(data: Path, workdir: Path, have_native: bool) -> dict:
           f"({len(order) * 2} runs, cold and warm)" if have_native else
           "[loader] the native data path is absent; the pure-Python reader and numpy only",
           flush=True)
-    return {"loader_pairs_per_s": rates}
+    return {"loader_pairs_per_s": rates, "rank_views": loader_rank_views(data, workdir)}
+
+
+VIEW_BATCH, VIEW_SAMPLES = 8, 2  # the driver's default --num_samples: 4 pairs, one step
+
+
+def loader_rank_views(data: Path, workdir: Path) -> dict:
+    """Phase 11's data through the loader's global view (what every rank of
+    a data-parallel group ran before the rank view) and its rank views at R
+    = 2 and 4 (PatchLoader(rows=...)), in turns (global, R = 2, R = 4, then
+    back): the R ranks of a view one after another in this process, sharing
+    one new cache, all cold (epoch 1) and then all warm (epoch 2). Per rank:
+    its loader's host seconds an epoch and pairs/s of its rows; the rank
+    views' rows, stacked, bit-equal to the global view's batches."""
+    import numpy as np
+
+    from mra_gan_tpu_torch.data.dataset import (PatchLoader, UnpairedVolumeDataset,
+                                                flush_cache_writes)
+
+    out, ref, k = {}, {}, 0
+    for ranks in (1, 2, 4, 4, 2, 1):
+        k += 1
+        ds = UnpairedVolumeDataset(data, patch_size=PATCH, num_samples=VIEW_SAMPLES,
+                                   cache_dir=str(workdir / f"view_cache_{k}"), seed=SEED)
+        per = VIEW_BATCH // ranks
+        loaders = [PatchLoader(ds, batch_size=VIEW_BATCH, workers=1,
+                               rows=None if ranks == 1 else (r * per, (r + 1) * per))
+                   for r in range(ranks)]
+        row = {}
+        for temp, epoch in (("cold", 1), ("warm", 2)):
+            secs, batches = [], []
+            for pl in loaders:
+                t0 = time.perf_counter()
+                batches.append(list(pl.epoch(epoch)))
+                secs.append(time.perf_counter() - t0)
+            flush_cache_writes()
+            stacked = [tuple(np.concatenate([b[s][m] for b in batches]) for m in (0, 1))
+                       for s in range(len(batches[0]))]
+            want = ref.setdefault(temp, stacked)
+            check(len(stacked) == len(want) > 0 and all(
+                np.array_equal(a, wa) and np.array_equal(b, wb)
+                for (a, b), (wa, wb) in zip(stacked, want)),
+                f"loader rank views R={ranks} {temp}: rows bit-equal to the global view's")
+            pairs = len(batches[0]) * per
+            row[temp] = {"s": secs, "pairs_per_s": [pairs / t for t in secs]}
+        label = "global" if ranks == 1 else f"R={ranks}"
+        out.setdefault(label, []).append(row)
+        print(f"[loader] {'global view (every rank, before)' if ranks == 1 else f'rank view {label}'}"
+              f", batch {VIEW_BATCH}, {VIEW_SAMPLES} samples a volume, 1 worker: per rank "
+              + "; ".join(f"{t} {max(row[t]['s']):.3f} s an epoch (mean {np.mean(row[t]['s']):.3f}), "
+                          f"{min(row[t]['pairs_per_s']):.2f} pairs/s of its rows"
+                          for t in ("cold", "warm")), flush=True)
+    print("[loader] rank views at R = 2 and 4 bit-equal to the global view, cold and warm",
+          flush=True)
+    return out
 
 
 # Phase 12: the rest of the zoo. (label, netG, netD, norm) of each train-step
@@ -2621,6 +2732,9 @@ PAR_CASES = {"dp b8 64^3": ("dp", 8, PATCH, (2, 1)),
              "sp b2 128^3": ("sp", 2, (128,) * 3, (1, 2))}
 PAR_GRID = {"grid b2 64^3": ("sp", 2, PATCH, (2, 2))}
 PAR_K4_SPATIAL = (1, PATCH)  # the K = 4 kernel shapes: a 4-way spatial step at batch 1, 64^3
+PAR_VIEW_BATCH = 4  # the rank-view driver runs: one volume a rank a step at 2 samples a volume
+PAR_OOM_CAP_GIB = 1.0  # repair A: the state fits, a trial step at 2 rows of 64^3 does not
+PAR_OOM_TIMEOUT_S = 240
 # The loss trajectories are held at the JAX package's bars
 # (tests/test_parallel.py:130) in float32 with TF32 off and deterministic
 # algorithms (``reproducible``), where the parallel and one-device steps
@@ -2866,6 +2980,136 @@ def par_step_case(K, label: str, case, dtype, steps: int = PAR_STEPS) -> dict:
     return out
 
 
+def _row_hashes(x) -> list:
+    import hashlib
+
+    host = x.detach().float().cpu().contiguous().numpy()
+    return [hashlib.sha256(row.tobytes()).hexdigest() for row in host]
+
+
+def driver_run(K, argv, record: bool = False, global_view: bool = False) -> dict:
+    """One in-process run of the training driver with the launch counters
+    zeroed before it: wall seconds, epoch records, launches, the final
+    parameters' hash and step; its loader's host seconds (sample_patches,
+    summed over the loader's threads) and volumes sampled; the augmentation's
+    device ms per step (CUDA events, read after the run). With ``record``,
+    each step's input rows' hashes and its losses (not the memory
+    preflight's trial steps); with ``global_view``, the driver's ``rank_rows``
+    patched to None: every rank loads and augments the global batch and
+    takes its part, as before the rank view."""
+    import threading
+
+    import torch
+
+    from mra_gan_tpu_torch import train as driver
+    from mra_gan_tpu_torch.data.dataset import UnpairedVolumeDataset
+
+    lock = threading.Lock()
+    probe = {"loader_s": 0.0, "volumes": 0}
+    events, inputs, metrics, trial = [], [], [], []
+    saved = {"sample_patches": UnpairedVolumeDataset.sample_patches,
+             "augment_batch": driver.augment_batch, "rank_rows": driver.rank_rows,
+             "make_train_step": driver.make_train_step,
+             "make_sharded_train_step": driver.make_sharded_train_step,
+             "preflight": driver.preflight}
+
+    def preflight(*args, **kw):
+        trial.append(True)
+        try:
+            return saved["preflight"](*args, **kw)
+        finally:
+            trial.pop()
+
+    def sample_patches(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return saved["sample_patches"](self, *args, **kw)
+        finally:
+            with lock:
+                probe["loader_s"] += time.perf_counter() - t0
+                probe["volumes"] += 1
+
+    def augment_batch(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        got = saved["augment_batch"](*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return got
+
+    def recording(factory):
+        def make(*args, **kw):
+            made = factory(*args, **kw)
+            step = made[0] if isinstance(made, tuple) else made
+
+            def step_and_record(state, real_a, real_b, lr, pool_draws=None):
+                if trial:
+                    return step(state, real_a, real_b, lr, pool_draws)
+                inputs.append((_row_hashes(real_a), _row_hashes(real_b)))
+                state, m = step(state, real_a, real_b, lr, pool_draws)
+                metrics.append({k: float(v) for k, v in m.items()})
+                return state, m
+
+            return (step_and_record, *made[1:]) if isinstance(made, tuple) else step_and_record
+
+        return make
+
+    UnpairedVolumeDataset.sample_patches = sample_patches
+    driver.augment_batch = augment_batch
+    driver.preflight = preflight
+    if global_view:
+        driver.rank_rows = lambda opt, mesh: None
+    if record:
+        driver.make_train_step = recording(saved["make_train_step"])
+        driver.make_sharded_train_step = recording(saved["make_sharded_train_step"])
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = driver.main(list(argv))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        UnpairedVolumeDataset.sample_patches = saved.pop("sample_patches")
+        for name, f in saved.items():
+            setattr(driver, name, f)
+    return {"s": secs, "epochs": res["epochs"], "launches": dict(K.LAUNCHES),
+            "hash": _par_hash(res["state"]), "step": res["state"].step, **probe,
+            "aug_ms": [a.elapsed_time(b) for a, b in events], "inputs": inputs,
+            "metrics": metrics}
+
+
+def oom_rank_run(rank: int, spec: dict) -> dict:
+    """Repair A of the memory preflight on this rank: ``spec['oom_rank']``
+    capped to ``spec['cap_gib']`` of the card
+    (torch.cuda.set_per_process_memory_fraction), so that its trial step
+    runs out of memory while its peers wait in the step's collectives; the
+    driver's SystemExit text, and the wall clock at the preflight's start
+    and at the exit."""
+    import torch
+
+    from mra_gan_tpu_torch import train as driver
+
+    if rank == spec["oom_rank"]:
+        total = torch.cuda.get_device_properties(torch.cuda.current_device()).total_memory
+        torch.cuda.set_per_process_memory_fraction(spec["cap_gib"] * 2 ** 30 / total)
+    real, start = driver.preflight, []
+
+    def preflight(*args, **kw):
+        start.append(time.time())
+        return real(*args, **kw)
+
+    driver.preflight = preflight
+    try:
+        driver.main(list(spec["argv"]))
+        message = None
+    except SystemExit as e:
+        message = str(e)
+    finally:
+        driver.preflight = real
+    return {"exit": message, "start": start[0] if start else None, "end": time.time()}
+
+
 def parallel_rank(rank: int, world: int, store: str, plan: dict) -> None:
     """The body of one rank of phase 14: join the gloo group on the card,
     run the plan's parts in order (the same on every rank), write what it
@@ -2902,17 +3146,12 @@ def parallel_rank(rank: int, world: int, store: str, plan: dict) -> None:
             with reproducible(True):
                 out[f"{label} f32"] = par_step_case(K, label, case, torch.float32,
                                                     PAR_F32[label])
-        if plan.get("driver"):
-            from mra_gan_tpu_torch import train as driver
-
-            torch.cuda.synchronize()
-            K.reset_launches()
-            t0 = time.perf_counter()
-            res = driver.main(plan["driver"])
-            torch.cuda.synchronize()
-            out["driver"] = {"s": time.perf_counter() - t0, "epochs": res["epochs"],
-                             "launches": dict(K.LAUNCHES), "hash": _par_hash(res["state"]),
-                             "step": res["state"].step}
+        for run in plan.get("drivers", ()):
+            with reproducible(True) if run.get("deterministic") else contextlib.nullcontext():
+                out[f"driver {run['tag']}"] = driver_run(K, run["argv"], run.get("record", False),
+                                                         run.get("global_view", False))
+        if plan.get("oom"):
+            out["oom"] = oom_rank_run(rank, plan["oom"])
         out["host_staged"] = dict(collectives.HOST_STAGED)
         with open(Path(plan["dir"]) / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
@@ -2920,21 +3159,23 @@ def parallel_rank(rank: int, world: int, store: str, plan: dict) -> None:
         dist.destroy_process_group()
 
 
-def run_ranks(world: int, plan: dict, workdir: Path) -> list:
-    """Spawn ``world`` ranks of ``parallel_rank`` on the card and return what
-    each wrote; a rank that fails or a run past PAR_TIMEOUT_S fails the phase,
-    and every rank is ended."""
+def run_ranks(world: int, plan: dict, workdir: Path, timeout_s: float = PAR_TIMEOUT_S) -> list:
+    """Spawn ``world`` ranks of ``parallel_rank`` on the card, with a new
+    store in ``workdir``, and return what each wrote there; a rank that
+    fails or a run past ``timeout_s`` fails the phase, and every rank is
+    ended."""
     import pickle
 
     import torch.multiprocessing as mp
 
+    workdir.mkdir(parents=True, exist_ok=True)
     plan = {**plan, "dir": str(workdir)}
     ctx = mp.start_processes(parallel_rank, args=(world, str(workdir / f"store{world}"), plan),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.perf_counter() + PAR_TIMEOUT_S
+    deadline = time.perf_counter() + timeout_s
     try:
         while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
-            check(time.perf_counter() < deadline, f"{world} ranks within {PAR_TIMEOUT_S} s")
+            check(time.perf_counter() < deadline, f"{world} ranks within {timeout_s} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -3057,13 +3298,25 @@ def phase_parallel(K, tree, results: dict, decode: dict, phase13: dict, driver_d
     with reproducible(True):
         one.update({f"{label} f32": par_one_device(K, cases[label], torch.float32, steps)
                     for label, steps in PAR_F32.items()})
-    driver_argv = ["--data_path", str(driver_dir / "data"), "--ngf", str(NGF), "--ndf", str(NDF),
-                   "--patch_size", *map(str, PATCH), "--no_lsgan", "--device", DEVICE,
-                   "--seed", str(SEED), "--batch_size", "8", "--num_samples",
-                   str(DRIVER_SAMPLES), "--workers", "2", "--niter", "1", "--niter_decay", "0",
-                   "--print_freq", "8", "--checkpoints_dir", str(workdir / "ck"), "--name",
-                   "dp_driver", "--cache_dir", str(driver_dir / "ck" / "b1" / "cache"),
-                   "--data_parallel"]
+    common = ["--data_path", str(driver_dir / "data"), "--ngf", str(NGF), "--ndf", str(NDF),
+              "--patch_size", *map(str, PATCH), "--no_lsgan", "--device", DEVICE,
+              "--seed", str(SEED), "--niter", "1", "--niter_decay", "0", "--augment",
+              "--checkpoints_dir", str(workdir / "ck")]
+    driver_argv = [*common, "--batch_size", "8", "--num_samples", str(DRIVER_SAMPLES),
+                   "--workers", "2", "--print_freq", "8", "--name", "dp_driver",
+                   "--cache_dir", str(driver_dir / "ck" / "b1" / "cache"), "--data_parallel"]
+    # the rank view against the global view and the one-device driver, under
+    # deterministic algorithms, each on a new cache: one volume a rank a step
+    views = {tag: [*common, "--batch_size", str(PAR_VIEW_BATCH), "--num_samples",
+                   str(VIEW_SAMPLES), "--workers", "1", "--print_freq", str(PAR_VIEW_BATCH),
+                   "--name", tag, "--cache_dir", str(workdir / f"cache_{tag}"),
+                   *(["--data_parallel"] if tag != "one_view" else [])]
+             for tag in ("dp_rank", "dp_global", "one_view")}
+    with reproducible(True):
+        one_view = driver_run(K, views["one_view"], record=True)
+    oom_argv = [*common, "--batch_size", "8", "--num_samples", str(DRIVER_SAMPLES),
+                "--workers", "1", "--name", "oom", "--cache_dir",
+                str(driver_dir / "ck" / "b1" / "cache"), "--data_parallel"]
     norm_k2 = list(dict.fromkeys(c for _, b, p, (_, sp) in PAR_CASES.values() if sp == 2
                                  for c in par_shard_shapes(b, p, 2)))
     torch.cuda.synchronize()
@@ -3072,7 +3325,12 @@ def phase_parallel(K, tree, results: dict, decode: dict, phase13: dict, driver_d
     t0 = time.perf_counter()
     two = run_ranks(2, {"norm_cases": norm_k2, "decodes": decodes, "steps": PAR_CASES,
                         "steps_f32": {k: v for k, v in PAR_CASES.items() if k in PAR_F32},
-                        "driver": driver_argv}, workdir)
+                        "drivers": [{"tag": "dp_driver", "argv": driver_argv},
+                                    {"tag": "dp_rank", "argv": views["dp_rank"], "record": True,
+                                     "deterministic": True},
+                                    {"tag": "dp_global", "argv": views["dp_global"],
+                                     "record": True, "deterministic": True,
+                                     "global_view": True}]}, workdir)
     two_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     four = run_ranks(4, {"norm_cases": par_shard_shapes(*PAR_K4_SPATIAL, 4),
@@ -3080,8 +3338,15 @@ def phase_parallel(K, tree, results: dict, decode: dict, phase13: dict, driver_d
                          "steps_f32": {k: v for k, v in PAR_GRID.items() if k in PAR_F32}},
                      workdir)
     four_s = time.perf_counter() - t0
+    # repair A: rank 1 of 4 runs out of memory inside its trial step
+    t0 = time.perf_counter()
+    oom = [r["oom"] for r in run_ranks(
+        4, {"oom": {"argv": oom_argv, "oom_rank": 1, "cap_gib": PAR_OOM_CAP_GIB}},
+        workdir / "oom", timeout_s=PAR_OOM_TIMEOUT_S)]
+    oom_s = time.perf_counter() - t0
 
-    out = {"label": PAR_LABEL, "spawn_s": {"2 ranks": two_s, "4 ranks": four_s}}
+    out = {"label": PAR_LABEL,
+           "spawn_s": {"2 ranks": two_s, "4 ranks": four_s, "4 ranks, repair A": oom_s}}
     # the K-shard norm kernels
     for world, ranks in ((2, two), (4, four)):
         errs = {k: max(r["kernels"]["errors"][k] for r in ranks) for k in ranks[0]["kernels"]["errors"]}
@@ -3226,7 +3491,7 @@ def phase_parallel(K, tree, results: dict, decode: dict, phase13: dict, driver_d
                     results[name]["launches_sharded"] = rows[0]["launches"][f"sharded {name}"]
 
     # the driver: rank 0 wrote the checkpoint; it restores into a one-device state
-    drv = [r["driver"] for r in two]
+    drv = [r["driver dp_driver"] for r in two]
     expect(len({d["hash"] for d in drv}) == 1 and all(d["step"] == drv[0]["step"] for d in drv),
           "driver --data_parallel: ranks end bit-equal")
     state = CheckpointManager(workdir / "ck", "dp_driver").restore(
@@ -3244,8 +3509,85 @@ def phase_parallel(K, tree, results: dict, decode: dict, phase13: dict, driver_d
               f"driver --data_parallel launches {d['launches']}, want {want}")
     expect(n_lines == steps and steps == DRIVER_PAIRS * DRIVER_SAMPLES // 8,
           f"driver --data_parallel: {n_lines} loss lines for {steps} steps")
-    out["driver"] = {"s": max(d["s"] for d in drv), "steps": steps, "epochs": drv[0]["epochs"]}
-    del state
+    rates = _epoch_rates(drv[0]["epochs"], 8)
+    out["driver"] = {"s": max(d["s"] for d in drv), "steps": steps, "epochs": rates,
+                     "loader_s": [d["loader_s"] for d in drv],
+                     "volumes": [d["volumes"] for d in drv],
+                     "aug_ms_per_step": [sum(d["aug_ms"]) / len(d["aug_ms"]) for d in drv]}
+    print(f"[parallel] driver --data_parallel --augment, batch 8 = 2 x 4, on 2 {PAR_LABEL}: "
+          f"{rates[0]['s_per_step']:.4f} s/step (steps {DRIVER_SKIP + 1}-{steps}), data wait "
+          f"{rates[0]['data_share']:.1%}; per rank: loader host "
+          f"{[round(v, 3) for v in out['driver']['loader_s']]} s for "
+          f"{out['driver']['volumes']} volumes, augmentation "
+          f"{[round(v, 3) for v in out['driver']['aug_ms_per_step']]} ms a step (its 4 rows)",
+          flush=True)
+
+    # the rank view against the global view (bit-equal, deterministic
+    # algorithms) and against the one-device driver (the same inputs)
+    views = {tag: [r[f"driver {tag}"] for r in two] for tag in ("dp_rank", "dp_global")}
+    rows = PAR_VIEW_BATCH // 2
+    for rank, (mine, glob) in enumerate(zip(views["dp_rank"], views["dp_global"])):
+        expect(mine["inputs"] == glob["inputs"] and len(mine["inputs"]) > 0,
+               f"rank {rank}: the rank view's step inputs bit-equal to the global view's")
+        want = [tuple(h[rank * rows:(rank + 1) * rows] for h in step)
+                for step in one_view["inputs"]]
+        expect(mine["inputs"] == want,
+               f"rank {rank}: the rank view's step inputs bit-equal to the one-device driver's rows")
+        expect(mine["hash"] == glob["hash"],
+               f"rank {rank}: the rank view's parameters bit-equal to the global view's")
+        for name, w in one_view["metrics"][0].items():
+            v = mine["metrics"][0][name]
+            expect(abs(v - w) <= PAR_BF16_RTOL[0] * abs(w) + 1e-4,
+                   f"rank view step 0 {name}: {v} against the one-device driver's {w}")
+    mine_state = CheckpointManager(workdir / "ck", "dp_rank").restore(
+        "latest", create_state(train_config(torch.bfloat16), SEED + 1, PATCH, DEVICE))
+    one_state = CheckpointManager(workdir / "ck", "one_view").restore(
+        "latest", create_state(train_config(torch.bfloat16), SEED + 1, PATCH, DEVICE))
+    diffs = [(a - b).abs() for n in mine_state.nets for a, b in
+             zip(mine_state.nets[n].state_dict().values(), one_state.nets[n].state_dict().values())]
+    param_diff = {"max": max(float(d.max()) for d in diffs),
+                  "mean": sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs)}
+    out["views"] = {tag: {"loader_s": [r["loader_s"] for r in runs],
+                          "volumes": [r["volumes"] for r in runs],
+                          "aug_ms_per_step": [sum(r["aug_ms"]) / len(r["aug_ms"]) for r in runs],
+                          "s": max(r["s"] for r in runs)} for tag, runs in views.items()}
+    out["views"]["one_view"] = {"loader_s": one_view["loader_s"], "volumes": one_view["volumes"],
+                                "aug_ms_per_step": sum(one_view["aug_ms"]) / len(one_view["aug_ms"]),
+                                "s": one_view["s"]}
+    out["views"]["param_diff_vs_one_device"] = param_diff
+    # the steps differ by their sums' order only: the Adam walk bound of the
+    # CPU tests (tests/torch_port_util.py steps_match_jax)
+    n_steps = len(one_view["metrics"])
+    expect(param_diff["max"] <= 2 * n_steps * TRAIN_LR
+           and param_diff["mean"] <= 0.15 * n_steps * TRAIN_LR,
+           f"rank view's checkpoint within the Adam walk of the one-device driver's: {param_diff}")
+    for tag in ("dp_global", "dp_rank", "one_view"):
+        v = out["views"][tag]
+        print(f"[parallel] driver {tag} (batch {PAR_VIEW_BATCH}, {VIEW_SAMPLES} samples a volume, "
+              f"--augment, deterministic algorithms): loader host {v['loader_s']} s for "
+              f"{v['volumes']} volumes, augmentation {v['aug_ms_per_step']} ms a step, "
+              f"{v['s']:.2f} s", flush=True)
+    print(f"[parallel] rank view: step inputs and parameters bit-equal to the global view's, "
+          f"inputs bit-equal to the one-device driver's rows; its checkpoint against the "
+          f"one-device driver's (bf16, {len(one_view['metrics'])} steps): max |diff| "
+          f"{param_diff['max']:.3g}, mean {param_diff['mean']:.3g}", flush=True)
+    del state, mine_state, one_state, diffs
+
+    # repair A: every rank ends with the preflight's SystemExit
+    for rank, r in enumerate(oom):
+        expect(r["exit"] is not None and "out of device memory in the trial steps" in r["exit"]
+               and "--spatial_parallel" in r["exit"],
+               f"repair A: rank {rank} ends with the preflight's SystemExit: {r['exit']!r}")
+    ends = [r["end"] - oom[1]["end"] for r in oom]
+    out["repair_a"] = {"spawn_s": oom_s, "preflight_to_exit_s": [r["end"] - r["start"] for r in oom],
+                       "after_oom_rank_s": ends}
+    expect(max(ends) < PAR_OOM_TIMEOUT_S / 4,
+           f"repair A: the mesh ended {max(ends):.3f} s after the rank out of memory")
+    print(f"[parallel] repair A, 4 {PAR_LABEL}, rank 1 capped at {PAR_OOM_CAP_GIB} GiB: every "
+          f"rank ended with the preflight's SystemExit; preflight to exit per rank "
+          f"{[round(v, 3) for v in out['repair_a']['preflight_to_exit_s']]} s; after rank 1's "
+          f"exit {[round(v, 3) for v in ends]} s; spawn {oom_s:.1f} s (the group's timeout "
+          f"{PAR_TIMEOUT_S} s)", flush=True)
     torch.cuda.empty_cache()
     staged = {k: max(r["host_staged"][k] for r in two + four) for k in two[0]["host_staged"]}
     out["host_staged"] = staged
@@ -3342,6 +3684,7 @@ def main(argv=None) -> int:
         ckpt = phase_checkpoint(K, Path(tmp))
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         serving = phase_serve(K, tree, decode, Path(tmp))
+        serving["evaluate"] = phase_evaluate(Path(tmp))
     # phase 11's data and warm cache, read again by phases 13 and 14
     driver_dir = Path(tempfile.mkdtemp(dir=build_dir))
     train_driver = phase_driver(K, train, results, driver_dir)

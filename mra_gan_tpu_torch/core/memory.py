@@ -28,13 +28,24 @@ rank's trial steps take its part of the zero batch (``take``), and the peak
 is the largest over the mesh's axes (``axes``: space, then data, the order
 in which the step reduces its gradients), never over the world group, whose
 idle ranks (``--space_devices`` below the world size) take no part. A CUDA
-out-of-memory error is folded into the same reduction, so that every rank of
-the mesh ends together; an error that leaves a rank's peers waiting inside a
-collective of the trial step itself (ranks out of memory at different
-points) still ends them only at the process group's timeout.
+out-of-memory error after a rank's trial steps is folded into the same
+reduction, so that every rank of the mesh ends together. One inside them
+leaves the peers waiting in a collective of the step (the gradient
+all-reduce, a halo exchange, a norm's all-gather) that this rank will never
+reach, so it goes another way: the rank publishes OOM_KEY in the process
+group's store and leaves without another collective, and every collective
+of the trial and of the reduction waits under ``watch_for_abort``
+(parallel/collectives.py), looking at the store while it waits, so each peer's
+wait raises as soon as the key is there and the peer ends with the same
+SystemExit, within milliseconds rather than at the group's timeout. Under
+nccl the polling wait also keeps the host from running ahead of a pending
+NCCL kernel (where ``torch.cuda.synchronize`` would block behind it for
+good), and a peer that finds the key aborts its communicators before it
+raises.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, Optional, Sequence
 
@@ -42,9 +53,11 @@ import torch
 
 from ..checkpoint.manager import load_state, state_to_dict
 from ..models.cycle_gan import CycleGANState
-from ..parallel.collectives import all_reduce_
+from ..parallel.collectives import all_reduce_, publish_abort, watch_for_abort
 
 TRIAL_STEPS = 2
+# the store key a rank sets when it runs out of memory inside its trial steps
+OOM_KEY = "mra_gan_tpu_torch/preflight/out_of_memory"
 TRAIN_ADVICE = ("reduce --batch_size or --patch_size, enable --remat, or "
                 "depth-shard the step with --spatial_parallel")
 
@@ -85,8 +98,9 @@ def step_memory_estimate(step, state: CycleGANState, batch_size: int, lr: float,
     trial raises. None on the CPU unless a ``peak_reader`` is given.
     ``take`` gives a parallel step its rank's part of the global batch, and
     the peak is then the largest over the ranks of ``axes`` (ShardAxis,
-    collective); an out-of-memory error on any of them raises
-    ``torch.cuda.OutOfMemoryError`` on all of them."""
+    collective); an out-of-memory error on any of them, inside the trial
+    steps or after them, raises ``torch.cuda.OutOfMemoryError`` on all of
+    them."""
     if peak_reader is None:
         if state.device.type != "cuda":
             return None
@@ -99,27 +113,47 @@ def step_memory_estimate(step, state: CycleGANState, batch_size: int, lr: float,
     resident = state_bytes(state)
     saved = state_to_dict(state)
     grads = [(p, p.grad) for net in state.nets.values() for p in net.parameters()]
-    peak, oom = 0, False
-    try:
-        peak = peak_reader(lambda: [step(state, real_a, real_b, lr)
-                                    for _ in range(TRIAL_STEPS)])
-    except torch.cuda.OutOfMemoryError:
-        oom = True  # answered below, outside the handler: its traceback holds the trial's tensors
-        if not axes:
+    left = False  # this rank or a peer ran out of memory inside the trial steps
+
+    def trial():
+        nonlocal left
+        try:
+            return [step(state, real_a, real_b, lr) for _ in range(TRIAL_STEPS)]
+        except torch.cuda.OutOfMemoryError:
+            if axes:  # the peers may wait in a collective this rank will not reach
+                publish_abort(OOM_KEY)
+                left = True
             raise
-    finally:
-        load_state(state, saved)
-        for p, g in grads:
-            p.grad = g
-    if axes:
-        if oom and state.device.type == "cuda":
-            torch.cuda.empty_cache()
-        most = torch.tensor([peak, resident, oom], dtype=torch.float64, device=state.device)
-        for axis in axes:
-            all_reduce_(most, axis.group, op="max")
-        peak, resident, oom = most.tolist()
-        if oom:
-            raise torch.cuda.OutOfMemoryError("out of device memory in a rank's trial steps")
+
+    peak, oom = 0, False
+    with (watch_for_abort(OOM_KEY) if axes else contextlib.nullcontext()) as watch:
+        try:
+            try:
+                peak = peak_reader(trial)
+            except torch.cuda.OutOfMemoryError:
+                oom = True  # answered below, outside the handler: its traceback holds the trial's tensors
+                if not axes:
+                    raise
+            finally:
+                load_state(state, saved)
+                for p, g in grads:
+                    p.grad = g
+            if axes and not left:
+                if oom and state.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                most = torch.tensor([peak, resident, oom], dtype=torch.float64,
+                                    device=state.device)
+                for axis in axes:
+                    all_reduce_(most, axis.group, op="max")
+                peak, resident, oom = most.tolist()
+        except Exception:
+            # a peer published OOM_KEY: whatever this wait raised (autograd
+            # may wrap it), the watch knows
+            if watch is None or not watch.tripped:
+                raise
+            left = True
+    if left or oom:
+        raise torch.cuda.OutOfMemoryError("out of device memory in a rank's trial steps")
     return {"peak": int(peak), "state": int(resident)}
 
 

@@ -316,11 +316,21 @@ def augment_batch(images: torch.Tensor, labels: torch.Tensor,
                   generators: Tuple[torch.Generator, torch.Generator],
                   value_range: Optional[Tuple[float, float]] = None,
                   segmentation: bool = False,
-                  extended: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                  extended: bool = False, batch: Optional[int] = None,
+                  rows: Optional[slice] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The random policy over (B, 1, D, H, W) float32 batches (JAX
     ``augment_batch``, augment.py:311-326): ``draw_batch`` from
     ``generators`` (``step_generators``' pair, the second on the batch's
-    device), then ``apply_batch``."""
-    draws = draw_batch(images.shape[0], tuple(images.shape[2:]), *generators,
-                       extended=extended)
+    device), then ``apply_batch``. Given ``rows``, the batches are those rows
+    of a global batch of ``batch`` samples (a data-parallel rank's part): the
+    draws are still the global batch's, keeping both streams in step, and
+    only these rows' are applied, so the result is the global batch's
+    augmentation sliced to ``rows``, bit for bit."""
+    draws = draw_batch(images.shape[0] if rows is None else batch,
+                       tuple(images.shape[2:]), *generators, extended=extended)
+    if rows is not None:
+        draws = draws[rows]
+        if len(draws) != images.shape[0]:
+            raise ValueError(f"rows {rows} of a batch of {batch} are not the "
+                             f"{images.shape[0]} samples given")
     return apply_batch(images, labels, draws, value_range, segmentation)

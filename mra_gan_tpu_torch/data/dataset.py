@@ -283,11 +283,15 @@ class UnpairedVolumeDataset:
             vol[s[0]:s[0] + patch[0], s[1]:s[1] + patch[1], s[2]:s[2] + patch[2]]
             for s in starts])
 
-    def sample_patches(self, idx: int, epoch: int = 0) -> List[Tuple[np.ndarray, np.ndarray]]:
+    def sample_patches(self, idx: int, epoch: int = 0,
+                       keep: Optional[Sequence[int]] = None) -> List[Tuple[np.ndarray, np.ndarray]]:
         """num_samples (image_patch, label_patch) pairs for one volume,
         deterministic in (seed, epoch, idx). Outputs are (D,H,W,1) float32;
         legacy pipeline maps to [-1,1], monai leaves z-scored image / raw
-        label (the reference's normalization split, SURVEY §2.2 #10)."""
+        label (the reference's normalization split, SURVEY §2.2 #10).
+        ``keep`` (ascending sample indices) gathers only those samples: every
+        crop start is still drawn in order, so each kept pair is bit-equal to
+        the same sample of the whole list."""
         rng = np.random.Generator(np.random.Philox(
             key=self.seed, counter=[epoch, idx, 0, 0]))
         lbl_idx = int(rng.integers(len(self.label_paths))) if self.shuffle_labels else idx
@@ -308,6 +312,8 @@ class UnpairedVolumeDataset:
                 random_crop_start(image, label, patch, rng,
                                   self.drop_ratio, self.min_pixel)
                 for _ in range(self.num_samples)])
+        if keep is not None:
+            starts = starts[np.asarray(keep, np.int64)]
         imgs = self._gather(image, starts, patch)
         lbls = self._gather(label, starts, patch)
         if self.pipeline != "monai":
@@ -326,15 +332,28 @@ class PatchLoader:
     pool (the heavy per-volume work — NIfTI decode, z-score, fg-crop — is
     numpy and releases the GIL), yielding in deterministic order; a
     separate prefetch thread overlaps batching with device compute. The
-    batch stream is identical for any ``workers`` value."""
+    batch stream is identical for any ``workers`` value.
+
+    ``rows`` (lo, hi) makes a rank's view for data parallelism: each batch
+    is rows lo:hi of the global batch, (hi - lo, D, H, W, 1), bit-equal to
+    slicing the global view's. Stream position p = step * B + row is sample
+    p % num_samples of volume order[p // num_samples], so the view samples
+    only the volumes behind its rows (a volume whose samples straddle two
+    ranks' rows is sampled by both) and gathers only its samples of each;
+    it needs every volume to give exactly num_samples pairs, and raises
+    where one does not."""
 
     def __init__(self, dataset: UnpairedVolumeDataset, batch_size: int = 1,
-                 shuffle: bool = True, prefetch: int = 4, workers: int = 1):
+                 shuffle: bool = True, prefetch: int = 4, workers: int = 1,
+                 rows: Optional[Tuple[int, int]] = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.prefetch = max(1, prefetch)
         self.workers = max(0, workers)
+        if rows is not None and not 0 <= rows[0] < rows[1] <= batch_size:
+            raise ValueError(f"rows {rows} are not a range of a batch of {batch_size}")
+        self.rows = None if rows is None else (int(rows[0]), int(rows[1]))
 
     def _volume_order(self, epoch: int) -> np.ndarray:
         order = np.arange(len(self.ds))
@@ -343,38 +362,85 @@ class PatchLoader:
                 key=self.ds.seed, counter=[epoch, 0, 0, 1])).shuffle(order)
         return order
 
-    def _patch_stream(self, epoch: int):
-        order = self._volume_order(epoch)
+    def _plan(self, epoch: int, positions) -> List[Tuple[int, Optional[List[int]]]]:
+        """(volume index, the samples to gather or None for all of them) of
+        ascending stream ``positions``, in stream order."""
+        order, ns = self._volume_order(epoch), self.ds.num_samples
+        plan: List[Tuple[int, List[int]]] = []
+        for p in positions:
+            j, k = divmod(int(p), ns)
+            if plan and plan[-1][0] == j:
+                plan[-1][1].append(k)
+            else:
+                plan.append((j, [k]))
+        return [(int(order[j]), None if len(ks) == ns else ks) for j, ks in plan]
+
+    def _sample(self, idx: int, epoch: int, keep: Optional[List[int]]):
+        # the global view asks for whole volumes only, so any dataset with
+        # the JAX loader's sample_patches(idx, epoch) still serves it
+        if keep is None:
+            return self.ds.sample_patches(idx, epoch)
+        return self.ds.sample_patches(idx, epoch, keep)
+
+    def _patch_stream(self, epoch: int, plan, exact: bool):
+        def checked(idx, keep, pairs):
+            want = self.ds.num_samples if keep is None else len(keep)
+            if exact and len(pairs) != want:
+                raise ValueError(f"volume {idx} gave {len(pairs)} samples, not {want}: a "
+                                 f"rank's rows need num_samples ({self.ds.num_samples}) from "
+                                 "every volume")
+            return pairs
+
         if self.workers <= 1:
-            for idx in order:
-                yield from self.ds.sample_patches(int(idx), epoch)
+            for idx, keep in plan:
+                yield from checked(idx, keep, self._sample(idx, epoch, keep))
             return
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(self.workers) as ex:
             inflight: deque = deque()
-            it = iter(order)
+            it = iter(plan)
             window = self.workers + self.prefetch
-            for idx in it:
-                inflight.append(ex.submit(self.ds.sample_patches, int(idx), epoch))
+            for idx, keep in it:
+                inflight.append((idx, keep, ex.submit(self._sample, idx, epoch, keep)))
                 if len(inflight) >= window:
                     break
             while inflight:
-                fut = inflight.popleft()
+                idx, keep, fut = inflight.popleft()
                 nxt = next(it, None)
                 if nxt is not None:
-                    inflight.append(
-                        ex.submit(self.ds.sample_patches, int(nxt), epoch))
-                yield from fut.result()
+                    nidx, nkeep = nxt
+                    inflight.append((nidx, nkeep, ex.submit(self._sample, nidx, epoch, nkeep)))
+                yield from checked(idx, keep, fut.result())
 
     def epoch(self, epoch: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        if self.rows is None:
+            plan = self._plan(epoch, range(len(self.ds) * self.ds.num_samples))
+            size = self.batch_size
+        else:
+            lo, hi = self.rows
+            plan = self._plan(epoch, (s * self.batch_size + r
+                                      for s in range(self.steps_per_epoch())
+                                      for r in range(lo, hi)))
+            size = hi - lo
+        return self._batches(self._patch_stream(epoch, plan, self.rows is not None), size)
+
+    def first_pairs(self, epoch: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The global view's first ``n`` pairs of ``epoch`` (at most the
+        epoch's steps times B) as (n, D, H, W, 1) arrays, sampling only the
+        volumes behind them."""
+        n = min(n, self.steps_per_epoch() * self.batch_size)
+        pairs = list(self._patch_stream(epoch, self._plan(epoch, range(n)), True))
+        return np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs])
+
+    def _batches(self, stream, size: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         def batches():
             imgs, lbls = [], []
-            for ip, lp in self._patch_stream(epoch):
+            for ip, lp in stream:
                 imgs.append(ip)
                 lbls.append(lp)
-                if len(imgs) == self.batch_size:
+                if len(imgs) == size:
                     yield np.stack(imgs), np.stack(lbls)
                     imgs, lbls = [], []
 

@@ -18,6 +18,18 @@ NCCL refuses) run the CUDA paths, and a group on the CPU needs no staging.
 The choice is made from the group's backend, never by catching an error,
 and each staged call is counted in ``HOST_STAGED`` by operation.
 
+Every collective waits on its work through ``_wait``. Inside
+``watch_for_abort(key)`` that wait looks at the process group's store while
+the work is pending, so a rank that leaves the mesh mid-step (the
+memory preflight's out-of-memory error, core/memory.py) can end its peers
+wherever they wait: it publishes ``key`` (``publish_abort``) and the peers'
+waits raise ``MeshAborted``. Destroying or aborting a gloo group does not
+close its connections while the process still holds it, so the peers must
+learn of it themselves. Under nccl a wait that finds the key first aborts
+the communicators (ncclCommAbort), ending the pending NCCL kernel that the
+stream would otherwise wait on forever. Outside a watch every wait is the
+plain blocking one.
+
 Gradients follow one rule (see models/cycle_gan.py): each rank
 differentiates its own loss, every collective's backward is its true
 adjoint, and the train step averages the parameter gradients over the
@@ -28,7 +40,10 @@ is added.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import contextlib
+import threading
+import time
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,6 +51,107 @@ import torch.distributed as dist
 # operation -> calls whose CUDA tensors went through a host copy (gloo)
 HOST_STAGED: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
                                "send_recv": 0, "broadcast": 0}
+# a watched wait looks at the store this often (and, under nccl, at its work
+# every WORK_POLL_S)
+STORE_POLL_S = 0.01
+WORK_POLL_S = 2e-4
+
+
+class MeshAborted(RuntimeError):
+    """A rank of the mesh published the watched key: it will not finish the
+    collective this rank waits on."""
+
+
+class AbortWatch:
+    """The store key that ``watch_for_abort`` polls; ``tripped`` says
+    whether a wait of this process found it."""
+
+    def __init__(self, key: str):
+        self.key = key
+        self.store = dist.distributed_c10d._get_default_store()
+        self.nccl = dist.get_backend() == "nccl"
+        self.tripped = False
+
+    def published(self) -> bool:
+        return self.store.check([self.key])
+
+    def trip(self):
+        self.tripped = True
+        if self.nccl:  # end the NCCL kernels this rank's stream waits on
+            dist.distributed_c10d._abort_process_group()
+        raise MeshAborted(f"a rank of the mesh published {self.key!r}")
+
+    def wait(self, work) -> None:
+        """``work.wait()``, looking at the store while it is pending. A gloo
+        wait blocks the thread that calls it (and completes a send or a
+        receive, whose ``is_completed`` stays false until then), so it runs
+        on a thread of its own; an nccl work is polled, so that the host
+        never runs ahead of a pending NCCL kernel."""
+        if self.nccl:
+            next_look = 0.0
+            while not work.is_completed():
+                if time.monotonic() >= next_look:
+                    if self.published():
+                        self.trip()
+                    next_look = time.monotonic() + STORE_POLL_S
+                time.sleep(WORK_POLL_S)
+            work.wait()
+            return
+        failure = []
+
+        def blocking():
+            try:
+                work.wait()
+            except RuntimeError as e:  # raised again below, in the caller
+                failure.append(e)
+
+        waiter = threading.Thread(target=blocking, daemon=True)
+        waiter.start()
+        waiter.join(STORE_POLL_S)
+        while waiter.is_alive():
+            if self.published():
+                self.trip()  # the thread stays blocked until the leaver's connections close
+            waiter.join(STORE_POLL_S)
+        if failure:
+            if self.published():
+                self.trip()
+            raise failure[0]
+
+
+# the active watch: process-wide, since autograd's backward waits on its own
+# thread for a CUDA tensor
+_WATCH: Optional[AbortWatch] = None
+
+
+@contextlib.contextmanager
+def watch_for_abort(key: str) -> Iterator[AbortWatch]:
+    """Inside, every collective of this process looks at the process group's
+    store for ``key`` while it waits, and raises ``MeshAborted`` once the key
+    is there (also where the collective failed because a rank left). Not
+    reentrant."""
+    global _WATCH
+    if _WATCH is not None:
+        raise RuntimeError("watch_for_abort is already active")
+    _WATCH = AbortWatch(key)
+    try:
+        yield _WATCH
+    finally:
+        _WATCH = None
+
+
+def publish_abort(key: str) -> None:
+    """Tell every watching rank of the group that this one left: set ``key``
+    in the process group's store."""
+    dist.distributed_c10d._get_default_store().set(key, str(dist.get_rank()))
+
+
+def _wait(work) -> None:
+    watch = _WATCH
+    if watch is None:
+        work.wait()
+    else:
+        watch.wait(work)
+
 
 # torch >= 2.10 names the tensor forms *_single; earlier releases have only
 # the *_tensor names, with the same signatures
@@ -79,9 +195,9 @@ def all_reduce_(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
     if host_staged(t, group):
         HOST_STAGED["all_reduce"] += 1
         host = t.cpu()
-        dist.all_reduce(host, red, group=group)
+        _wait(dist.all_reduce(host, red, group=group, async_op=True))
         return t.copy_(host)
-    dist.all_reduce(t, red, group=group)
+    _wait(dist.all_reduce(t, red, group=group, async_op=True))
     return t
 
 
@@ -96,13 +212,13 @@ def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     if host_staged(t, group):
         HOST_STAGED["broadcast"] += 1
         host = t.cpu()
-        dist.broadcast(host, src, group=group)
+        _wait(dist.broadcast(host, src, group=group, async_op=True))
         return t.copy_(host)
     if not t.is_cuda and dist.get_backend(group) == "nccl":
         on_card = t.to(torch.device("cuda", torch.cuda.current_device()))
-        dist.broadcast(on_card, src, group=group)
+        _wait(dist.broadcast(on_card, src, group=group, async_op=True))
         return t.copy_(on_card)
-    dist.broadcast(t, src, group=group)
+    _wait(dist.broadcast(t, src, group=group, async_op=True))
     return t
 
 
@@ -115,10 +231,10 @@ def all_gather_stacked(t: torch.Tensor, group=None) -> torch.Tensor:
     if host_staged(src, group):
         HOST_STAGED["all_gather"] += 1
         host = torch.empty((k, *src.shape), dtype=src.dtype)
-        _ALL_GATHER(host.view(flat), src.cpu(), group=group)
+        _wait(_ALL_GATHER(host.view(flat), src.cpu(), group=group, async_op=True))
         return host.to(src.device)
     out = torch.empty((k, *src.shape), dtype=src.dtype, device=src.device)
-    _ALL_GATHER(out.view(flat), src, group=group)
+    _wait(_ALL_GATHER(out.view(flat), src, group=group, async_op=True))
     return out
 
 
@@ -130,10 +246,10 @@ def _reduce_scatter(stacked: torch.Tensor, group=None) -> torch.Tensor:
     if host_staged(src, group):
         HOST_STAGED["reduce_scatter"] += 1
         host = torch.empty(out_shape, dtype=src.dtype)
-        _REDUCE_SCATTER(host, flat_in.cpu(), group=group)
+        _wait(_REDUCE_SCATTER(host, flat_in.cpu(), group=group, async_op=True))
         return host.to(src.device)
     out = torch.empty(out_shape, dtype=src.dtype, device=src.device)
-    _REDUCE_SCATTER(out, flat_in, group=group)
+    _wait(_REDUCE_SCATTER(out, flat_in, group=group, async_op=True))
     return out
 
 
@@ -179,7 +295,7 @@ def _exchange(sends: Sequence[Tuple[int, torch.Tensor]],
             for (peer, _), buf in zip(recvs, out)]
     if ops:
         for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            _wait(work)
     return [t.to(like.device) for t in out]
 
 

@@ -52,23 +52,30 @@ def shard_state(state, mesh: Mesh):
     return state
 
 
+def data_rows(batch: int, axis) -> slice:
+    """This rank's rows of a global batch of ``batch`` along the data axis
+    ``axis`` (a ShardAxis): the index-th of ``axis.size`` equal parts
+    (ValueError where the axis does not divide the batch)."""
+    if batch % axis.size:
+        raise ValueError(f"batch {batch} not divisible by the data-axis size {axis.size}")
+    rows = batch // axis.size
+    return slice(axis.index * rows, (axis.index + 1) * rows)
+
+
 def make_sharded_train_step(cfg, mesh: Mesh):
     """The data-parallel step over the mesh's data axis (JAX :43). Returns
     (step, take): ``take(x)`` returns this rank's rows of a global batch
-    (ValueError where the axis does not divide it); ``step(state, real_a,
-    real_b, lr, pool_draws=None)`` takes those rows and a state readied by
-    ``shard_state``, and returns (state, the global metrics)."""
+    (``data_rows``), and ``take(x, local=True)`` a batch that already holds
+    only them (a rank view's, data/dataset.py) as it is; ``step(state,
+    real_a, real_b, lr, pool_draws=None)`` takes those rows and a state
+    readied by ``shard_state``, and returns (state, the global metrics)."""
     from ..models.cycle_gan import make_train_step
 
     axis = mesh.axis(DATA_AXIS)
     base = make_train_step(cfg)
 
-    def take(x: Union[torch.Tensor, np.ndarray]):
-        if x.shape[0] % axis.size:
-            raise ValueError(f"batch {x.shape[0]} not divisible by the data-axis size "
-                             f"{axis.size}")
-        rows = x.shape[0] // axis.size
-        return x[axis.index * rows:(axis.index + 1) * rows]
+    def take(x: Union[torch.Tensor, np.ndarray], local: bool = False):
+        return x if local else x[data_rows(x.shape[0], axis)]
 
     def step(state, real_a, real_b, lr, pool_draws=None):
         with data_sharding(axis, rows=real_a.shape[0]):

@@ -16,7 +16,9 @@ halo-exchange conv (counterpart of mra_gan_tpu/parallel/spatial.py).
 - ``halo_conv3d`` (JAX :388): a 'same' conv over a depth-sharded volume.
 
 Every rank runs the same calls in the same order; the volumes and batches
-are the global ones on every rank, and each rank takes its part.
+are the global ones on every rank, and each rank takes its part (a training
+batch on the 2-D grid may instead hold only the rank's rows, as the driver's
+rank view loads them; ``take`` then cuts the depth shard alone).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from ..infer.sliding_window import gaussian_window, patch_grid, per_call
 from ..models.networks import ResnetGenerator3D, granularity, spatial_granularity
 from ..ops.conv import conv3d
 from .collectives import all_gather_stacked, all_reduce_, neighbour_exchange
-from .sharding import shard_state
+from .sharding import data_rows, shard_state
 
 # JAX _DECODE_ADVICE (spatial.py:138-140)
 DECODE_ADVICE = ("decode it with the sliding-window decoder (default "
@@ -191,7 +193,10 @@ def make_spatial_train_step(cfg, mesh: Mesh, axis_name: str = SPACE_AXIS,
     (JAX :299), and with ``data_axis`` the batch split over that axis too
     (the 2-D data x space grid). Returns (step, take): ``take(x)`` checks a
     global (B, C, D, H, W) batch and returns this rank's rows and depth
-    shard of it; ``step(state, real_a, real_b, lr, pool_draws=None)`` takes
+    shard of it, and ``take(x, local=True)`` the depth shard of a batch that
+    already holds only this rank's rows (a rank view's, data/dataset.py),
+    checked as the global batch it is part of; ``step(state, real_a,
+    real_b, lr, pool_draws=None)`` takes
     those parts and a state readied by ``shard_spatial_state``, and returns
     (state, the global metrics). JAX's three ValueErrors: a shard depth that
     the generator's granularity or minimum does not allow, an in-plane size
@@ -218,9 +223,9 @@ def make_spatial_train_step(cfg, mesh: Mesh, axis_name: str = SPACE_AXIS,
         if shape[0] % nd:
             raise ValueError(f"batch {shape[0]} not divisible by the data-axis size {nd}")
 
-    def take(x: Union[torch.Tensor, np.ndarray]):
-        check(x.shape)
-        rows = _rank_slice(x.shape[0], nd, dp.index) if dp else slice(None)
+    def take(x: Union[torch.Tensor, np.ndarray], local: bool = False):
+        check((x.shape[0] * nd, *x.shape[1:]) if local else x.shape)
+        rows = data_rows(x.shape[0], dp) if dp and not local else slice(None)
         return x[rows][:, :, _rank_slice(x.shape[2], n, sp.index)]
 
     def step(state, real_a, real_b, lr, pool_draws=None):

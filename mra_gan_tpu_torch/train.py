@@ -34,11 +34,20 @@ driver's SystemExits (train.py:89-155). The ranks are torchrun's (``torchrun
 --nproc_per_node R -m mra_gan_tpu_torch.train --data_parallel ...``, NCCL,
 one card each) or those of a group the caller joined before calling
 ``main``; with one rank the flags fall through to the one-device step, as
-the JAX driver's device-count guards do. Every rank's loader draws the same
-global batch as a one-device run and the rank takes its part, so a run is
-the one-device run; rank 0 alone logs and writes. Spatial-only over fewer
-ranks than the world leaves the rest idle, as the JAX driver leaves devices
-idle.
+the JAX driver's device-count guards do. The batches are a one-device
+run's and each rank takes its part, so a run is the one-device run. Under
+``--data_parallel`` (alone or on the grid) each rank's loader is a rank view
+(data/dataset.py ``PatchLoader(rows=...)``): it reads, preprocesses and
+gathers only the volumes and samples behind its rows of each global batch,
+copies only those rows to its card and augments only them (the draws stay
+the global batch's), then takes its depth shard on the grid; the rows are
+bit-equal to the global batch's, so the group does the JAX driver's host
+work once between its ranks. ``--spatial_parallel`` alone keeps the global
+view: every space rank needs each whole volume, and augmentation mixes
+depth, so a depth shard cannot be augmented alone. ``--dump_patches``
+writes the global stream's first pairs (rank 0 samples them itself). Rank 0
+alone logs and writes. Spatial-only over fewer ranks than the world leaves
+the rest idle, as the JAX driver leaves devices idle.
 """
 from __future__ import annotations
 
@@ -62,7 +71,7 @@ from .data.dataset import PatchLoader, UnpairedVolumeDataset
 from .models.cycle_gan import CycleGANConfig, create_state, make_train_step
 from .models.networks import check_patch
 from .options.train_options import TrainOptions
-from .parallel.sharding import make_sharded_train_step, shard_state
+from .parallel.sharding import data_rows, make_sharded_train_step, shard_state
 from .parallel.spatial import make_spatial_train_step, shard_spatial_state, spatial_depth_rule
 from .training.schedules import LRScheduler
 from .utils import StepTimer, Visualizer, print_networks
@@ -126,6 +135,13 @@ def check_parallel(opt: argparse.Namespace, cfg: CycleGANConfig, patch, world: i
     return None
 
 
+def rank_rows(opt: argparse.Namespace, mesh) -> Optional[slice]:
+    """This rank's rows of each global batch, loaded and augmented by the
+    rank alone (its rank view), under --data_parallel; None (the global
+    view) for --spatial_parallel alone."""
+    return data_rows(opt.batch_size, mesh.axis(DATA_AXIS)) if opt.data_parallel else None
+
+
 def to_step_layout(batch: np.ndarray, device: torch.device, take=None) -> torch.Tensor:
     """A loader batch, (B, X, Y, Z, C) numpy, as the step's (B, C, X, Y, Z)
     on ``device`` (a parallel step's ``take`` picks this rank's part first);
@@ -138,10 +154,10 @@ def to_step_layout(batch: np.ndarray, device: torch.device, take=None) -> torch.
     return t
 
 
-def _dump_patches(dump_dir: Path, first: int, image_b: np.ndarray, label_b: np.ndarray,
-                  count: int) -> None:
-    """Write ``count`` pairs of the batch as patch_{i:04d}_{A,B}.nii.gz."""
-    for k in range(count):
+def _dump_patches(dump_dir: Path, first: int, image_b: np.ndarray,
+                  label_b: np.ndarray) -> None:
+    """Write the pairs as patch_{first + k:04d}_{A,B}.nii.gz."""
+    for k in range(image_b.shape[0]):
         for tag, arr in (("A", image_b), ("B", label_b)):
             nifti.save(nifti.NiftiImage(data=np.asarray(arr[k, ..., 0], np.float32),
                                         affine=np.eye(4)),
@@ -165,12 +181,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         shuffle_labels=(opt.pipeline == "legacy"), which_direction=opt.which_direction,
         resample=opt.resample, new_resolution=opt.new_resolution, drop_ratio=opt.drop_ratio,
         min_pixel=opt.min_pixel, cache_dir=opt.cache_dir, seed=opt.seed)
-    loader = PatchLoader(dataset, batch_size=opt.batch_size, shuffle=True, workers=opt.workers)
-    print(f"volumes: {len(dataset)}  steps/epoch: {loader.steps_per_epoch()}")
 
     state = create_state(cfg, opt.seed, patch, device)
     print_networks(state.nets, verbose=opt.verbose)
-    take = None
+    take, rows = None, None
     if grid is None:
         step = make_train_step(cfg)
     else:
@@ -187,6 +201,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         else:
             state = shard_state(state, mesh)
             step, take = make_sharded_train_step(cfg, mesh)
+        rows = rank_rows(opt, mesh)
+    loader = PatchLoader(dataset, batch_size=opt.batch_size, shuffle=True, workers=opt.workers,
+                         rows=None if rows is None else (rows.start, rows.stop))
+    print(f"volumes: {len(dataset)}  steps/epoch: {loader.steps_per_epoch()}")
     if not opt.no_mem_check:
         lim = opt.hbm_limit_gib
         parallel = {} if take is None else {
@@ -217,8 +235,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     # legacy patches live in [-1, 1]; monai images are z-scored, so each
     # member's own range is taken (JAX train.py:242-244)
     value_range = (-1.0, 1.0) if opt.pipeline == "legacy" else None
+    # a parallel step's part of a batch: its rows and depth shard of a global
+    # batch, or the depth shard alone of a rank view's rows
+    part = None if take is None else (lambda x: take(x, local=rows is not None))
+    # a rank view augments its rows with the global batch's draws
+    aug_rows = {} if rows is None else {"batch": opt.batch_size, "rows": rows}
     records = []
     for epoch in range(opt.epoch_count, opt.niter + opt.niter_decay + 1):
+        if dumps_left > 0 and loader.steps_per_epoch():
+            # the stream's first pairs, before augmentation: whatever rows
+            # this rank loads, the global view's (JAX train.py:187-232)
+            image_d, label_d = loader.first_pairs(epoch, dumps_left)
+            _dump_patches(dump_dir, dump_idx, image_d, label_d)
+            dump_idx += image_d.shape[0]
+            dumps_left -= image_d.shape[0]
         profiler = None
         if opt.profile_dir and epoch == opt.epoch_count:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -237,23 +267,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         sampled_step = -1
         for i, (image_b, label_b) in enumerate(loader.epoch(epoch)):
             timer.data_ready()
-            if dumps_left > 0:
-                n = min(dumps_left, image_b.shape[0])
-                _dump_patches(dump_dir, dump_idx, image_b, label_b, n)
-                dump_idx += n
-                dumps_left -= n
             # AtoB: image -> real_A, label -> real_B. Augmentation draws per
-            # sample of the global batch, so a parallel run augments the
-            # global batch and then takes its part.
-            part = None if opt.augment else take
-            real_a = to_step_layout(image_b, device, part)
-            real_b = to_step_layout(label_b, device, part)
+            # sample of the global batch and mixes depth, so it runs on whole
+            # rows before the step's part is taken.
+            early = None if opt.augment else part
+            real_a = to_step_layout(image_b, device, early)
+            real_b = to_step_layout(label_b, device, early)
             if opt.augment:
                 real_a, real_b = augment_batch(
                     real_a, real_b, step_generators(opt.seed, epoch, i, device),
-                    value_range=value_range, extended=opt.augment_extended)
-                if take is not None:
-                    real_a, real_b = take(real_a), take(real_b)
+                    value_range=value_range, extended=opt.augment_extended, **aug_rows)
+                if part is not None:
+                    real_a, real_b = part(real_a), part(real_b)
             state, metrics = step(state, real_a, real_b, lr)
             total_steps += opt.batch_size
             epoch_iter += opt.batch_size

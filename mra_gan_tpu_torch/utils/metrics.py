@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 
 def _f32(x) -> torch.Tensor:
@@ -43,14 +42,18 @@ def pearson_r(a, b) -> torch.Tensor:
 
 def _uniform_filter3d(x: torch.Tensor, win: int) -> torch.Tensor:
     """Separable box filter over the interior (valid) windows, one axis at
-    a time as the JAX package convolves."""
-    k = torch.ones(win, dtype=x.dtype, device=x.device) / win
-    y = x[None, None]
+    a time as the JAX package convolves, as a sum of shifted slices: plain
+    float32 adds, where a cuDNN conv of a float32 volume would run in TF32
+    (about three decimal digits) unless the process turned it off."""
+    k = torch.tensor(1.0 / win, dtype=x.dtype, device=x.device)
+    y = x
     for axis in range(3):
-        shape = [1, 1, 1]
-        shape[axis] = win
-        y = F.conv3d(y, k.reshape(1, 1, *shape))
-    return y[0, 0]
+        n = y.shape[axis] - win + 1
+        acc = y.narrow(axis, 0, n) * k
+        for i in range(1, win):
+            acc = acc + y.narrow(axis, i, n) * k
+        y = acc
+    return y
 
 
 def ssim3d(a, b, data_range: Optional[float] = None, win: int = 7) -> torch.Tensor:

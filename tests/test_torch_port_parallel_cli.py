@@ -2,13 +2,18 @@
 CPU (tests/torch_port_parallel_ranks.py, the process group joined before
 ``main`` is called, as torchrun's would be):
 
-- ``python -m mra_gan_tpu_torch.train`` with --data_parallel (2 ranks),
-  --spatial_parallel (2 ranks) and both with --space_devices (2 x 2 on 4
-  ranks), one short epoch: rank 0 alone writes the loss lines and the
-  checkpoint, which restores into a one-device state bit-equal to every
-  rank's final state; --spatial_parallel --space_devices 2 on 4 ranks
-  leaves two ranks idle, as the JAX driver leaves devices idle, and the
-  memory preflight of the two busy ranks reduces over their mesh alone;
+- ``python -m mra_gan_tpu_torch.train`` with --data_parallel (2 ranks, and
+  with --augment --dump_patches 2), --spatial_parallel (2 ranks) and both
+  with --space_devices (2 x 2 on 4 ranks), one short epoch: rank 0 alone
+  writes the loss lines and the checkpoint, which restores into a
+  one-device state bit-equal to every rank's final state; the augmented
+  run's dumps are the one-device run's and its checkpoint is within the
+  Adam walk of the one-device run's; --spatial_parallel --space_devices 2
+  on 4 ranks leaves two ranks idle, as the JAX driver leaves devices idle,
+  and the memory preflight of the two busy ranks reduces over their mesh
+  alone; a rank that runs out of memory inside its trial steps, before a
+  collective its peers wait in, ends all four ranks with the preflight's
+  SystemExit, over the data axis and over the space axis;
 - the JAX driver's SystemExits for the parallel flags (train.py:89-145);
 - ``python -m mra_gan_tpu_torch.test`` with --spatial_shard and
   --data_parallel on 2 ranks against the one-device decodes (the single
@@ -16,12 +21,15 @@ CPU (tests/torch_port_parallel_ranks.py, the process group joined before
 from __future__ import annotations
 
 import argparse
+import gzip
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from mra_gan_tpu_torch import test as decode_cli
+from mra_gan_tpu_torch import train as train_cli
 from mra_gan_tpu_torch.checkpoint import CheckpointManager
 from mra_gan_tpu_torch.checkpoint.io import save_reference_pth
 from mra_gan_tpu_torch.data import nifti
@@ -39,16 +47,23 @@ SMALL = ["--ngf", "4", "--ndf", "4", "--n_layers_D", "1", "--precision", "float3
 
 @pytest.mark.parametrize("flags, world, busy", [
     (["--data_parallel"], 2, 2),
+    (["--data_parallel", "--augment", "--dump_patches", "2"], 2, 2),
     (["--spatial_parallel"], 2, 2),
     (["--data_parallel", "--spatial_parallel", "--space_devices", "2"], 4, 4),
     (["--spatial_parallel", "--space_devices", "2"], 4, 2),
-], ids=["data_parallel", "spatial_parallel", "data_x_space", "space_devices_idle"])
+], ids=["data_parallel", "data_parallel_augment_dumps", "spatial_parallel", "data_x_space",
+        "space_devices_idle"])
 def test_train_cli_runs_over_ranks_and_saves_a_one_device_checkpoint(tmp_path, flags, world,
                                                                       busy):
     data = write_train_data(tmp_path / "data", n=2, shape=(20, 20, 20))
     argv = ["--data_path", str(data), "--checkpoints_dir", str(tmp_path / "ck"),
             "--name", "run", *PATCH, *SMALL, *flags]
-    results = start_ranks(rank_train_main, world, tmp_path, argv)()
+    wait = start_ranks(rank_train_main, world, tmp_path, argv)
+    one = None
+    if "--dump_patches" in flags:  # the one-device run beside it, on the same data
+        one = train_cli.main(["--data_path", str(data), "--checkpoints_dir", str(tmp_path / "one"),
+                              "--name", "run", *PATCH, *SMALL, *flags[1:]])
+    results = wait()
     assert [r["step"] is not None for r in results] == [True] * busy + [False] * (world - busy)
     run = tmp_path / "ck" / "run"
     lines = [ln for ln in (run / "loss_log.txt").read_text().splitlines()
@@ -63,6 +78,22 @@ def test_train_cli_runs_over_ranks_and_saves_a_one_device_checkpoint(tmp_path, f
         for name, net in state.nets.items():
             for key, v in net.state_dict().items():
                 assert torch.equal(r["params"][name][key], v), f"{name} {key}"
+    if one is not None:
+        # the same four patches, written by rank 0 whatever rows it loads
+        dumps = sorted(p.name for p in (run / "patch_dumps").iterdir())
+        assert dumps == [f"patch_{i:04d}_{t}.nii.gz" for i in range(2) for t in "AB"]
+        for name in dumps:  # gzip headers carry the write time; the NIfTI bytes
+            assert gzip.decompress((run / "patch_dumps" / name).read_bytes()) == gzip.decompress(
+                (tmp_path / "one" / "run" / "patch_dumps" / name).read_bytes()), name
+        # the steps differ by their sums' order only: within the Adam walk
+        # bound of two steps (tests/torch_port_util.py steps_match_jax)
+        lr = 2e-4
+        assert one["state"].step == state.step
+        for name, net in one["state"].nets.items():
+            for key, v in net.state_dict().items():
+                d = (state.nets[name].state_dict()[key] - v).abs()
+                assert float(d.max()) <= 2 * 2 * lr and float(d.mean()) <= 0.15 * 2 * lr, \
+                    f"{name} {key}: max {float(d.max()):.3g}, mean {float(d.mean()):.3g}"
 
 
 @pytest.mark.parametrize("limit, oom_rank, message", [
@@ -88,6 +119,27 @@ def test_preflight_reduces_over_the_mesh_with_idle_ranks(tmp_path, limit, oom_ra
         assert all(message in r["exit"] and "--spatial_parallel" in r["exit"]
                    for r in results[:2]), [r["exit"] for r in results]
         assert [r["exit"] for r in results[2:]] == [None, None]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--data_parallel", "--batch_size", "4"],
+    ["--spatial_parallel"],
+], ids=["data_axis", "space_axis"])
+def test_preflight_ends_the_mesh_when_a_rank_runs_out_inside_its_trial(tmp_path, flags):
+    """Rank 1 of 4 runs out of memory at the start of its first trial step,
+    before the step's first collective, which ranks 0, 2 and 3 enter and
+    would wait in until the group's timeout (90 s): every rank must end with
+    the preflight's SystemExit, and the spawn well within 45 s."""
+    data = write_train_data(tmp_path / "data", n=2, shape=(20, 20, 20))
+    argv = ["--data_path", str(data), "--checkpoints_dir", str(tmp_path / "ck"),
+            "--name", "run", *PATCH, *SMALL, *flags, "--hbm_limit_gib", "3"]
+    t0 = time.monotonic()
+    results = start_ranks(rank_train_preflight, 4, tmp_path, argv, 1, True, timeout_s=45)()
+    assert time.monotonic() - t0 < 45
+    for r in results:
+        assert r["est"] == [] and "out of device memory in the trial steps" in r["exit"] \
+            and "--spatial_parallel" in r["exit"], r["exit"]
+        assert r["seconds"][0] < 30, r["seconds"]
 
 
 def _opt(**kw):

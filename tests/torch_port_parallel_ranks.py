@@ -224,32 +224,42 @@ def rank_train_main(rank: int, world: int, argv):
             "step": None if state is None else state.step}
 
 
-def rank_train_preflight(rank: int, world: int, argv, oom_rank: int):
+def rank_train_preflight(rank: int, world: int, argv, oom_rank: int, inside: bool = False):
     """``train.main`` with the preflight reading a peak of (rank + 1) GiB
-    after the trial steps, or running out of memory after them on
-    ``oom_rank``: {'exit': the SystemExit's text or None, 'est': what each
-    preflight call returned}."""
+    after the trial steps, or, on ``oom_rank``, running out of memory after
+    them, or with ``inside`` at the start of its first trial step, before
+    the step's first collective, which its peers enter: {'exit': the
+    SystemExit's text or None, 'est': what each preflight call returned,
+    'seconds': how long the preflight took to end}."""
     from mra_gan_tpu_torch import train
     from mra_gan_tpu_torch.core import memory
 
     def reader(trial):
         trial()
-        if rank == oom_rank:
+        if rank == oom_rank and not inside:
             raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
         return (rank + 1) << 30
 
-    est = []
+    def out_of_memory(*args, **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
 
-    def preflight(*args, **kw):
-        est.append(memory.preflight(*args, peak_reader=reader, **kw))
+    est, seconds = [], []
+
+    def preflight(step, *args, **kw):
+        t0 = time.monotonic()
+        try:
+            est.append(memory.preflight(out_of_memory if inside and rank == oom_rank else step,
+                                        *args, peak_reader=reader, **kw))
+        finally:
+            seconds.append(time.monotonic() - t0)
         return est[-1]
 
     train.preflight = preflight
     try:
         train.main(list(argv))
     except SystemExit as e:
-        return {"exit": str(e), "est": est}
-    return {"exit": None, "est": est}
+        return {"exit": str(e), "est": est, "seconds": seconds}
+    return {"exit": None, "est": est, "seconds": seconds}
 
 
 def rank_decode_main(rank: int, world: int, argv):
@@ -282,4 +292,94 @@ def rank_remat_backward(rank: int, world: int, sd: dict, x: np.ndarray):
         y.square().sum().backward()
         out.append((xs.grad, {k: p.grad for k, p in net.named_parameters()
                               if p.grad is not None}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rank view of the loader and the driver
+
+
+def rank_loader_views(rank: int, world: int, cases):
+    """For each case (a dict: data, cache, pipeline, num_samples, batch,
+    workers, seed, patch, mesh (data, space)): this rank's rows of the mesh's
+    data axis, as the driver takes them; its rank view's batches of epoch 0
+    on the case's cache, cold (every rank writing it at once), and, after
+    every rank has flushed its writes, of epoch 1, warm; and each
+    (epoch, volume, kept samples or None) its dataset's sample_patches was
+    called for."""
+    import torch.distributed as dist
+
+    from mra_gan_tpu_torch.core.mesh import DATA_AXIS, make_mesh
+    from mra_gan_tpu_torch.data.dataset import (PatchLoader, UnpairedVolumeDataset,
+                                                flush_cache_writes)
+    from mra_gan_tpu_torch.parallel.sharding import data_rows
+
+    class Counted(UnpairedVolumeDataset):
+        def sample_patches(self, idx, epoch=0, keep=None):
+            self.calls.append((epoch, idx, None if keep is None else list(keep)))
+            return super().sample_patches(idx, epoch, keep)
+
+    meshes, out = {}, []
+    for case in cases:
+        grid = tuple(case["mesh"])
+        if grid not in meshes:  # every rank makes the same meshes in the same order
+            meshes[grid] = make_mesh(*grid)
+        rows = data_rows(case["batch"], meshes[grid].axis(DATA_AXIS))
+        ds = Counted(case["data"], patch_size=case["patch"], pipeline=case["pipeline"],
+                     num_samples=case["num_samples"],
+                     shuffle_labels=case["pipeline"] == "legacy", cache_dir=case["cache"],
+                     seed=case["seed"])
+        ds.calls = []
+        loader = PatchLoader(ds, batch_size=case["batch"], workers=case["workers"],
+                             rows=(rows.start, rows.stop))
+        epochs = []
+        for epoch in (0, 1):
+            epochs.append(list(loader.epoch(epoch)))
+            flush_cache_writes()
+            dist.barrier()
+        out.append({"rows": (rows.start, rows.stop), "epochs": epochs, "calls": ds.calls,
+                    "steps": loader.steps_per_epoch()})
+    return out
+
+
+def rank_train_views(rank: int, world: int, runs: dict):
+    """Each run (tag -> argv without --name) of ``train.main`` on this rank
+    twice: with its rank view, as the driver is, under --name {tag}_rank,
+    and with the global view, ``train.rank_rows`` patched to None (every
+    rank loads and augments the whole global batch and takes its part),
+    under --name {tag}_global. For each: the inputs its step was given and
+    the final parameters."""
+    from mra_gan_tpu_torch import train
+
+    factories = {n: getattr(train, n) for n in ("rank_rows", "make_sharded_train_step",
+                                                "make_spatial_train_step")}
+
+    def recording(factory, inputs):
+        def make(*args, **kw):
+            step, take = factory(*args, **kw)
+
+            def step_and_record(state, real_a, real_b, lr, pool_draws=None):
+                inputs.append((_np(real_a), _np(real_b)))
+                return step(state, real_a, real_b, lr, pool_draws)
+
+            return step_and_record, take
+
+        return make
+
+    out = {}
+    for tag, argv in runs.items():
+        for view in ("rank", "global"):
+            inputs = []
+            if view == "global":
+                train.rank_rows = lambda opt, mesh: None
+            for name in ("make_sharded_train_step", "make_spatial_train_step"):
+                setattr(train, name, recording(factories[name], inputs))
+            try:
+                res = train.main([*argv, "--name", f"{tag}_{view}"])
+            finally:
+                for name, f in factories.items():
+                    setattr(train, name, f)
+            out[f"{tag} {view}"] = {
+                "inputs": inputs, "step": res["state"].step,
+                "params": {n: net.state_dict() for n, net in res["state"].nets.items()}}
     return out
