@@ -21,24 +21,39 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    backward, torch.var_mean for the statistics) and the memory bound, at
    each slab shape beside the two-pass kernels, and at each two-pass
    backward shape in bfloat16 at several segment targets (BWD_TARGETS);
+   and the two conv7 kernels (the resnet's 7^3 stem and head) in each of
+   their roles (CONV7_ROLES: spread for the stem forward and the head's
+   input gradient, gather for the head forward and the stem's input
+   gradient) at every batch size the decode and the train step at batch 1
+   and 8 give them, against float32 F.conv3d on the card with TF32 off
+   (phase_conv7_kernels states the bar);
 3. cuDNN conv3d / conv_transpose3d at the generator's shapes, NCDHW against
-   channels_last_3d;
+   channels_last_3d; and each conv7 role at the cells' batch sizes (16, 8)
+   timed beside cuDNN's heuristic pick in bf16 (the path before the
+   kernels), cuDNN with torch.backends.cudnn.benchmark on, the plain
+   float32 version and the bound (FLOPs at the bf16 peak or bytes at the
+   memory rate, whichever is larger, named);
 4. the resnet_6blocks generator at ngf=32, batch 8, 64^3, weights from a
    seeded numpy tree in the JAX layout through state_dict_from_jax: kernel
    norms against plain norms in bfloat16 and (TF32 off) float32, and the
    exact launches of each forward kernel per forward that uses_slab gives
-   (13 slab, 4 stats, 4 apply), none of a backward one (nor in phases 5-6);
+   (13 slab, 4 stats, 4 apply), none of a backward one (nor in phases 5-6),
+   and one launch of each conv7 kernel per bf16 forward (none in float32);
 5. the sliding-window decode of a 128x256x256 volume (147 patches in 19
-   batches, Gaussian blend; 19 x those launches), then the single-pass
-   whole-volume forward of the same volume (17 stats, 17 apply, no slab);
+   batches, Gaussian blend; 19 x those launches; DECODE_REPEATS timed
+   decodes, the median kept), then the single-pass
+   whole-volume forward of the same volume (17 stats, 17 apply, no slab;
+   one launch of each conv7 kernel);
 6. the decode CLI (python -m mra_gan_tpu_torch.test) in directory mode on
-   three synthetic NIfTIs with a .pth checkpoint written from the same tree;
+   three synthetic NIfTIs with a .pth checkpoint written from the same tree
+   (the norm and conv7 launches of its batches);
 7. the CycleGAN train step (create_state + make_train_step) at the
    reference default (bench.py:193-198: two resnet_6blocks generators, two
    3-layer PatchGANs, ngf = ndf = 32, LSGAN, pool 50, Adam 2e-4 / 0.5, bf16
    over f32 parameters, 64^3 patches) at batch 1 and 8: s/step, pairs/s,
    peak memory, the exact launches per step (forward: 4 x 13 + 12 slab, 16
-   stats, 16 apply; backward: 64 bwd slab, 16 bwd stats, 16 bwd apply),
+   stats, 16 apply; backward: 64 bwd slab, 16 bwd stats, 16 bwd apply;
+   conv7: 8 spread, 6 gather),
    the gradient relayouts, finite losses, and one profiled step by kernel
    class;
 8. step 0 at batch 1 through the kernels and through the plain norms, in
@@ -173,7 +188,10 @@ JSON line {"kernels": [...]} with each kernel's launches on its main path
 backward ones), its largest error against the plain version, and its times
 at the main path's largest norm that it runs (bfloat16); the two apply
 kernels add their K-shard launches in phase 14's spatial step, their
-largest K-shard error and their K-shard times beside K = 1. ``--json-out PATH`` also writes
+largest K-shard error and their K-shard times beside K = 1; the two conv7
+kernels' launches are the batch-8 step's (they run there in both roles),
+their times those of the step's 2B = 16 forward role, each role's times
+beside them. ``--json-out PATH`` also writes
 every shape's numbers. The last line is {"ok": true, "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -199,6 +217,9 @@ PATCH = (64, 64, 64)
 VOLUME = (128, 256, 256)  # bench.py:80
 STRIDE = 32
 DECODE_BATCH = 8
+# phase 5's timed decodes: the host sets a decode's pace (its idle share is
+# 25-45% with the conv7 kernels), so its median takes more than three
+DECODE_REPEATS = 7
 EXPECTED_GRID = (147, 19)  # patches, batches
 CLI_SHAPES = [(96, 128, 77), (128, 128, 64), (100, 90, 45)]  # odd, even, sub-patch Z
 NGF = 32
@@ -224,6 +245,23 @@ BWD_APPLY_OPS = 7  # z (sub, mul), g' (mul), sub, fma, mul + act'
 # block targets at which the two-pass backward is also timed, with
 # K.num_segments alone (no merge bound, K.backward_segments)
 BWD_TARGETS = (132 * 2, 132 * 3, 132 * 4, 132 * 8)
+# the 7^3 convs of the resnet stem and head on the conv7 kernels: (role,
+# kernel, pad, the input's edge, the batch sizes the paths give it): the
+# decode's 8 and last 3, the step's 2B = 16 (leaf applies) and B = 8 (cycle
+# applies), 2 and 1 at batch 1; the stem's input gradient on the cycle
+# applies only (the leaf applies' inputs are real images)
+CONV7_ROLES = (
+    ("stem forward", "conv7_spread", 0, 70, (16, 8, 3, 2, 1)),
+    ("head input grad", "conv7_spread", 6, 64, (16, 8, 2, 1)),
+    ("head forward", "conv7_gather", 0, 70, (16, 8, 3, 2, 1)),
+    ("stem input grad", "conv7_gather", 6, 64, (8, 1)),
+)
+CONV7_TIMED = (16, 8)  # phase 3 times each role at the cells' batch sizes
+# conv7 launches: per generator forward (stem and head), and per train step
+# (4 generator applies, each a stem and a head forward and a head input
+# gradient; the 2 cycle applies a stem input gradient)
+CONV7_PER_FORWARD = {"conv7_spread": 1, "conv7_gather": 1}
+CONV7_PER_STEP = {"conv7_spread": 8, "conv7_gather": 6}
 
 
 def check(cond: bool, what: str) -> None:
@@ -726,6 +764,139 @@ def launched(K, want: dict) -> bool:
     return all(K.LAUNCHES[k] == want.get(k, 0) for k in K.FORWARD + K.BACKWARD)
 
 
+def conv7_launched(want: dict) -> bool:
+    """Each conv7 kernel launched as often as ``want`` says (0 where it
+    names none) since its counters were zeroed."""
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+
+    return all(C7.LAUNCHES[k] == want.get(k, 0) for k in C7.LAUNCHES)
+
+
+def conv7_case(kernel: str, pad: int, edge: int, n: int, gen):
+    """One role's bf16 inputs on the card at O(1) output scale: the field
+    (one channel, or NGF in channels_last_3d), the (NGF, 7, 7, 7) taps and
+    the bias (forward roles only: an input gradient has none)."""
+    import torch
+
+    spread = kernel == "conv7_spread"
+    shape = (n, 1 if spread else NGF) + (edge,) * 3
+    field = torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
+    if not spread:
+        field = field.contiguous(memory_format=torch.channels_last_3d)
+    fan_in = 343 * (1 if spread else NGF)
+    w = (torch.randn((NGF, 7, 7, 7), generator=gen, device=DEVICE) / math.sqrt(fan_in)).bfloat16()
+    b = None
+    if pad == 0:
+        b = (0.1 * torch.randn((NGF if spread else 1,), generator=gen, device=DEVICE)).bfloat16()
+    return field, w, b
+
+
+def phase_conv7_kernels(results: dict) -> None:
+    """Phase 2's conv7 part: each kernel in each role at every batch size of
+    CONV7_ROLES against float32 F.conv3d of the same bf16 inputs with TF32
+    off. Bar, elementwise: |kernel - ref| <= 2^-8 |ref| + 2^-12 max|ref|:
+    half an ulp of each element (the kernel rounds once) plus 1/16 of an ulp
+    at the output's scale for the order of the float32 sums."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for role, kernel, pad, edge, batches in CONV7_ROLES:
+            for n in batches:
+                field, w, b = conv7_case(kernel, pad, edge, n, gen)
+                y = getattr(C7, kernel)(field, w, b, pad)
+                torch.cuda.synchronize()
+                # the plain version on float32 input: float32 F.conv3d, not rounded
+                ref = getattr(C7, f"{kernel}_plain")(field.float(), w, b, pad)
+                out = (n, NGF if kernel == "conv7_spread" else 1) + (edge + 2 * pad - 6,) * 3
+                check(tuple(y.shape) == out and y.dtype == torch.bfloat16,
+                      f"{kernel} {role} n={n}: shape {tuple(y.shape)}, want {out}")
+                err = (y.float() - ref).abs()
+                scale = float(ref.abs().max())
+                worst = float((err - 2 ** -8 * ref.abs()).max()) / scale
+                results[kernel]["shapes"].append({
+                    "role": role, "n": n, "shape": list(field.shape), "pad": pad,
+                    "max_abs_err": float(err.max()), "out_scale": scale,
+                    "over_half_ulp_rel": worst})
+                print(f"[conv7] {role:16s} {kernel} n={n:2d} {str(tuple(field.shape)):24s} "
+                      f"max err {float(err.max()):.3g} at scale {scale:.3g}; beyond half an "
+                      f"ulp {worst:.3g} of the scale (bar 2^-12)", flush=True)
+                check(worst <= 2 ** -12, f"{kernel} {role} n={n}: {worst} > 2^-12")
+                del field, w, b, y, ref, err
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def phase_conv7_times(bw: float, tc: float, results: dict) -> list:
+    """Phase 3's conv7 part: each role at the cells' batch sizes, the kernel
+    beside cuDNN's heuristic pick (today's path before the kernels: F.conv3d,
+    or torch.nn.grad.conv3d_input for an input gradient, in bf16), cuDNN with
+    torch.backends.cudnn.benchmark on (set and restored here), the plain
+    version (float32 F.conv3d, TF32 off) and the bound: FLOPs at the bf16
+    tensor-core peak or each input byte read and each output byte written
+    once at the memory rate, whichever is larger."""
+    import torch
+    import torch.nn.functional as F
+
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    rows = []
+    tf32, bench = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark
+    try:
+        for role, kernel, pad, edge, _ in CONV7_ROLES:
+            for n in CONV7_TIMED:
+                field, w, b = conv7_case(kernel, pad, edge, n, gen)
+                spread = kernel == "conv7_spread"
+                fn = getattr(C7, kernel)
+                plain = getattr(C7, f"{kernel}_plain")
+                if pad == 0:  # a forward: the conv itself
+                    w5 = w[:, None] if spread else w[None]
+                    lib = lambda: F.conv3d(field, w5, b)  # noqa: E731
+                else:  # an input gradient: of the conv whose output this field is
+                    w5 = w[None] if spread else w[:, None]
+                    in_shape = (n, w5.shape[1]) + (edge + 6,) * 3
+                    lib = lambda: torch.nn.grad.conv3d_input(in_shape, w5, field)  # noqa: E731
+                row = {"role": role, "kernel": kernel, "n": n, "shape": list(field.shape),
+                       "pad": pad}
+                row["ms"] = device_ms(lambda: fn(field, w, b, pad), 10, 2)
+                torch.backends.cudnn.benchmark = False
+                row["cudnn_ms"] = device_ms(lib, 5, 1)
+                torch.backends.cudnn.benchmark = True
+                row["cudnn_benchmark_ms"] = device_ms(lib, 5, 2)
+                torch.backends.cudnn.benchmark = bench
+                torch.backends.cudnn.allow_tf32 = False
+                row["plain_ms"] = device_ms(lambda: plain(field, w, b, pad), 3, 1)
+                torch.backends.cudnn.allow_tf32 = tf32
+                out_vox = (edge + 2 * pad - 6) ** 3
+                # per output voxel of a forward, per gradient voxel of an input gradient
+                flop = 2 * 343 * NGF * n * (out_vox if pad == 0 else edge ** 3)
+                nbytes = 2 * (field.numel() + w.numel() + (0 if b is None else b.numel())
+                              + n * out_vox * (NGF if spread else 1))
+                row.update(flop=flop, bytes=nbytes,
+                           bound_ms=max(flop / tc, nbytes / bw) * 1e3,
+                           bound_by="operations" if flop / tc >= nbytes / bw else "bytes",
+                           tflops=flop / row["ms"] / 1e9,
+                           cudnn_tflops=flop / row["cudnn_ms"] / 1e9)
+                rows.append(row)
+                results[kernel].setdefault("times", []).append(row)
+                print(f"[conv7] {role:16s} n={n:2d} kernel {row['ms']:.4f} ms "
+                      f"({row['tflops']:.1f} TFLOP/s); cuDNN heuristic {row['cudnn_ms']:.4f} "
+                      f"({row['cudnn_tflops']:.2f} TFLOP/s), searched "
+                      f"{row['cudnn_benchmark_ms']:.4f}; plain f32 {row['plain_ms']:.4f}; "
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+                del field, w, b
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = tf32, bench
+    return rows
+
+
 def phase_conv_formats() -> list:
     import torch
     import torch.nn.functional as F
@@ -766,6 +937,7 @@ def phase_generator(K, tree) -> None:
 
     from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
     from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
 
     x = torch.from_numpy(np.random.RandomState(SEED).uniform(
         -1, 1, (DECODE_BATCH, 1) + PATCH).astype(np.float32))
@@ -776,6 +948,7 @@ def phase_generator(K, tree) -> None:
         gen.net.load_state_dict(sd)
         gen(x)  # cuDNN and kernel warm-up
         K.reset_launches()
+        C7.reset_launches()
         t0 = time.perf_counter()
         y = gen(x)
         torch.cuda.synchronize()
@@ -783,6 +956,8 @@ def phase_generator(K, tree) -> None:
         want = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), dtype)
         check(launched(K, want), f"launches per forward {K.LAUNCHES}, want {want}, "
               f"no backward")
+        want7 = CONV7_PER_FORWARD if dtype == torch.bfloat16 else {}  # float32: cuDNN
+        check(conv7_launched(want7), f"conv7 launches per forward {C7.LAUNCHES}, want {want7}")
         with plain_norms():
             yp = gen(x)
         check(y.shape == (DECODE_BATCH, 1) + PATCH and bool(torch.isfinite(y).all()),
@@ -812,6 +987,7 @@ def phase_decode(K, tree, results: dict) -> dict:
     from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
     from mra_gan_tpu_torch.infer.sliding_window import patch_grid, sliding_window_inference
     from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
     from mra_gan_tpu_torch.parallel.spatial import single_pass_apply
 
     gen = make_generate_fn(CycleGANConfig(ngf=NGF, dtype=torch.bfloat16), "g_a", DEVICE)
@@ -827,16 +1003,20 @@ def phase_decode(K, tree, results: dict) -> dict:
     decode()  # warm-up: the batch-3 shapes
     torch.cuda.synchronize()
     K.reset_launches()
+    C7.reset_launches()
     t0 = time.perf_counter()
     out = decode()
     secs = [time.perf_counter() - t0]
     launches = dict(K.LAUNCHES)
+    conv7_launches = dict(C7.LAUNCHES)
     per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
     check(launched(K, times(per_forward, n_batches)),
           f"{n_batches} x {per_forward} launches per decode, no backward: {launches}")
+    check(conv7_launched(times(CONV7_PER_FORWARD, n_batches)),
+          f"{n_batches} x {CONV7_PER_FORWARD} conv7 launches per decode: {conv7_launches}")
     check(out.shape == VOLUME and out.dtype == np.float32 and bool(np.isfinite(out).all()),
           "decode output finite float32 of the volume's shape")
-    for _ in range(2):
+    for _ in range(DECODE_REPEATS - 1):
         t0 = time.perf_counter()
         decode()
         secs.append(time.perf_counter() - t0)
@@ -845,7 +1025,8 @@ def phase_decode(K, tree, results: dict) -> dict:
         ref = decode()
     diff = np.abs(out - ref)
     print(f"[decode] {VOLUME} volume, {n_patches} patches in {n_batches} batches: "
-          f"{secs} s; launches {launches}; vs plain norms max {diff.max():.3g} "
+          f"{secs} s; launches {launches}, conv7 {conv7_launches}; vs plain norms "
+          f"max {diff.max():.3g} "
           f"mean {diff.mean():.3g}", flush=True)
     check(float(diff.mean()) <= 0.02 and float(diff.max()) <= 0.5,
           "decode: kernel norms within tolerance of plain norms")
@@ -853,12 +1034,14 @@ def phase_decode(K, tree, results: dict) -> dict:
     single_pass_apply(gen, vol)  # warm-up
     torch.cuda.synchronize()
     K.reset_launches()
+    C7.reset_launches()
     t0 = time.perf_counter()
     sp = single_pass_apply(gen, vol)
     sp_secs = [time.perf_counter() - t0]
     sp_launches = dict(K.LAUNCHES)
     want = forward_launches(K, generator_norms(1, VOLUME), torch.bfloat16)
     check(launched(K, want), f"single pass launches {sp_launches}, want {want}, no backward")
+    check(conv7_launched(CONV7_PER_FORWARD), f"single pass conv7 launches {C7.LAUNCHES}")
     check(sp.shape == VOLUME and bool(np.isfinite(sp).all()), "single-pass output finite")
     t0 = time.perf_counter()
     single_pass_apply(gen, vol)
@@ -876,7 +1059,8 @@ def phase_decode(K, tree, results: dict) -> dict:
         r["launches_decode"] = launches[k]
         r["launches_single_pass"] = sp_launches[k]
     return {"decode_s": secs, "single_pass_s": sp_secs, "decode_launches": launches,
-            "single_pass_launches": sp_launches, "decode_profile": profile}
+            "single_pass_launches": sp_launches, "decode_profile": profile,
+            "conv7_launches": conv7_launches}
 
 
 def phase_cli(K, tree, workdir: Path) -> None:
@@ -887,6 +1071,7 @@ def phase_cli(K, tree, workdir: Path) -> None:
     from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
     from mra_gan_tpu_torch.data import nifti
     from mra_gan_tpu_torch.infer.sliding_window import patch_grid
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
 
     ck = workdir / "ck" / "smoke"
     ck.mkdir(parents=True)
@@ -904,6 +1089,7 @@ def phase_cli(K, tree, workdir: Path) -> None:
         padded[2] += padded[2] % 2  # odd Z is edge-padded to even
         batches += -(-len(patch_grid(padded, PATCH, (STRIDE,) * 3)) // DECODE_BATCH)
     K.reset_launches()
+    C7.reset_launches()
     t0 = time.perf_counter()
     failed = cli.main(["--image", str(workdir / "in"), "--result", str(workdir / "out"),
                        "--checkpoints_dir", str(workdir / "ck"), "--name", "smoke",
@@ -915,6 +1101,8 @@ def phase_cli(K, tree, workdir: Path) -> None:
     per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
     check(launched(K, times(per_forward, batches)),
           f"CLI launches {K.LAUNCHES}, want {batches} x {per_forward}, no backward")
+    check(conv7_launched(times(CONV7_PER_FORWARD, batches)),
+          f"CLI conv7 launches {C7.LAUNCHES}, want {batches} x {CONV7_PER_FORWARD}")
     for i, shp in enumerate(shapes):
         src = nifti.load(workdir / "in" / f"v{i}.nii.gz")
         got = nifti.load(workdir / "out" / f"v{i}.nii.gz")
@@ -951,6 +1139,7 @@ def phase_train(K, results: dict) -> dict:
     import torch
 
     from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
 
     cfg = train_config(torch.bfloat16)
     out = {}
@@ -963,12 +1152,17 @@ def phase_train(K, results: dict) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
+        C7.reset_launches()
         t0 = time.perf_counter()
         for _ in range(timed):
             _, metrics = step(state, real_a, real_b, TRAIN_LR)
         torch.cuda.synchronize()
         secs = (time.perf_counter() - t0) / timed
         launches = dict(K.LAUNCHES)
+        conv7_launches = dict(C7.LAUNCHES)
+        check(conv7_launched(times(CONV7_PER_STEP, timed)),
+              f"train b{batch}: {CONV7_PER_STEP} conv7 launches per step: {conv7_launches} "
+              f"over {timed} steps")
         relayouts = K.GRAD_RELAYOUTS["count"] / timed
         norms = 4 * generator_norms(batch, PATCH) + 4 * patchgan_norms(batch)
         check(len(norms) == NORMS_PER_STEP, f"{len(norms)} norms per step")
@@ -981,13 +1175,14 @@ def phase_train(K, results: dict) -> dict:
               f"train b{batch}: finite losses {losses}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"[train] b{batch}: {secs:.4f} s/step, {batch / secs:.3f} pairs/s over {timed} "
-              f"steps; peak memory {peak:.2f} GiB; launches {launches}; gradient relayouts "
+              f"steps; peak memory {peak:.2f} GiB; launches {launches}, conv7 "
+              f"{conv7_launches}; gradient relayouts "
               f"{relayouts:g} per step; losses {losses}", flush=True)
         prof = profile_run(lambda: step(state, real_a, real_b, TRAIN_LR), f"train b{batch}")
         out[f"b{batch}"] = {"s_per_step": secs, "pairs_per_s": batch / secs, "steps": timed,
                             "peak_gib": peak, "launches": launches,
                             "grad_relayouts_per_step": relayouts, "losses": losses,
-                            "profile": prof}
+                            "profile": prof, "conv7_launches": conv7_launches}
         for k, n in with_wholes(launches).items():
             results[k].setdefault("launches_train_per_step", {})[f"b{batch}"] = n / timed
             if batch == max(TRAIN_BATCHES):
@@ -3565,6 +3760,43 @@ def phase_bench(K, train: dict, decode: dict, results: dict) -> dict:
     return out
 
 
+def conv7_line(results: dict, train: dict, decode: dict) -> list:
+    """The conv7 kernels' entries of the kernels line. Main path: the
+    batch-8 train step (phase 7's timed steps), which runs both kernels in
+    both roles; the times at its largest forward role (2B = 16), every
+    role's times beside them. Launches per cell: phase 7's batch-8 step and
+    phase 5's decode, the cells' configurations (the benchmark's line counts
+    only the norm kernels)."""
+    b8 = f"b{max(TRAIN_BATCHES)}"
+    steps = train[b8]["steps"]
+    out = []
+    for kernel, role in (("conv7_spread", "stem forward"), ("conv7_gather", "head forward")):
+        r = results[kernel]
+        head = next(t for t in r["times"] if t["role"] == role and t["n"] == 2 * max(TRAIN_BATCHES))
+        launches = train[b8]["conv7_launches"][kernel]
+        check(launches > 0 and decode["conv7_launches"][kernel] > 0,
+              f"{kernel} launched on its main path")
+        out.append({
+            "name": kernel, "route": "cuda",
+            "source": "mra_gan_tpu_torch/ops/kernels/csrc/conv7.cu",
+            "replaces": "mra_gan_tpu/ops/conv.py:35",
+            "launches": launches, "max_abs_err": max(s["max_abs_err"] for s in r["shapes"]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["cudnn_ms"],
+            "at": {"role": role, "shape": head["shape"], "dtype": "bf16"},
+            "launches_train_per_step": {f"b{b}": train[f"b{b}"]["conv7_launches"][kernel]
+                                        / train[f"b{b}"]["steps"] for b in TRAIN_BATCHES},
+            "launches_decode": decode["conv7_launches"][kernel],
+            "launches_cells": {"train-b8-p64": launches / steps,
+                               "decode-sw-128x256x256": decode["conv7_launches"][kernel]},
+            "roles": [{k: t[k] for k in ("role", "n", "ms", "cudnn_ms", "cudnn_benchmark_ms",
+                                         "plain_ms", "bound_ms", "bound_by", "tflops")}
+                      for t in r["times"]],
+            "note": "XLA's conv on the TPU (no Pallas kernel); library_ms: cuDNN's heuristic "
+                    "pick in bf16, the path before this kernel"})
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3592,7 +3824,7 @@ def main(argv=None) -> int:
     print(f"[versions] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {name} count {torch.cuda.device_count()}",
           flush=True)
-    bw, flops, _ = peak_rates(name)
+    bw, flops, tc = peak_rates(name)
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3628,10 +3860,13 @@ def main(argv=None) -> int:
     }
     for k, r in results.items():
         r.update(name=k, route="cuda", source=src, bound_by="bytes", shapes=[])
+    conv7_results = {k: {"shapes": []} for k in ("conv7_spread", "conv7_gather")}
 
     phase_kernels(K, bw, flops, results)
     phase_train_kernels(K, bw, flops, results)
+    phase_conv7_kernels(conv7_results)
     conv_rows = phase_conv_formats()
+    conv7_rows = phase_conv7_times(bw, tc, conv7_results)
     tree = random_jax_tree(NGF, 6, SEED)
     phase_generator(K, tree)
     decode = phase_decode(K, tree, results)
@@ -3702,10 +3937,11 @@ def main(argv=None) -> int:
             **({k: r[k] for k in ("launches_sharded", "max_abs_err_sharded", "sharded")
                 if k in r}),
             **({"note": r["note"]} if "note" in r else {})})
+    kernels += conv7_line(conv7_results, train, decode)
     summary = {"decode": decode, "train": train, "train_parity": parity, "checkpoint": ckpt,
                "serve": serving, "train_driver": train_driver, "zoo": zoo, "phase13": phase13,
                "parallel": parallel, "bench": bench,
-               "conv_formats": conv_rows,
+               "conv_formats": conv_rows, "conv7": conv7_rows,
                "seconds": time.perf_counter() - t_start}
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)

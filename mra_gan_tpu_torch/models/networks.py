@@ -46,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.spatial_ctx import data_shard_info, spatial_shard_info
-from ..ops.conv import _keep_layout, conv3d, conv_transpose3d, extend_sharded_d, replication_pad3d
+from ..ops.conv import (_keep_layout, _triple, conv3d, conv_transpose3d, extend_sharded_d,
+                        replication_pad3d)
 from ..ops.init import get_initializer, init_conv_
 from ..ops.norm import instance_norm_act
 
@@ -55,13 +56,6 @@ NORMS = ("instance", "batch", "none")
 # netG name -> the U-Net's number of halvings
 UNET_DOWNS = {"unet_custom": 5, "unet_128": 7, "unet_256": 8}
 RESNET_BLOCKS = {"resnet_6blocks": 6, "resnet_9blocks": 9}
-
-
-def _triple(v) -> Tuple[int, int, int]:
-    """An int for every axis, or one per axis (JAX ``_canon``)."""
-    if isinstance(v, int):
-        return (v, v, v)
-    return tuple(int(x) for x in v)
 
 
 class _ConvBase(nn.Module):

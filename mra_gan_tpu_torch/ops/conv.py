@@ -13,18 +13,37 @@ Under ``core.spatial_ctx.spatial_sharding`` a volume is depth-sharded over a
 process group: ``extend_sharded_d`` grows a shard by halo rows from its
 neighbours (edge or zero rows at the volume's two ends), and
 ``replication_pad3d`` pads depth that way and H and W locally (JAX
-ops/conv.py:96-150)."""
+ops/conv.py:96-150).
+
+The 7^3 single-channel convs. ``conv3d`` sends every conv with a 7^3
+kernel, stride 1, no padding and one input or one output channel (the
+resnet generator's stem and head, on every path) to two custom ops,
+``mra_torch::c7_convolution`` (the forward) and
+``mra_torch::c7_convolution_input_grad`` (its input gradient), on every
+device and dtype. The rule inside both: a bfloat16 CUDA tensor launches the
+hand-written kernels of ``ops/kernels/conv7.py`` (one input channel: the
+forward spreads and the input gradient gathers; one output channel: the
+reverse), and raises where they cannot build or launch; every other tensor
+(the CPU, float32 or float64 on CUDA) takes ``F.conv3d`` and
+``torch.nn.grad.conv3d_input``, so float32 stays on cuDNN exactly as
+before. The weight and bias gradients stay on cuDNN:
+``aten.convolution_backward`` with ``output_mask=[False, True, True]``.
+Both ops carry torch.utils.flop_counter formulas, so FlopCounterMode counts
+them exactly as it counts ``aten.convolution`` and its input gradient."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import conv_flop_count, register_flop_formula
 
 from ..core.spatial_ctx import spatial_shard_info
 from ..parallel.collectives import neighbour_exchange
+from .kernels import conv7
 
 _CL = torch.channels_last_3d
+_TAPS = (7, 7, 7)
 
 
 def _keep_layout(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -33,11 +52,108 @@ def _keep_layout(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _triple(v) -> Tuple[int, int, int]:
+    """An int for every axis, or one per axis (JAX ``_canon``)."""
+    if isinstance(v, int):
+        return (v, v, v)
+    return tuple(int(x) for x in v)
+
+
+def single_channel_7(weight_shape, stride=1, padding=0) -> bool:
+    """Whether ``conv3d`` sends a conv to the c7 ops: a 7^3 kernel, stride
+    1, no padding, and one input or one output channel."""
+    cout, cin, *taps = weight_shape
+    return (tuple(taps) == _TAPS and _triple(stride) == (1, 1, 1)
+            and _triple(padding) == (0, 0, 0) and (cin == 1 or cout == 1))
+
+
+def _on_kernels(t: torch.Tensor) -> bool:
+    return t.is_cuda and t.dtype == torch.bfloat16
+
+
+def _taps(weight: torch.Tensor, flip: bool) -> torch.Tensor:
+    # (C, 1, 7, 7, 7) or (1, C, 7, 7, 7) -> (C, 7, 7, 7), flipped for an input gradient
+    w = weight[:, 0] if weight.shape[1] == 1 else weight[0]
+    return (w.flip(1, 2, 3) if flip else w).contiguous()
+
+
+@torch.library.custom_op("mra_torch::c7_convolution", mutates_args=())
+def c7_convolution(x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """F.conv3d(x, weight, bias) for a ``single_channel_7`` weight."""
+    if not _on_kernels(x):
+        return F.conv3d(x, weight, bias)
+    if weight.shape[1] == 1:
+        return conv7.conv7_spread(x.contiguous(), _taps(weight, False), bias)
+    return conv7.conv7_gather(x.contiguous(memory_format=_CL), _taps(weight, False), bias)
+
+
+@c7_convolution.register_fake
+def _(x, weight, bias):
+    return x.new_empty((x.shape[0], weight.shape[0], *(s - 6 for s in x.shape[2:])))
+
+
+@torch.library.custom_op("mra_torch::c7_convolution_input_grad", mutates_args=())
+def c7_convolution_input_grad(grad: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``c7_convolution`` with respect to x, from the
+    gradient of its output: a transposed conv, each axis 6 longer."""
+    if not _on_kernels(grad):
+        shape = (grad.shape[0], weight.shape[1], *(s + 6 for s in grad.shape[2:]))
+        return torch.nn.grad.conv3d_input(shape, weight, grad)
+    if weight.shape[1] == 1:
+        return conv7.conv7_gather(grad.contiguous(memory_format=_CL), _taps(weight, True), None,
+                                  6)
+    return conv7.conv7_spread(grad.contiguous(), _taps(weight, True), None, 6)
+
+
+@c7_convolution_input_grad.register_fake
+def _(grad, weight):
+    return grad.new_empty((grad.shape[0], weight.shape[1], *(s + 6 for s in grad.shape[2:])))
+
+
+def _c7_setup(ctx, inputs, output):
+    x, weight, bias = inputs
+    _, need_w, need_b = ctx.needs_input_grad[:3]
+    ctx.has_bias = bias is not None
+    ctx.save_for_backward(x if need_w or need_b else None, weight)  # x only for dW, db
+
+
+def _c7_backward(ctx, grad):
+    x, weight = ctx.saved_tensors
+    need_x, need_w, need_b = ctx.needs_input_grad[:3]
+    need_b = need_b and ctx.has_bias
+    gx = c7_convolution_input_grad(grad, weight) if need_x else None
+    gw = gb = None
+    if need_w or need_b:
+        _, gw, gb = torch.ops.aten.convolution_backward(
+            grad, x, weight, [weight.shape[0]] if ctx.has_bias else None, [1] * 3, [0] * 3,
+            [1] * 3, False, [0] * 3, 1, [False, need_w, need_b])
+    return gx, gw, gb
+
+
+c7_convolution.register_autograd(_c7_backward, setup_context=_c7_setup)
+
+
+@register_flop_formula(torch.ops.mra_torch.c7_convolution)
+def _c7_flops(x_shape, w_shape, bias_shape, *args, out_shape, **kwargs) -> int:
+    return conv_flop_count(x_shape, w_shape, out_shape, transposed=False)
+
+
+@register_flop_formula(torch.ops.mra_torch.c7_convolution_input_grad)
+def _c7_input_grad_flops(grad_shape, w_shape, *args, out_shape, **kwargs) -> int:
+    # as aten.convolution_backward counts an input gradient
+    return conv_flop_count(grad_shape, w_shape, out_shape, transposed=True)
+
+
 def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride=1, padding=0) -> torch.Tensor:
-    """x (N, Cin, D, H, W); weight (Cout, Cin, kd, kh, kw)."""
+    """x (N, Cin, D, H, W); weight (Cout, Cin, kd, kh, kw). A
+    ``single_channel_7`` conv goes through ``c7_convolution``."""
     b = None if bias is None else bias.to(x.dtype)
-    return _keep_layout(F.conv3d(x, weight.to(x.dtype), b, stride, padding), x)
+    w = weight.to(x.dtype)
+    if single_channel_7(weight.shape, stride, padding):
+        return _keep_layout(c7_convolution(x, w, b), x)
+    return _keep_layout(F.conv3d(x, w, b, stride, padding), x)
 
 
 def conv_transpose3d(x: torch.Tensor, weight: torch.Tensor,

@@ -3,6 +3,9 @@ mra_gan_tpu/utils/metrics.py:16-123): MAE, MSE, PSNR, Pearson r and a 3D
 SSIM, in float32, with the JAX package's formulas. SSIM follows Wang et al.
 2004 with a uniform win^3 window over the interior (valid) neighbourhoods and
 sample covariances, as skimage's ``structural_similarity`` does for volumes.
+Pearson r alone sums in float64 (``_pearson``): for nearly uncorrelated
+volumes its numerator cancels, and in float32 its value would depend on the
+device's summation order.
 
 Every function takes torch tensors or numpy arrays and returns a 0-d
 float32 tensor on the tensors' device (a numpy array goes to the CPU).
@@ -34,10 +37,23 @@ def psnr(a, b, data_range: Optional[float] = None) -> torch.Tensor:
     return 10.0 * torch.log10(data_range ** 2 / mse(a, b).clamp_min(1e-20))
 
 
+def _pearson(a: torch.Tensor, b: torch.Tensor, w: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """Pearson's r of a and b (restricted to the weights w), centred and
+    summed in float64, returned as float32."""
+    a, b = a.double(), b.double()
+    if w is None:
+        ac, bc = a - a.mean(), b - b.mean()
+    else:
+        w = w.double()
+        n = w.sum().clamp_min(1.0)
+        ac, bc = (a - (a * w).sum() / n) * w, (b - (b * w).sum() / n) * w
+    r = (ac * bc).sum() / ((ac * ac).sum().sqrt() * (bc * bc).sum().sqrt()).clamp_min(1e-12)
+    return r.float()
+
+
 def pearson_r(a, b) -> torch.Tensor:
-    a, b = _f32(a).ravel(), _f32(b).ravel()
-    ac, bc = a - a.mean(), b - b.mean()
-    return (ac * bc).sum() / ((ac * ac).sum().sqrt() * (bc * bc).sum().sqrt()).clamp_min(1e-12)
+    return _pearson(_f32(a).ravel(), _f32(b).ravel())
 
 
 def _uniform_filter3d(x: torch.Tensor, win: int) -> torch.Tensor:
@@ -103,8 +119,5 @@ def volume_metrics(a, b, mask=None, use_mask: bool = False) -> dict:
     mse_v = wmean(d * d)
     data_range = (bmax - bmin).clamp_min(1e-8)
     psnr_v = 10.0 * torch.log10(data_range ** 2 / mse_v.clamp_min(1e-20))
-    ac, bc = a - wmean(a), b - wmean(b)
-    if use_mask:
-        ac, bc = ac * w, bc * w  # zero the terms outside the mask
-    r_v = (ac * bc).sum() / ((ac * ac).sum().sqrt() * (bc * bc).sum().sqrt()).clamp_min(1e-12)
+    r_v = _pearson(a, b, w if use_mask else None)  # w zeroes the terms outside the mask
     return {"ssim": ssim3d(a, b, None, 7), "psnr": psnr_v, "mae": mae_v, "pearson_r": r_v}

@@ -1,0 +1,270 @@
+"""The 7^3 single-channel convs of the port (mra_gan_tpu_torch/ops/conv.py:
+``c7_convolution``, ``c7_convolution_input_grad``; kernels' wrappers and
+plain versions in ops/kernels/conv7.py) on the CPU.
+
+Two routes run here. The ops' own CPU route is F.conv3d and
+torch.nn.grad.conv3d_input. The kernel route (what a bfloat16 CUDA tensor
+takes: the spread and gather roles, the flipped weights, pad 6 for the
+input gradient) runs with ``conv._on_kernels`` patched to accept CPU
+tensors, so each wrapper runs its plain version (float32 F.conv3d rounded
+once, as the kernels round). Both are held to F.conv3d's autograd and to
+the JAX package's conv3d (mra_gan_tpu/ops/conv.py:35).
+
+Bars: float32 at atol 1e-5 (the sums of up to 343 x 32 products at O(1)
+scale in another order), and rtol 1e-5 besides against JAX, whose CPU conv
+sums in its own order. bfloat16 against the float32 result of the same
+bf16-rounded inputs: |got - ref| <= 2^-8 |ref| + 2^-12 max|ref|, that is
+half an ulp of each element (one rounding of the output) plus 1/16 of an
+ulp at the output's scale for the order of the float32 sums; the decode's
+bar (mean 0.02, max 0.5 of a [-1, 1] output) is far looser."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
+
+from mra_gan_tpu.ops.conv import conv3d as jax_conv3d
+from mra_gan_tpu_torch.models.networks import ResnetGenerator3D
+from mra_gan_tpu_torch.ops import conv
+from mra_gan_tpu_torch.ops.kernels import conv7
+from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
+
+from torch_port_util import jax_forward, jax_generator, to_ncdhw, to_ndhwc
+
+F32_ATOL = 1e-5
+F32_RTOL = 1e-5  # against JAX: two float32 summation orders of up to 11k products
+
+# (N, Cin, Cout, input box): both roles, N in {1, 3}, C in {4, 32}, 10^3-16^3 boxes
+SHAPES = [(1, 1, 4, (10, 11, 12)), (3, 1, 32, (16, 13, 10)), (3, 4, 1, (12, 16, 11)),
+          (1, 32, 1, (10, 10, 14)), (3, 1, 1, (11, 10, 16))]
+IDS = [f"n{n}-{ci}to{co}" for n, ci, co, _ in SHAPES]
+
+
+def _case(n, cin, cout, box, seed=0, bias=True):
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-1, 1, (n, cin, *box)).astype(np.float32)
+    w = (rs.randn(cout, cin, 7, 7, 7) / np.sqrt(cin * 343)).astype(np.float32)
+    b = (0.1 * rs.randn(cout)).astype(np.float32) if bias else None
+    out = tuple(s - 6 for s in box)
+    g = rs.uniform(-1, 1, (n, cout, *out)).astype(np.float32)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    return t(x), t(w), t(b), t(g)
+
+
+def _grads(fn, x, w, b, g, dtype):
+    """fn's output and the gradients of <fn(x, w, b), g> for x, w and b."""
+    leaves = [t.detach().to(dtype).requires_grad_() for t in (x, w, b)]
+    y = fn(*leaves)
+    y.backward(g.to(dtype))
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """Every tensor takes the kernel route: on the CPU, the wrappers' plain
+    versions."""
+    monkeypatch.setattr(conv, "_on_kernels", lambda t: True)
+
+
+def _ref(x, w, b, g):
+    return _grads(F.conv3d, x, w, b, g, torch.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_ops_match_conv3d_float32(shape):
+    x, w, b, g = _case(*shape)
+    got = _grads(conv.c7_convolution, x, w, b, g, torch.float32)
+    for a, r in zip(got, _ref(x, w, b, g)):
+        torch.testing.assert_close(a, r, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_kernel_route_matches_conv3d_float32(shape, kernel_route):
+    x, w, b, g = _case(*shape, seed=1)
+    got = _grads(conv.c7_convolution, x, w, b, g, torch.float32)
+    for a, r in zip(got, _ref(x, w, b, g)):
+        torch.testing.assert_close(a, r, rtol=0, atol=F32_ATOL)
+
+
+def _within_bf16_bar(got, ref) -> bool:
+    err = (got.float() - ref).abs()
+    return bool((err <= 2 ** -8 * ref.abs() + 2 ** -12 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("route", ["ops", "kernels"])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_bf16_rounds_once(shape, route, monkeypatch):
+    if route == "kernels":
+        monkeypatch.setattr(conv, "_on_kernels", lambda t: True)
+    x, w, b, g = (t.bfloat16() for t in _case(*shape, seed=2))
+    got = _grads(conv.c7_convolution, x, w, b, g, torch.bfloat16)
+    ref = _ref(*(t.float() for t in (x, w, b, g)))
+    for name, a, r in zip(("y", "x", "weight", "bias"), got, ref):
+        assert a.dtype == torch.bfloat16
+        assert _within_bf16_bar(a, r), f"{route} {name}"
+
+
+@pytest.mark.parametrize("route", ["ops", "kernels"])
+def test_bias_gradient_alone(route, monkeypatch):
+    """A frozen weight with a trainable bias: the bias gradient, and no other."""
+    if route == "kernels":
+        monkeypatch.setattr(conv, "_on_kernels", lambda t: True)
+    x, w, b, g = _case(2, 4, 1, (12, 11, 10), seed=7)
+    bt = b.clone().requires_grad_()
+    conv.conv3d(x, w, bt).backward(g)
+    ref = b.clone().requires_grad_()
+    F.conv3d(x, w, ref).backward(g)
+    torch.testing.assert_close(bt.grad, ref.grad, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:4], ids=IDS[:4])
+def test_kernel_route_matches_jax_conv3d(shape, kernel_route):
+    """The forward and the input gradient against the JAX package's conv3d
+    (NDHWC, DHWIO kernel) and its VJP, float32."""
+    x, w, _, g = _case(*shape, seed=3, bias=False)
+    jx, jw = jnp.asarray(to_ndhwc(x)), jnp.asarray(w.permute(2, 3, 4, 1, 0).numpy())
+    jy, vjp = jax.vjp(lambda a: jax_conv3d(a, jw), jx)
+    (jgx,) = vjp(jnp.asarray(to_ndhwc(g)))
+    xt = x.clone().requires_grad_()
+    y = conv.conv3d(xt, w)
+    y.backward(g)
+    np.testing.assert_allclose(to_ndhwc(y), np.asarray(jy), rtol=F32_RTOL, atol=F32_ATOL)
+    np.testing.assert_allclose(to_ndhwc(xt.grad), np.asarray(jgx), rtol=F32_RTOL,
+                               atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("n_blocks", [6, 9])
+def test_generator_through_the_kernel_route_matches_jax(n_blocks, kernel_route):
+    """The whole generator, stem and head on the kernel route, against the
+    JAX generator at the network parity bar (PARITY.md section 1)."""
+    jnet, params = jax_generator(n_blocks=n_blocks, seed=10 + n_blocks)
+    x = np.random.RandomState(4).uniform(-1, 1, (2, 16, 16, 16, 1)).astype(np.float32)
+    net = ResnetGenerator3D(1, 1, 4, n_blocks).eval()
+    net.load_state_dict(state_dict_from_jax(params, f"resnet_{n_blocks}blocks"))
+    conv7.reset_launches()
+    with torch.inference_mode():
+        got = to_ndhwc(net(to_ncdhw(x)))
+    np.testing.assert_allclose(got, np.asarray(jax_forward(jnet, params)(x)),
+                               rtol=1e-3, atol=1e-4)
+    assert conv7.LAUNCHES == {"conv7_spread": 0, "conv7_gather": 0}  # no launch on the CPU
+
+
+def test_generator_gradients_agree_between_routes(monkeypatch):
+    """One generator's loss gradients, every parameter and the input, with
+    the stem and head on the ops' CPU route and on the kernel route, float32."""
+    torch.manual_seed(0)
+    net = ResnetGenerator3D(1, 1, 4, 6)
+    for p in net.parameters():
+        p.data.normal_(0, 0.2)
+    x = torch.from_numpy(np.random.RandomState(5).uniform(-1, 1, (2, 1, 16, 16, 16))
+                         .astype(np.float32))
+
+    def grads():
+        net.zero_grad()
+        xt = x.clone().requires_grad_()
+        net(xt).square().mean().backward()
+        # the norm-dead biases are detached: no gradient on either route
+        return [xt.grad] + [p.grad.clone() for p in net.parameters() if p.grad is not None]
+
+    ref = grads()
+    monkeypatch.setattr(conv, "_on_kernels", lambda t: True)
+    got = grads()
+    assert len(got) == len(ref) == 20  # the input, 18 conv weights and the head's bias
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("cin, cout, k, stride, padding, routed", [
+    (1, 32, 7, 1, 0, True), (32, 1, 7, 1, 0, True), (1, 1, 7, 1, 0, True),
+    (1, 32, 7, (1, 1, 1), (0, 0, 0), True), (32, 32, 7, 1, 0, False), (1, 32, 7, 1, 3, False),
+    (32, 1, 7, 1, (0, 3, 3), False), (1, 32, 7, 2, 0, False), (4, 8, 3, 1, 1, False),
+    (1, 32, 3, 1, 0, False), (32, 1, 3, 1, 0, False)])
+def test_routing_rule(cin, cout, k, stride, padding, routed):
+    """conv3d sends exactly the 7^3, stride-1, unpadded, one-channel-side
+    convs to the c7 op, and everything else to aten.convolution."""
+    assert conv.single_channel_7((cout, cin, k, k, k), stride, padding) is routed
+    x = torch.zeros(1, cin, 12, 12, 12)
+    w = torch.zeros(cout, cin, k, k, k)
+    with FlopCounterMode(display=False) as counter:
+        conv.conv3d(x, w, torch.zeros(cout), stride, padding)
+    ops = {str(op) for op in counter.get_flop_counts()["Global"]}
+    assert ops == ({"mra_torch.c7_convolution"} if routed else {"aten.convolution"})
+
+
+def _counts(fn, x, w, b, g):
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    with FlopCounterMode(display=False) as counter:
+        fn(*leaves).backward(g)
+    return counter.get_flop_counts()["Global"]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_flop_counts_equal_aten(shape):
+    """Forward, input gradient and weight gradient: each op's count equals
+    aten's for the same work, and the total is the same."""
+    x, w, b, g = _case(*shape)
+    ours = {str(k): v for k, v in _counts(conv.c7_convolution, x, w, b, g).items()}
+    aten = {str(k): v for k, v in _counts(F.conv3d, x, w, b, g).items()}
+    fwd = aten["aten.convolution"]
+    assert ours["mra_torch.c7_convolution"] == fwd
+    assert ours["mra_torch.c7_convolution_input_grad"] == fwd
+    assert ours["aten.convolution_backward"] == fwd  # the weight gradient alone
+    assert aten["aten.convolution_backward"] == 2 * fwd
+    assert sum(ours.values()) == sum(aten.values())
+
+
+def test_flop_count_without_an_input_gradient():
+    """An input that needs no gradient (a real image at the stem) costs the
+    forward and the weight gradient only, as under aten."""
+    x, w, b, g = _case(2, 1, 8, (12, 12, 12))
+    wt = w.clone().requires_grad_()
+    with FlopCounterMode(display=False) as counter:
+        conv.conv3d(x, wt, b).backward(g)
+    counts = {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}
+    assert set(counts) == {"mra_torch.c7_convolution", "aten.convolution_backward"}
+    assert counts["aten.convolution_backward"] == counts["mra_torch.c7_convolution"]
+
+
+def test_op_names_contain_convolution():
+    """The benchmark counts the ops whose name contains 'convolution'."""
+    for op in (torch.ops.mra_torch.c7_convolution, torch.ops.mra_torch.c7_convolution_input_grad):
+        assert "convolution" in str(op.default)
+
+
+def test_meta_tensors_take_the_fake_route():
+    """Shapes only (the benchmark's full-size FLOP count runs on meta)."""
+    x = torch.empty(2, 32, 70, 70, 70, device="meta")
+    w = torch.empty(1, 32, 7, 7, 7, device="meta")
+    assert conv.conv3d(x, w).shape == (2, 1, 64, 64, 64)
+    g = torch.empty(2, 1, 64, 64, 64, device="meta")
+    assert conv.c7_convolution_input_grad(g, w).shape == (2, 32, 70, 70, 70)
+
+
+@pytest.mark.parametrize("pad", [0, 6])
+def test_plain_versions_round_once(pad):
+    """The wrappers on the CPU: float32 F.conv3d rounded once, zero outside
+    the box, the output box 2 pad - 6 larger; no launch counted."""
+    rs = np.random.RandomState(6)
+    a = torch.from_numpy(rs.uniform(-1, 1, (2, 1, 9, 10, 11)).astype(np.float32)).bfloat16()
+    x = torch.from_numpy(rs.uniform(-1, 1, (2, 8, 9, 10, 11)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rs.randn(8, 7, 7, 7).astype(np.float32) / 50).bfloat16()
+    conv7.reset_launches()
+    y = conv7.conv7_spread(a, w, None, pad)
+    z = conv7.conv7_gather(x, w, None, pad)
+    box = conv7.out_shape((9, 10, 11), pad)
+    assert y.shape == (2, 8, *box) and z.shape == (2, 1, *box)
+    assert torch.equal(y, F.conv3d(a.float(), w.float()[:, None], None, 1, pad).bfloat16())
+    assert torch.equal(z, F.conv3d(x.float(), w.float()[None], None, 1, pad).bfloat16())
+    assert conv7.LAUNCHES == {"conv7_spread": 0, "conv7_gather": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    """No fallback: a tensor that is neither on the CPU nor on CUDA raises."""
+    w = torch.empty(4, 7, 7, 7, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        conv7.conv7_spread(torch.empty(1, 1, 9, 9, 9, device="meta", dtype=torch.bfloat16), w)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        conv7.conv7_gather(torch.empty(1, 4, 9, 9, 9, device="meta", dtype=torch.bfloat16)
+                           .contiguous(memory_format=torch.channels_last_3d), w)
