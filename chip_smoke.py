@@ -26,13 +26,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    input gradient, gather for the head forward and the stem's input
    gradient) at every batch size the decode and the train step at batch 1
    and 8 give them, against float32 F.conv3d on the card with TF32 off
-   (phase_conv7_kernels states the bar);
+   (phase_conv7_kernels states the bar); and the two weight-gradient
+   kernels (conv7_wgrad_spread for the stem, conv7_wgrad_gather for the
+   head, each a first pass of partial sums and the conv7_wgrad_reduce pass)
+   at N = 16, 8, 2, 1 and at phase 14's shard boxes (CONV7_SHARD_BOXES)
+   against float32 conv3d_weight at the same bar, each twice and bit-equal,
+   and the reduce alone on each case's partials;
 3. cuDNN conv3d / conv_transpose3d at the generator's shapes, NCDHW against
-   channels_last_3d; and each conv7 role at the cells' batch sizes (16, 8)
-   timed beside cuDNN's heuristic pick in bf16 (the path before the
-   kernels), cuDNN with torch.backends.cudnn.benchmark on, the plain
-   float32 version and the bound (FLOPs at the bf16 peak or bytes at the
-   memory rate, whichever is larger, named);
+   channels_last_3d; and each conv7 role, the weight gradients included, at
+   the cells' batch sizes (16, 8) timed beside cuDNN's heuristic pick in
+   bf16 (the path before the kernels), cuDNN with
+   torch.backends.cudnn.benchmark on, the plain float32 version and the
+   bound (FLOPs at the bf16 peak or bytes at the memory rate, whichever is
+   larger, named); the reduce pass alone beside torch.sum of its partials;
 4. the resnet_6blocks generator at ngf=32, batch 8, 64^3, weights from a
    seeded numpy tree in the JAX layout through state_dict_from_jax: kernel
    norms against plain norms in bfloat16 and (TF32 off) float32, and the
@@ -53,7 +59,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    over f32 parameters, 64^3 patches) at batch 1 and 8: s/step, pairs/s,
    peak memory, the exact launches per step (forward: 4 x 13 + 12 slab, 16
    stats, 16 apply; backward: 64 bwd slab, 16 bwd stats, 16 bwd apply;
-   conv7: 8 spread, 6 gather),
+   conv7: 8 spread, 6 gather, 4 wgrad spread, 4 wgrad gather, 8 wgrad
+   reduce), the stem gradients the conv7 backward had to relayout,
    the gradient relayouts, finite losses, and one profiled step by kernel
    class;
 8. step 0 at batch 1 through the kernels and through the plain norms, in
@@ -188,10 +195,11 @@ JSON line {"kernels": [...]} with each kernel's launches on its main path
 backward ones), its largest error against the plain version, and its times
 at the main path's largest norm that it runs (bfloat16); the two apply
 kernels add their K-shard launches in phase 14's spatial step, their
-largest K-shard error and their K-shard times beside K = 1; the two conv7
-kernels' launches are the batch-8 step's (they run there in both roles),
-their times those of the step's 2B = 16 forward role, each role's times
-beside them. ``--json-out PATH`` also writes
+largest K-shard error and their K-shard times beside K = 1; the five conv7
+kernels' launches are the batch-8 step's (the forward ones run there in
+both roles), their times those of the step's 2B = 16 forward or weight
+gradient role (both passes for a weight gradient; the reduce alone at the
+stem's), each role's times beside them. ``--json-out PATH`` also writes
 every shape's numbers. The last line is {"ok": true, "device": {...}}.
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -257,11 +265,23 @@ CONV7_ROLES = (
     ("stem input grad", "conv7_gather", 6, 64, (8, 1)),
 )
 CONV7_TIMED = (16, 8)  # phase 3 times each role at the cells' batch sizes
+# the weight gradients of the stem and head: (role, kernel, the batch sizes
+# the step gives it: 2B = 16 and B = 8 at batch 8, 2 and 1 at batch 1); each
+# at the 70^3 input box, and at phase 14's spatial steps' shard boxes
+# (CONV7_SHARD_BOXES: (N, input box) of the 2-way 1 x 64^3 and 2 x 128^3
+# steps' leaf applies and the 4-way 1 x 64^3 step's cycle applies)
+CONV7_WGRAD_ROLES = (
+    ("stem weight grad", "conv7_wgrad_spread", (16, 8, 2, 1)),
+    ("head weight grad", "conv7_wgrad_gather", (16, 8, 2, 1)),
+)
+CONV7_SHARD_BOXES = ((2, (38, 70, 70)), (4, (70, 134, 134)), (1, (22, 70, 70)))
 # conv7 launches: per generator forward (stem and head), and per train step
-# (4 generator applies, each a stem and a head forward and a head input
-# gradient; the 2 cycle applies a stem input gradient)
+# (4 generator applies, each a stem and a head forward, a head input
+# gradient and both weight gradients, each of two passes; the 2 cycle
+# applies a stem input gradient)
 CONV7_PER_FORWARD = {"conv7_spread": 1, "conv7_gather": 1}
-CONV7_PER_STEP = {"conv7_spread": 8, "conv7_gather": 6}
+CONV7_PER_STEP = {"conv7_spread": 8, "conv7_gather": 6, "conv7_wgrad_spread": 4,
+                  "conv7_wgrad_gather": 4, "conv7_wgrad_reduce": 8}
 
 
 def check(cond: bool, what: str) -> None:
@@ -832,6 +852,84 @@ def phase_conv7_kernels(results: dict) -> None:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+def conv7_wgrad_case(kernel: str, n: int, box, gen):
+    """A weight gradient's bf16 inputs on the card, laid out as the step
+    gives them: (field, one) = (g in channels_last_3d, a) for the stem,
+    (x in channels_last_3d, g) for the head; the C-channel one at O(1)."""
+    import torch
+
+    out = tuple(s - 6 for s in box)
+    c_box, one_box = (out, box) if kernel == "conv7_wgrad_spread" else (box, out)
+    field = torch.randn((n, NGF, *c_box), generator=gen, device=DEVICE).bfloat16()
+    one = torch.randn((n, 1, *one_box), generator=gen, device=DEVICE).bfloat16()
+    return field.contiguous(memory_format=torch.channels_last_3d), one
+
+
+def conv7_wgrad_call(C7, kernel: str, field, one):
+    """The wrapper, its plain version's arguments in the wrapper's order."""
+    if kernel == "conv7_wgrad_spread":
+        return (lambda: C7.conv7_wgrad_spread(one, field)), (one, field)
+    return (lambda: C7.conv7_wgrad_gather(field, one)), (field, one)
+
+
+def phase_conv7_wgrad_kernels(results: dict) -> None:
+    """Phase 2's weight-gradient part: both kernels (first pass and reduce,
+    through their wrappers) at every batch size of CONV7_WGRAD_ROLES and at
+    CONV7_SHARD_BOXES against float32 torch.nn.grad.conv3d_weight of the
+    same bf16 inputs on the card with TF32 off, phase_conv7_kernels' bar;
+    and the reduce alone on each case's partials against its plain version
+    (the partials summed in float32 by torch). Each case twice: bit-equal."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for role, kernel, batches in CONV7_WGRAD_ROLES:
+            cases = [(n, (70, 70, 70)) for n in batches] + list(CONV7_SHARD_BOXES)
+            for n, box in cases:
+                field, one = conv7_wgrad_case(kernel, n, box, gen)
+                fn, args = conv7_wgrad_call(C7, kernel, field, one)
+                dw, again = fn(), fn()
+                torch.cuda.synchronize()
+                ref = getattr(C7, f"{kernel}_plain")(*(t.float() for t in args))
+                check(tuple(dw.shape) == (NGF, 7, 7, 7) and dw.dtype == torch.bfloat16,
+                      f"{kernel} n={n} {box}: {tuple(dw.shape)} {dw.dtype}")
+                check(torch.equal(dw, again), f"{kernel} n={n} {box}: two runs differ")
+                err = (dw.float() - ref).abs()
+                scale = float(ref.abs().max())
+                worst = float((err - 2 ** -8 * ref.abs()).max()) / scale
+                row = {"role": role, "n": n, "shape": list(field.shape), "box": list(box),
+                       "max_abs_err": float(err.max()), "out_scale": scale,
+                       "over_half_ulp_rel": worst}
+                results[kernel]["shapes"].append(row)
+                # the reduce alone, on this case's partials
+                head = kernel == "conv7_wgrad_gather"
+                part = C7.conv7_wgrad_partials(kernel, field, one)
+                red = C7.conv7_wgrad_reduce(part, NGF, head)
+                red_ref = C7.conv7_wgrad_reduce_plain(part, NGF, head)
+                sums = part.sum(0)[:NGF, :, :7].reshape(NGF, 7, 7, 7)
+                sums = sums.flip(1, 2, 3) if head else sums
+                r_err = (red.float() - sums).abs()
+                r_worst = float((r_err - 2 ** -8 * sums.abs()).max()) / float(sums.abs().max())
+                results["conv7_wgrad_reduce"]["shapes"].append({
+                    "role": role, "n": n, "box": list(box), "blocks": part.shape[0],
+                    "max_abs_err": float((red.float() - red_ref.float()).abs().max()),
+                    "over_half_ulp_rel": r_worst})
+                print(f"[conv7] {role:16s} {kernel} n={n:2d} box {box}: max err "
+                      f"{float(err.max()):.3g} at scale {scale:.3g}; beyond half an ulp "
+                      f"{worst:.3g} of the scale (bar 2^-12); bit-equal twice; reduce over "
+                      f"{part.shape[0]} blocks beyond half an ulp {r_worst:.3g}", flush=True)
+                check(worst <= 2 ** -12, f"{kernel} n={n} {box}: {worst} > 2^-12")
+                check(r_worst <= 2 ** -12, f"conv7_wgrad_reduce n={n} {box}: {r_worst} > 2^-12")
+                del field, one, dw, again, ref, err, part
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def phase_conv7_times(bw: float, tc: float, results: dict) -> list:
     """Phase 3's conv7 part: each role at the cells' batch sizes, the kernel
     beside cuDNN's heuristic pick (today's path before the kernels: F.conv3d,
@@ -891,6 +989,73 @@ def phase_conv7_times(bw: float, tc: float, results: dict) -> list:
                       f"{row['cudnn_benchmark_ms']:.4f}; plain f32 {row['plain_ms']:.4f}; "
                       f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
                 del field, w, b
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = tf32, bench
+    return rows
+
+
+def phase_conv7_wgrad_times(bw: float, flops: float, tc: float, results: dict) -> list:
+    """Phase 3's weight-gradient part: each kernel at the cells' batch sizes
+    (the whole wrapper, both passes; the reduce pass alone), beside cuDNN's
+    heuristic pick (torch.nn.grad.conv3d_weight in bf16 on the layouts the
+    step gives it: the path before the kernels), cuDNN with
+    torch.backends.cudnn.benchmark on, the plain version (float32, TF32 off)
+    and the bound: FLOPs at the bf16 tensor-core peak or each input byte read
+    and the weights written once at the memory rate, whichever is larger.
+    The reduce's own bound: its partials read once; its library yardstick
+    torch.sum over the blocks."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    rows = []
+    tf32, bench = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark
+    try:
+        for role, kernel, _ in CONV7_WGRAD_ROLES:
+            for n in CONV7_TIMED:
+                field, one = conv7_wgrad_case(kernel, n, (70, 70, 70), gen)
+                fn, args = conv7_wgrad_call(C7, kernel, field, one)
+                plain = getattr(C7, f"{kernel}_plain")
+                head = kernel == "conv7_wgrad_gather"
+                wshape = (1, NGF, 7, 7, 7) if head else (NGF, 1, 7, 7, 7)
+                x, g = (field, one) if head else (one, field)
+                lib = lambda: torch.nn.grad.conv3d_weight(x, wshape, g)  # noqa: E731
+                part = C7.conv7_wgrad_partials(kernel, field, one)
+                row = {"role": role, "kernel": kernel, "n": n, "shape": list(field.shape)}
+                row["ms"] = device_ms(fn, 10, 2)
+                row["reduce_ms"] = device_ms(lambda: C7.conv7_wgrad_reduce(part, NGF, head), 10, 2)
+                row["reduce_library_ms"] = device_ms(lambda: part.sum(0), 10, 2)
+                row["reduce_plain_ms"] = device_ms(
+                    lambda: C7.conv7_wgrad_reduce_plain(part, NGF, head), 10, 2)
+                torch.backends.cudnn.benchmark = False
+                row["cudnn_ms"] = device_ms(lib, 3, 1)
+                torch.backends.cudnn.benchmark = True
+                row["cudnn_benchmark_ms"] = device_ms(lib, 3, 2)
+                torch.backends.cudnn.benchmark = bench
+                torch.backends.cudnn.allow_tf32 = False
+                row["plain_ms"] = device_ms(lambda: plain(*args), 3, 1)
+                torch.backends.cudnn.allow_tf32 = tf32
+                flop = 2 * 343 * NGF * n * 64 ** 3
+                nbytes = 2 * (field.numel() + one.numel() + NGF * 343)
+                r_bytes = 4 * part.numel() + 2 * NGF * 343
+                row.update(flop=flop, bytes=nbytes, blocks=part.shape[0],
+                           bound_ms=max(flop / tc, nbytes / bw) * 1e3,
+                           bound_by="operations" if flop / tc >= nbytes / bw else "bytes",
+                           tflops=flop / row["ms"] / 1e9,
+                           cudnn_tflops=flop / row["cudnn_ms"] / 1e9,
+                           reduce_bound_ms=max(part.numel() / flops, r_bytes / bw) * 1e3)
+                rows.append(row)
+                results[kernel].setdefault("times", []).append(row)
+                print(f"[conv7] {role:16s} n={n:2d} kernel {row['ms']:.4f} ms "
+                      f"({row['tflops']:.1f} TFLOP/s; its reduce {row['reduce_ms']:.4f} over "
+                      f"{row['blocks']} blocks, torch.sum {row['reduce_library_ms']:.4f}); "
+                      f"cuDNN heuristic {row['cudnn_ms']:.4f} ({row['cudnn_tflops']:.2f} "
+                      f"TFLOP/s), searched {row['cudnn_benchmark_ms']:.4f}; plain f32 "
+                      f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']})", flush=True)
+                del field, one, part
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = tf32, bench
@@ -1160,6 +1325,7 @@ def phase_train(K, results: dict) -> dict:
         secs = (time.perf_counter() - t0) / timed
         launches = dict(K.LAUNCHES)
         conv7_launches = dict(C7.LAUNCHES)
+        conv7_relayouts = C7.GRAD_RELAYOUTS["count"] / timed
         check(conv7_launched(times(CONV7_PER_STEP, timed)),
               f"train b{batch}: {CONV7_PER_STEP} conv7 launches per step: {conv7_launches} "
               f"over {timed} steps")
@@ -1176,13 +1342,14 @@ def phase_train(K, results: dict) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"[train] b{batch}: {secs:.4f} s/step, {batch / secs:.3f} pairs/s over {timed} "
               f"steps; peak memory {peak:.2f} GiB; launches {launches}, conv7 "
-              f"{conv7_launches}; gradient relayouts "
-              f"{relayouts:g} per step; losses {losses}", flush=True)
+              f"{conv7_launches}; gradient relayouts {relayouts:g} per step (norms), "
+              f"{conv7_relayouts:g} (the stem's conv7 backward); losses {losses}", flush=True)
         prof = profile_run(lambda: step(state, real_a, real_b, TRAIN_LR), f"train b{batch}")
         out[f"b{batch}"] = {"s_per_step": secs, "pairs_per_s": batch / secs, "steps": timed,
                             "peak_gib": peak, "launches": launches,
                             "grad_relayouts_per_step": relayouts, "losses": losses,
-                            "profile": prof, "conv7_launches": conv7_launches}
+                            "profile": prof, "conv7_launches": conv7_launches,
+                            "conv7_grad_relayouts_per_step": conv7_relayouts}
         for k, n in with_wholes(launches).items():
             results[k].setdefault("launches_train_per_step", {})[f"b{batch}"] = n / timed
             if batch == max(TRAIN_BATCHES):
@@ -1335,9 +1502,7 @@ def library_calls_reproducible() -> dict:
         g = vol(tuple(y.shape))
         out[f"replication_pad3d backward {tuple(x.shape)} pad {pad}"] = spread(
             lambda: torch.autograd.grad(y, x, g, retain_graph=True))
-    for name, tr, xs, ws, stride, padding in (
-            ("stem c7", False, (2 * b, 1, 70, 70, 70), (NGF, 1, 7, 7, 7), 1, 0),
-            ("head c7", False, (2 * b, NGF, 70, 70, 70), (1, NGF, 7, 7, 7), 1, 0),
+    for name, tr, xs, ws, stride, padding in (  # the 7^3 convs are conv7 kernels, all ways
             ("down1 c3s2", False, (2 * b, NGF, 64, 64, 64), (2 * NGF, NGF, 3, 3, 3), 2, 1),
             ("trunk c3", False, (2 * b, 4 * NGF, 18, 18, 18), (4 * NGF, 4 * NGF, 3, 3, 3), 1, 0),
             ("up2 ct3s2", True, (2 * b, 2 * NGF, 32, 32, 32), (2 * NGF, NGF, 3, 3, 3), 2, 1),
@@ -3762,21 +3927,30 @@ def phase_bench(K, train: dict, decode: dict, results: dict) -> dict:
 
 def conv7_line(results: dict, train: dict, decode: dict) -> list:
     """The conv7 kernels' entries of the kernels line. Main path: the
-    batch-8 train step (phase 7's timed steps), which runs both kernels in
-    both roles; the times at its largest forward role (2B = 16), every
-    role's times beside them. Launches per cell: phase 7's batch-8 step and
-    phase 5's decode, the cells' configurations (the benchmark's line counts
-    only the norm kernels)."""
+    batch-8 train step (phase 7's timed steps), which runs every conv7
+    kernel (the forward ones in both roles); the times at its largest role
+    (2B = 16: the forward, or the weight gradient), every role's times
+    beside them; the reduce pass's at the stem's weight gradient. Launches
+    per cell: phase 7's batch-8 step and phase 5's decode, the cells'
+    configurations (the benchmark's line counts only the norm kernels)."""
     b8 = f"b{max(TRAIN_BATCHES)}"
     steps = train[b8]["steps"]
+    keys = ("role", "n", "ms", "cudnn_ms", "cudnn_benchmark_ms", "plain_ms", "bound_ms",
+            "bound_by", "tflops")
     out = []
-    for kernel, role in (("conv7_spread", "stem forward"), ("conv7_gather", "head forward")):
+    for kernel, role in (("conv7_spread", "stem forward"), ("conv7_gather", "head forward"),
+                         ("conv7_wgrad_spread", "stem weight grad"),
+                         ("conv7_wgrad_gather", "head weight grad"),
+                         ("conv7_wgrad_reduce", "stem weight grad")):
         r = results[kernel]
-        head = next(t for t in r["times"] if t["role"] == role and t["n"] == 2 * max(TRAIN_BATCHES))
+        reduce = kernel == "conv7_wgrad_reduce"
+        times = results["conv7_wgrad_spread"]["times"] if reduce else r["times"]
+        head = next(t for t in times if t["role"] == role and t["n"] == 2 * max(TRAIN_BATCHES))
         launches = train[b8]["conv7_launches"][kernel]
-        check(launches > 0 and decode["conv7_launches"][kernel] > 0,
+        forward = kernel in ("conv7_spread", "conv7_gather")
+        check(launches > 0 and (decode["conv7_launches"][kernel] > 0 or not forward),
               f"{kernel} launched on its main path")
-        out.append({
+        entry = {
             "name": kernel, "route": "cuda",
             "source": "mra_gan_tpu_torch/ops/kernels/csrc/conv7.cu",
             "replaces": "mra_gan_tpu/ops/conv.py:35",
@@ -3789,11 +3963,28 @@ def conv7_line(results: dict, train: dict, decode: dict) -> list:
             "launches_decode": decode["conv7_launches"][kernel],
             "launches_cells": {"train-b8-p64": launches / steps,
                                "decode-sw-128x256x256": decode["conv7_launches"][kernel]},
-            "roles": [{k: t[k] for k in ("role", "n", "ms", "cudnn_ms", "cudnn_benchmark_ms",
-                                         "plain_ms", "bound_ms", "bound_by", "tflops")}
-                      for t in r["times"]],
+            "roles": [{k: t[k] for k in keys} for t in r["times"]] if not reduce else [],
             "note": "XLA's conv on the TPU (no Pallas kernel); library_ms: cuDNN's heuristic "
-                    "pick in bf16, the path before this kernel"})
+                    "pick in bf16, the path before this kernel"}
+        if kernel.startswith("conv7_wgrad_") and not reduce:
+            entry["note"] += ("; ms: both passes (the partial sums and conv7_wgrad_reduce), "
+                              "the reduce alone in reduce_ms")
+            entry["reduce_ms"] = head["reduce_ms"]
+        if reduce:
+            entry.update(
+                ms=head["reduce_ms"], plain_ms=head["reduce_plain_ms"],
+                bound_ms=head["reduce_bound_ms"],
+                bound_by="bytes", library_ms=head["reduce_library_ms"],
+                roles=[{"role": t["role"], "n": t["n"], "blocks": t["blocks"],
+                        "ms": t["reduce_ms"], "library_ms": t["reduce_library_ms"],
+                        "bound_ms": t["reduce_bound_ms"]}
+                       for k in ("conv7_wgrad_spread", "conv7_wgrad_gather")
+                       for t in results[k]["times"]],
+                note="the second pass of both weight gradients: the partial sums of a fixed "
+                     "grid in block order, the head's taps flipped, one rounding; max_abs_err "
+                     "against its plain version (torch's float32 sum of the same partials); "
+                     "library_ms: torch.sum of the partials over the blocks")
+        out.append(entry)
     return out
 
 
@@ -3860,13 +4051,17 @@ def main(argv=None) -> int:
     }
     for k, r in results.items():
         r.update(name=k, route="cuda", source=src, bound_by="bytes", shapes=[])
-    conv7_results = {k: {"shapes": []} for k in ("conv7_spread", "conv7_gather")}
+    conv7_results = {k: {"shapes": []} for k in ("conv7_spread", "conv7_gather",
+                                                  "conv7_wgrad_spread", "conv7_wgrad_gather",
+                                                  "conv7_wgrad_reduce")}
 
     phase_kernels(K, bw, flops, results)
     phase_train_kernels(K, bw, flops, results)
     phase_conv7_kernels(conv7_results)
+    phase_conv7_wgrad_kernels(conv7_results)
     conv_rows = phase_conv_formats()
     conv7_rows = phase_conv7_times(bw, tc, conv7_results)
+    conv7_rows += phase_conv7_wgrad_times(bw, flops, tc, conv7_results)
     tree = random_jax_tree(NGF, 6, SEED)
     phase_generator(K, tree)
     decode = phase_decode(K, tree, results)

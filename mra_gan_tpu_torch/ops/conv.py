@@ -17,19 +17,24 @@ ops/conv.py:96-150).
 
 The 7^3 single-channel convs. ``conv3d`` sends every conv with a 7^3
 kernel, stride 1, no padding and one input or one output channel (the
-resnet generator's stem and head, on every path) to two custom ops,
-``mra_torch::c7_convolution`` (the forward) and
-``mra_torch::c7_convolution_input_grad`` (its input gradient), on every
-device and dtype. The rule inside both: a bfloat16 CUDA tensor launches the
-hand-written kernels of ``ops/kernels/conv7.py`` (one input channel: the
-forward spreads and the input gradient gathers; one output channel: the
-reverse), and raises where they cannot build or launch; every other tensor
-(the CPU, float32 or float64 on CUDA) takes ``F.conv3d`` and
-``torch.nn.grad.conv3d_input``, so float32 stays on cuDNN exactly as
-before. The weight and bias gradients stay on cuDNN:
-``aten.convolution_backward`` with ``output_mask=[False, True, True]``.
-Both ops carry torch.utils.flop_counter formulas, so FlopCounterMode counts
-them exactly as it counts ``aten.convolution`` and its input gradient."""
+resnet generator's stem and head, on every path) to three custom ops,
+``mra_torch::c7_convolution`` (the forward),
+``mra_torch::c7_convolution_input_grad`` (its input gradient) and
+``mra_torch::c7_convolution_weight_grad`` (its weight gradient), on every
+device and dtype. The rule inside all three: a bfloat16 CUDA tensor
+launches the hand-written kernels of ``ops/kernels/conv7.py`` (one input
+channel: the forward spreads, the input gradient gathers and the weight
+gradient is ``conv7_wgrad_spread``; one output channel: the reverse and
+``conv7_wgrad_gather``), and raises where they cannot build or launch;
+every other tensor (the CPU, float32 or float64 on CUDA) takes
+``F.conv3d``, ``torch.nn.grad.conv3d_input`` and
+``torch.nn.grad.conv3d_weight``, so float32 stays on cuDNN exactly as
+before. The bias gradient, where the bias is live, is the output
+gradient's sum in float32, rounded once, on the kernels' route, and
+``aten.convolution_backward``'s elsewhere. The ops carry
+torch.utils.flop_counter formulas, so FlopCounterMode counts them exactly as
+it counts ``aten.convolution`` and the input and weight parts of
+``aten.convolution_backward``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -111,6 +116,26 @@ def _(grad, weight):
     return grad.new_empty((grad.shape[0], weight.shape[1], *(s + 6 for s in grad.shape[2:])))
 
 
+@torch.library.custom_op("mra_torch::c7_convolution_weight_grad", mutates_args=())
+def c7_convolution_weight_grad(grad: torch.Tensor, x: torch.Tensor,
+                               weight: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``c7_convolution`` with respect to its weight (of
+    ``weight``'s shape and dtype), from its input and the gradient of its
+    output."""
+    if not _on_kernels(grad):
+        return torch.nn.grad.conv3d_weight(x, weight.shape, grad)
+    if weight.shape[1] == 1:
+        dw = conv7.conv7_wgrad_spread(x.contiguous(), grad.contiguous(memory_format=_CL))
+    else:
+        dw = conv7.conv7_wgrad_gather(x.contiguous(memory_format=_CL), grad.contiguous())
+    return dw.view(weight.shape)
+
+
+@c7_convolution_weight_grad.register_fake
+def _(grad, x, weight):
+    return weight.new_empty(weight.shape)
+
+
 def _c7_setup(ctx, inputs, output):
     x, weight, bias = inputs
     _, need_w, need_b = ctx.needs_input_grad[:3]
@@ -121,14 +146,26 @@ def _c7_setup(ctx, inputs, output):
 def _c7_backward(ctx, grad):
     x, weight = ctx.saved_tensors
     need_x, need_w, need_b = ctx.needs_input_grad[:3]
-    need_b = need_b and ctx.has_bias
+    if _on_kernels(grad) and weight.shape[1] == 1 and not grad.is_contiguous(memory_format=_CL):
+        # the stem's kernels (input and weight gradient) take g in channels_last_3d
+        conv7.GRAD_RELAYOUTS["count"] += 1
+        grad = grad.contiguous(memory_format=_CL)
     gx = c7_convolution_input_grad(grad, weight) if need_x else None
-    gw = gb = None
-    if need_w or need_b:
-        _, gw, gb = torch.ops.aten.convolution_backward(
-            grad, x, weight, [weight.shape[0]] if ctx.has_bias else None, [1] * 3, [0] * 3,
-            [1] * 3, False, [0] * 3, 1, [False, need_w, need_b])
+    gw = c7_convolution_weight_grad(grad, x, weight) if need_w else None
+    gb = _c7_bias_grad(grad, x, weight) if need_b and ctx.has_bias else None
     return gx, gw, gb
+
+
+def _c7_bias_grad(grad: torch.Tensor, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The bias gradient. A bfloat16 gradient on the kernels' route: its sum
+    in float32, rounded once. Any other (a float32 one included, which takes
+    the kernels' route only where the tests put it there on the CPU): aten's,
+    as before the c7 ops; aten's CPU sum runs in one sequential order."""
+    if _on_kernels(grad) and grad.dtype == torch.bfloat16:
+        return grad.sum((0, 2, 3, 4), dtype=torch.float32).to(grad.dtype)
+    return torch.ops.aten.convolution_backward(
+        grad, x, weight, [weight.shape[0]], [1] * 3, [0] * 3, [1] * 3, False, [0] * 3, 1,
+        [False, False, True])[2]
 
 
 c7_convolution.register_autograd(_c7_backward, setup_context=_c7_setup)
@@ -143,6 +180,15 @@ def _c7_flops(x_shape, w_shape, bias_shape, *args, out_shape, **kwargs) -> int:
 def _c7_input_grad_flops(grad_shape, w_shape, *args, out_shape, **kwargs) -> int:
     # as aten.convolution_backward counts an input gradient
     return conv_flop_count(grad_shape, w_shape, out_shape, transposed=True)
+
+
+@register_flop_formula(torch.ops.mra_torch.c7_convolution_weight_grad)
+def _c7_weight_grad_flops(grad_shape, x_shape, w_shape, *args, out_shape, **kwargs) -> int:
+    # as aten.convolution_backward counts a weight gradient: conv(x, grad)
+    def t(shape):
+        return [shape[1], shape[0], *shape[2:]]
+
+    return conv_flop_count(t(x_shape), t(grad_shape), t(w_shape), transposed=False)
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,

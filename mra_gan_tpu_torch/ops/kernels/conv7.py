@@ -2,25 +2,37 @@
 C-channel field: the CUDA kernels' wrappers and their plain PyTorch versions.
 
 The resnet generator's stem (1 -> ngf) and head (ngf -> 1) 7^3 convs run
-through these two kernels in bfloat16 on CUDA, forward and input gradient
-(``ops/conv.py`` routes them; the JAX package leaves them to XLA,
-mra_gan_tpu/ops/conv.py:35). The kernels' design is described in
-``csrc/conv7.cu``. Two kernels, one wrapper each:
+through these kernels in bfloat16 on CUDA, forward, input gradient and
+weight gradient (``ops/conv.py`` routes them; the JAX package leaves them to
+XLA, mra_gan_tpu/ops/conv.py:35). The kernels' design is described in
+``csrc/conv7.cu``. One wrapper each:
 
 - ``conv7_spread``  a (N, 1, D, H, W), w (C, 7, 7, 7) -> (N, C, D', H', W'):
   y[n, c, v] = bias[c] + sum_k a[n, v + k - pad] * w[c, k]
 - ``conv7_gather``  x (N, C, D, H, W), w (C, 7, 7, 7) -> (N, 1, D', H', W'):
   y[n, v] = bias + sum_k sum_c x[n, c, v + k - pad] * w[c, k]
+- ``conv7_wgrad_spread``  a (N, 1, D, H, W), g (N, C, D - 6, H - 6, W - 6)
+  -> dw (C, 7, 7, 7): dw[c, k] = sum_n sum_v g[n, c, v] * a[n, v + k], the
+  stem's weight gradient
+- ``conv7_wgrad_gather``  x (N, C, D, H, W), g (N, 1, D - 6, H - 6, W - 6)
+  -> dw (C, 7, 7, 7): dw[c, k] = sum_n sum_v x[n, c, v + k] * g[n, v], the
+  head's weight gradient
+- ``conv7_wgrad_reduce``  the second pass of both weight gradients: the
+  first pass's per-block partial sums (blocks, 32 * groups, 49, 8) float32
+  -> (C, 7, 7, 7), summed in block order, flipped for the head, rounded once
 
 with D' = D + 2 pad - 6 (H', W' alike) and input voxels outside the box read
 as zero. pad 0 is a forward conv; pad 6 with w flipped on its three axes is
 the input gradient of the other role's forward.
 
-A wrapper given a CPU tensor runs its plain version (float32 ``F.conv3d``,
-rounded once to the input's dtype, as the kernel rounds); given a CUDA
-tensor it launches its kernel or raises (a dtype other than bfloat16, a
-wrong shape or layout, a failed build, a refused launch). Each launch adds
-one to ``LAUNCHES[<wrapper name>]``.
+A wrapper given a CPU tensor runs its plain version (float32 ``F.conv3d``
+or ``torch.nn.grad.conv3d_weight``, rounded once to the input's dtype, as
+the kernel rounds); given a CUDA tensor it launches its kernel or raises (a
+dtype other than bfloat16, a wrong shape or layout, a failed build, a
+refused launch). Each launch adds one to ``LAUNCHES[<kernel name>]``: a
+weight gradient counts its first pass under its own name and its second
+under ``conv7_wgrad_reduce``. ``GRAD_RELAYOUTS["count"]`` counts the stem
+gradients ``ops/conv.py`` copied into channels_last_3d.
 """
 from __future__ import annotations
 
@@ -32,12 +44,20 @@ import torch
 import torch.nn.functional as F
 
 TAPS = (7, 7, 7)
-LAUNCHES = {"conv7_spread": 0, "conv7_gather": 0}
+LAUNCHES = {"conv7_spread": 0, "conv7_gather": 0, "conv7_wgrad_spread": 0,
+            "conv7_wgrad_gather": 0, "conv7_wgrad_reduce": 0}
+# the stem's output gradients that ops/conv.py had to copy into
+# channels_last_3d before its input- and weight-gradient kernels
+GRAD_RELAYOUTS = {"count": 0}
+# a weight gradient's partial sums: per channel, (kz, ky) rows x kx (the 8th
+# column is the mma tile's spare), in groups of 32 channels
+WGRAD_ROWS, WGRAD_COLS, GROUP = 49, 8, 32
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    GRAD_RELAYOUTS["count"] = 0
 
 
 def out_shape(spatial, pad: int) -> tuple:
@@ -65,6 +85,27 @@ def conv7_gather_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Te
     return y.to(x.dtype)
 
 
+def conv7_wgrad_spread_plain(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """float32 conv3d_weight of the stem, (C, 7, 7, 7), rounded once to a's dtype."""
+    c = g.shape[1]
+    dw = torch.nn.grad.conv3d_weight(a.float(), (c, 1, *TAPS), g.float())
+    return dw[:, 0].to(a.dtype)
+
+
+def conv7_wgrad_gather_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """float32 conv3d_weight of the head, (C, 7, 7, 7), rounded once to x's dtype."""
+    c = x.shape[1]
+    dw = torch.nn.grad.conv3d_weight(x.float(), (1, c, *TAPS), g.float())
+    return dw[0].to(x.dtype)
+
+
+def conv7_wgrad_reduce_plain(partial: torch.Tensor, c: int, flip: bool) -> torch.Tensor:
+    """The partials summed over the blocks in float32, cut to (C, 7, 7, 7),
+    flipped on the three axes for the head, rounded once to bfloat16."""
+    dw = partial.float().sum(0)[:c, :, :7].reshape(c, *TAPS)
+    return (dw.flip(1, 2, 3) if flip else dw).bfloat16()
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 
@@ -78,9 +119,23 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.mra_conv7_spread, lib.mra_conv7_gather):
         fn.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, i32, i32, p]
         fn.restype = ctypes.c_int
+    lib.mra_conv7_wgrad_blocks.argtypes = [i32] * 5
+    lib.mra_conv7_wgrad.argtypes = [i32, p, p, p] + [i32] * 7 + [p]
+    lib.mra_conv7_wgrad_reduce.argtypes = [p, p, i32, i32, i32, p]
+    for fn in (lib.mra_conv7_wgrad_blocks, lib.mra_conv7_wgrad, lib.mra_conv7_wgrad_reduce):
+        fn.restype = ctypes.c_int
     lib.mra_conv7_error_string.argtypes = [ctypes.c_int]
     lib.mra_conv7_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_device(t: torch.Tensor, what: str) -> None:
+    dev = t.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA or CPU tensor, got {dev}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{what}: tensor on {dev} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
 
 
 def _check(t: torch.Tensor, dev: torch.device, what: str, name: str) -> None:
@@ -93,11 +148,7 @@ def _check(t: torch.Tensor, dev: torch.device, what: str, name: str) -> None:
 def _check_args(field: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], pad: int,
                 c: int, bias_len: int, what: str) -> None:
     dev = field.device
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: expected a CUDA or CPU tensor, got {dev}")
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"{what}: tensor on {dev} but the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
+    _check_device(field, what)
     _check(field, dev, what, "the input")
     _check(w, dev, what, "the weight")
     if tuple(w.shape) != (c, *TAPS) or not w.is_contiguous():
@@ -171,3 +222,89 @@ def conv7_gather(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] 
     _raise_on(err, what)
     LAUNCHES["conv7_gather"] += 1
     return y
+
+
+def check_wgrad_tensors(field: torch.Tensor, one: torch.Tensor, grow: int, what: str) -> None:
+    """What a weight-gradient kernel takes: field (N, C, D, H, W) contiguous
+    in channels_last_3d and one (N, 1, D + grow, H + grow, W + grow)
+    contiguous, both bfloat16 on field's device; raises otherwise."""
+    _check(field, field.device, what, "the C-channel field")
+    _check(one, field.device, what, "the one-channel field")
+    if field.dim() != 5 or not field.is_contiguous(memory_format=torch.channels_last_3d):
+        raise ValueError(f"{what}: expected an (N, C, D, H, W) field contiguous in "
+                         f"channels_last_3d, got {tuple(field.shape)}")
+    n, _, *box = field.shape
+    want = (n, 1, *(s + grow for s in box))
+    if tuple(one.shape) != want or not one.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous {want} one-channel field, got "
+                         f"{tuple(one.shape)}")
+    if min(box + list(want[2:])) < 1:
+        raise ValueError(f"{what}: input box smaller than 7^3")
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_blocks(head: int, n: int, d: int, h: int, w: int, device: int) -> int:
+    """The first pass's grid for a box on a card (fixed, so the sums keep
+    their order), asked once."""
+    blocks = _lib().mra_conv7_wgrad_blocks(head, n, d, h, w)
+    if blocks <= 0:
+        _raise_on(-blocks, "conv7_wgrad_blocks")
+    return blocks
+
+
+def conv7_wgrad_partials(what: str, field: torch.Tensor, one: torch.Tensor) -> torch.Tensor:
+    """The first pass of a weight gradient (``what``: "conv7_wgrad_spread"
+    with field = g and one = a, or "conv7_wgrad_gather" with field = x and
+    one = g): the partial sums (blocks, 32 * groups, 49, 8) float32 of a
+    number of blocks fixed by the box and the card."""
+    head = int(what == "conv7_wgrad_gather")
+    _check_device(field, what)
+    check_wgrad_tensors(field, one, -6 if head else 6, what)
+    n, c, d, h, wd = field.shape
+    blocks = _wgrad_blocks(head, n, d, h, wd, field.device.index)
+    partial = torch.empty((blocks, -(-c // GROUP) * GROUP, WGRAD_ROWS, WGRAD_COLS),
+                          device=field.device, dtype=torch.float32)
+    vec = int(c % 8 == 0 and field.data_ptr() % 16 == 0)
+    err = _lib().mra_conv7_wgrad(head, field.data_ptr(), one.data_ptr(), partial.data_ptr(),
+                                 blocks, n, d, h, wd, c, vec, _stream(field))
+    _raise_on(err, what)
+    LAUNCHES[what] += 1
+    return partial
+
+
+def conv7_wgrad_spread(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The stem's weight gradient (C, 7, 7, 7) from its input a (N, 1, D, H,
+    W) and output gradient g (N, C, D - 6, H - 6, W - 6). On CUDA both are
+    bfloat16: a contiguous, g contiguous in channels_last_3d."""
+    if a.device.type == "cpu":
+        return conv7_wgrad_spread_plain(a, g)
+    return conv7_wgrad_reduce(conv7_wgrad_partials("conv7_wgrad_spread", g, a), g.shape[1], False)
+
+
+def conv7_wgrad_gather(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The head's weight gradient (C, 7, 7, 7) from its input x (N, C, D, H,
+    W) and output gradient g (N, 1, D - 6, H - 6, W - 6). On CUDA both are
+    bfloat16: x contiguous in channels_last_3d, g contiguous."""
+    if x.device.type == "cpu":
+        return conv7_wgrad_gather_plain(x, g)
+    return conv7_wgrad_reduce(conv7_wgrad_partials("conv7_wgrad_gather", x, g), x.shape[1], True)
+
+
+def conv7_wgrad_reduce(partial: torch.Tensor, c: int, flip: bool) -> torch.Tensor:
+    """(C, 7, 7, 7) bfloat16 from a weight gradient's partial sums
+    (blocks, 32 * groups, 49, 8) float32, contiguous."""
+    if partial.device.type == "cpu":
+        return conv7_wgrad_reduce_plain(partial, c, flip)
+    what = "conv7_wgrad_reduce"
+    _check_device(partial, what)
+    if partial.dtype != torch.float32 or not partial.is_contiguous() or partial.dim() != 4 \
+            or tuple(partial.shape[1:]) != (-(-c // GROUP) * GROUP, WGRAD_ROWS, WGRAD_COLS):
+        raise ValueError(f"{what}: expected contiguous float32 partials (blocks, "
+                         f"{-(-c // GROUP) * GROUP}, {WGRAD_ROWS}, {WGRAD_COLS}), got "
+                         f"{partial.dtype} {tuple(partial.shape)}")
+    dw = torch.empty((c, *TAPS), device=partial.device, dtype=torch.bfloat16)
+    err = _lib().mra_conv7_wgrad_reduce(partial.data_ptr(), dw.data_ptr(), partial.shape[0], c,
+                                        int(flip), _stream(partial))
+    _raise_on(err, what)
+    LAUNCHES[what] += 1
+    return dw

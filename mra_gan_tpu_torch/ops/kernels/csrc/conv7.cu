@@ -6,8 +6,9 @@
 // (mra_gan_tpu/ops/conv.py:35, rewritten in mra_gan_tpu/ops/s2d.py because
 // one side has a single channel); no Pallas kernel exists for them. cuDNN's
 // implicit GEMMs put the single channel (or C = 32) into 256x128 tiles and
-// reach 1-7 TFLOP/s on them. Two kernels serve the forward and the input
-// gradient of both convs:
+// reach 1-7 TFLOP/s on them (its weight gradient ~5). Two kernels serve the
+// forward and the input gradient of both convs, two more (with a reduce
+// pass) their weight gradients:
 //
 //   spread (1 -> C):  y[n, v, c] = bias[c] + sum_k a[n, v + k - pad] * W[c, k]
 //     stem forward (pad 0) and head input gradient (pad 6, W the head weight
@@ -15,6 +16,8 @@
 //   gather (C -> 1):  y[n, v] = bias + sum_k sum_c x[n, v + k - pad, c] * W[c, k]
 //     head forward (pad 0) and stem input gradient (pad 6, W the stem weight
 //     flipped)
+//   wgrad spread (stem):  dW[c, k] = sum_n sum_v g[n, v, c] * a[n, v + k]
+//   wgrad gather (head):  dW[c, k] = sum_n sum_v x[n, v + k, c] * g[n, v]
 //
 // k runs over the 343 taps (kz, ky, kx), v over the output box, which is the
 // input box grown by 2 pad - 6 on each axis; input voxels outside their box
@@ -55,6 +58,37 @@
 //   chunks XOR-swizzled so that ldmatrix reads them without bank conflicts;
 //   the warps whose rows reach that plane run their 7 ky x (C / 16) x 5
 //   mma.sync on it. C runs in groups of 32 channels.
+//
+// wgrad_spread_kernel, wgrad_gather_kernel: one body, D[c, k] = sum_n sum_u
+//   F[n, u, c] * S[n, u + k + off] with F the C-channel field, S the
+//   one-channel field (zero outside its box) and u over F's box. The stem
+//   takes F = g (the 64^3 output box), S = a, off 0, and D is dW. The head
+//   takes F = x (the 70^3 input box), S = g, off -6 and D[c, k] = dW[c, 342 -
+//   k] (u = v + k, so dW[c, k] = sum_u x[u, c] g[u - k]; the reduce flips the
+//   taps). Per (kz, ky) this is a GEMM with M = 32 channels (two m-tiles), N
+//   = 8 kx (the 8th is the tile's spare: its column is dropped) and K = the
+//   voxels u: A[c][u] = F[u, c] comes from the field tile with ldmatrix.trans
+//   (16-byte channel chunks, XOR-swizzled as in the gather), and B[u][kx] =
+//   S[u + (kz, ky, kx)] is Hankel along x, so a voxel pair (u, u + 1) and kx
+//   read the pair word P[i] = (S[i], S[i + 1]) of the spread's halo trick: the
+//   two elements of a B fragment in one aligned load, at a compile-time
+//   offset per ky. A tile is 2 z-planes x 4 y-rows x one row segment (at
+//   most 72 voxels, of even length, so no pair straddles two rows), voxels
+//   flattened x fastest into k-steps of 16 (8 pairs: a table gives each
+//   pair's halo word); its S halo (8 x 10 x (segment + 8) words) sits beside
+//   it. Seven warps, one per kz, each hold 7 ky x 2 m-tiles of float32
+//   accumulators (56 a thread) over every tile of the block; three blocks
+//   of 62 KB an SM (-Xptxas -v: 80 registers, a 16-24-byte spill).
+//   Bound: the stem's operations (2 * 343 * C flops per output voxel against
+//   2 C + 2 bytes read); the head's bytes (its 70^3 x C input read once is
+//   the larger). The field tile comes by cp.async with zero-fill (ragged
+//   boxes, sharded depth boxes and C < 32 need no padded copy).
+//   Split-K without atomics: a fixed grid, min(tiles, resident blocks), each
+//   block walking tiles blockIdx.x, + gridDim.x, ... in order, writes its
+//   float32 partial (32 x 49 x 8 a channel group) to a workspace;
+//   wgrad_reduce_kernel sums the partials in block order, flips the head's
+//   taps and rounds each weight once to bf16. Same grid, same order, same
+//   bits on every run of a card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -371,9 +405,202 @@ conv7_gather_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// weight gradient: D[c, k] = sum_n sum_u F[n, u, c] * S[n, u + k + kOff]
+
+constexpr int kWTZ = 2, kWTY = 4;                  // a tile: z planes x y rows x a row segment
+constexpr int kWMaxSeg = 72;                       // longest row segment (even)
+constexpr int kWThreads = 32 * 7;                  // one warp per kz
+constexpr int kWVox = kWTZ * kWTY * kWMaxSeg;      // 576 field voxels, 36 k-steps of 16
+constexpr int kWHZ = kWTZ + 6, kWHY = kWTY + 6;    // the one-channel halo's planes and rows
+constexpr int kWHX = kWMaxSeg + 8;                 // its row stride in pair words
+constexpr int kWFieldBytes = kWVox * kSlotBytes;   // 36,864
+constexpr int kWHaloBytes = kWHZ * kWHY * kWHX * 4;  // 25,600
+constexpr int kWTableBytes = kWVox / 2 * 4;          // 1,152
+constexpr int kWSmem = kWFieldBytes + kWHaloBytes + kWTableBytes;
+constexpr int kWRows = 49, kWCols = 8;             // a partial: (kz, ky) rows x 8 kx a channel
+constexpr int kWPartial = kGroup * kWRows * kWCols;
+constexpr int kReduceThreads = 256;
+static_assert(kWVox % 16 == 0, "whole k-steps");
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// Row segments of a field row of w voxels: the fewest of at most kWMaxSeg,
+// balanced, each of an even length so that no voxel pair straddles two.
+__host__ __device__ inline int wgrad_segs(int w) { return (w + kWMaxSeg - 1) / kWMaxSeg; }
+__host__ __device__ inline int wgrad_seg(int w) {
+  const int segs = wgrad_segs(w);
+  return ((w + segs - 1) / segs + 1) & ~1;
+}
+
+// One block's partial sums over its tiles (tile = blockIdx.x, + gridDim.x, ...)
+// for channel group blockIdx.y: partial[block][group][c][kz * 7 + ky][kx].
+// F is the C-channel field (N, Fd, Fh, Fw, C), S the one-channel field (N,
+// Sd, Sh, Sw), zero outside its box; u runs over F's box.
+template <int kOff>
+__device__ __forceinline__ void wgrad_body(const uint16_t* __restrict__ field,
+                                           const uint16_t* __restrict__ one,
+                                           float* __restrict__ partial, int Fd, int Fh, int Fw,
+                                           int Sd, int Sh, int Sw, int C, int vec, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* P = reinterpret_cast<uint32_t*>(smem + kWFieldBytes);
+  int* table = reinterpret_cast<int*>(smem + kWFieldBytes + kWHaloBytes);
+  const uint32_t field_s = (uint32_t)__cvta_generic_to_shared(smem);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int cb = blockIdx.y * kGroup;
+  const int segs = wgrad_segs(Fw), seg = wgrad_seg(Fw);
+  const int tiles_y = (Fh + kWTY - 1) / kWTY, tiles_z = (Fd + kWTZ - 1) / kWTZ;
+  const int vox = kWTZ * kWTY * seg;  // a tile's voxels, x fastest
+  const int ksteps = (vox + 15) >> 4;
+  const int hx = seg + 8;             // halo words a row that the k-steps read
+
+  // voxel pair p = (2p, 2p + 1): its halo word at tap (0, 0, 0); past the
+  // tile, word 0 (its field voxels are zero)
+  for (int p = tid; p < kWVox / 2; p += kWThreads) {
+    const int v = 2 * p, r = v / seg;
+    table[p] = v < vox ? ((r / kWTY) * kWHY + r % kWTY) * kWHX + v % seg : 0;
+  }
+  // ldmatrix.trans rows: lane l feeds matrix j = l >> 3 with voxel 8 (j >> 1)
+  // + (l & 7) of a k-step and the 8 channels of chunk (j & 1) + 2 mt, which
+  // gives the A fragment of channels (m) x voxels (k)
+  const int lrow = 8 * ((lane >> 3) >> 1) + (lane & 7), lchunk = (lane >> 3) & 1;
+  const uint32_t lane_off0 = chunk_offset(lrow, lchunk), lane_off1 = chunk_offset(lrow, 2 + lchunk);
+  const int kz_off = warp * kWHY * kWHX;
+
+  float acc[7][2][4];
+#pragma unroll
+  for (int i = 0; i < 7; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int rest = tile;
+    const int x0 = (rest % segs) * seg;
+    rest /= segs;
+    const int y0 = (rest % tiles_y) * kWTY;
+    rest /= tiles_y;
+    const int z0 = (rest % tiles_z) * kWTZ;
+    const int n = rest / tiles_z;
+    __syncthreads();  // the last tile's reads are done
+
+    // the field tile: 16-byte chunks of 8 channels, zero outside the box or past C
+    const uint16_t* fn = field + (int64_t)n * Fd * Fh * Fw * C;
+    for (int e = tid; e < ksteps * 16 * 4; e += kWThreads) {
+      const int q = e & 3, u = e >> 2;
+      const int x = u % seg, r = u / seg;
+      const int gx = x0 + x, gy = y0 + r % kWTY, gz = z0 + r / kWTY, c = cb + 8 * q;
+      const bool inside = u < vox && gx < Fw && gy < Fh && gz < Fd;
+      const int64_t src = inside ? (((int64_t)gz * Fh + gy) * Fw + gx) * C + c : 0;
+      const int dst = chunk_offset(u, q);
+      if (vec) {
+        cp_async16(field_s + dst, fn + src, inside && c < C);
+      } else {
+        uint16_t v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = (inside && c + k < C) ? fn[src + k] : (uint16_t)0;
+        *reinterpret_cast<uint4*>(smem + dst) =
+            make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7]));
+      }
+    }
+    // the one-channel halo as pair words P[i] = (S[i], S[i + 1]), zero outside S's box
+    const uint16_t* sn = one + (int64_t)n * Sd * Sh * Sw;
+    for (int e = tid; e < kWHZ * kWHY * hx; e += kWThreads) {
+      const int ix = e % hx, r = e / hx, iy = r % kWHY, iz = r / kWHY;
+      const int gx = x0 + ix + kOff, gy = y0 + iy + kOff, gz = z0 + iz + kOff;
+      uint16_t lo = 0, hi = 0;
+      if (gz >= 0 && gz < Sd && gy >= 0 && gy < Sh) {
+        const uint16_t* row = sn + ((int64_t)gz * Sh + gy) * Sw;
+        if (gx >= 0 && gx < Sw) lo = row[gx];
+        if (gx + 1 >= 0 && gx + 1 < Sw) hi = row[gx + 1];
+      }
+      P[(iz * kWHY + iy) * kWHX + ix] = pack(lo, hi);
+    }
+    if (vec) cp_async_wait_all();
+    __syncthreads();
+
+    // warp kz: for each k-step of 16 voxels, 7 ky x 2 m-tiles of mma.sync
+    for (int s = 0; s < ksteps; ++s) {
+      uint32_t a0[4], a1[4];
+      ldmatrix_x4_trans(field_s + s * 16 * kSlotBytes + lane_off0, a0[0], a0[1], a0[2], a0[3]);
+      ldmatrix_x4_trans(field_s + s * 16 * kSlotBytes + lane_off1, a1[0], a1[1], a1[2], a1[3]);
+      const uint32_t* p0 = P + table[8 * s + t] + kz_off + g;
+      const uint32_t* p1 = P + table[8 * s + t + 4] + kz_off + g;
+#pragma unroll
+      for (int ky = 0; ky < 7; ++ky) {
+        const uint32_t b0 = p0[ky * kWHX], b1 = p1[ky * kWHX];
+        mma16816(acc[ky][0], a0[0], a0[1], a0[2], a0[3], b0, b1);
+        mma16816(acc[ky][1], a1[0], a1[1], a1[2], a1[3], b0, b1);
+      }
+    }
+  }
+
+  float* out = partial + ((int64_t)blockIdx.x * gridDim.y + blockIdx.y) * kWPartial;
+#pragma unroll
+  for (int ky = 0; ky < 7; ++ky)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int c = mt * 16 + g, r = warp * 7 + ky;
+      *reinterpret_cast<float2*>(out + (c * kWRows + r) * kWCols + 2 * t) =
+          make_float2(acc[ky][mt][0], acc[ky][mt][1]);
+      *reinterpret_cast<float2*>(out + ((c + 8) * kWRows + r) * kWCols + 2 * t) =
+          make_float2(acc[ky][mt][2], acc[ky][mt][3]);
+    }
+}
+
+// the stem: F = the output gradient (box Fd), S = the input (box Fd + 6), kOff 0
+__global__ void __launch_bounds__(kWThreads, 3)
+conv7_wgrad_spread_kernel(const uint16_t* __restrict__ g, const uint16_t* __restrict__ a,
+                          float* __restrict__ partial, int Fd, int Fh, int Fw, int C, int vec,
+                          int tiles) {
+  wgrad_body<0>(g, a, partial, Fd, Fh, Fw, Fd + 6, Fh + 6, Fw + 6, C, vec, tiles);
+}
+
+// the head: F = the input (box Fd), S = the output gradient (box Fd - 6),
+// kOff -6; D[c, k] is dW[c, 342 - k], flipped by the reduce
+__global__ void __launch_bounds__(kWThreads, 3)
+conv7_wgrad_gather_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
+                          float* __restrict__ partial, int Fd, int Fh, int Fw, int C, int vec,
+                          int tiles) {
+  wgrad_body<-6>(x, g, partial, Fd, Fh, Fw, Fd - 6, Fh - 6, Fw - 6, C, vec, tiles);
+}
+
+// dW[c, k] = sum over the blocks, in block order (four interleaved sums
+// joined as (s0 + s1) + (s2 + s3)), of partial[b][c][tap], the tap k or 342 - k
+__global__ void __launch_bounds__(kReduceThreads)
+conv7_wgrad_reduce_kernel(const float* __restrict__ partial, uint16_t* __restrict__ dw,
+                          int blocks, int C, int flip) {
+  const int e = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (e >= C * kTaps) return;
+  const int c = e / kTaps, k = flip ? kTaps - 1 - e % kTaps : e % kTaps;
+  const int64_t stride = (int64_t)((C + kGroup - 1) / kGroup) * kWPartial;
+  const float* p = partial + (c * kWRows + k / 7) * kWCols + k % 7;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  int b = 0;
+  for (; b + 4 <= blocks; b += 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i] += p[(b + i) * stride];
+  }
+  if (b < blocks) s[0] += p[b * stride];
+  if (b + 1 < blocks) s[1] += p[(b + 1) * stride];
+  if (b + 2 < blocks) s[2] += p[(b + 2) * stride];
+  dw[e] = f2bf((s[0] + s[1]) + (s[2] + s[3]));
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+int wgrad_tiles(int n, int fd, int fh, int fw) {
+  return n * ((fd + kWTZ - 1) / kWTZ) * ((fh + kWTY - 1) / kWTY) * wgrad_segs(fw);
 }
 
 }  // namespace
@@ -412,6 +639,51 @@ int mra_conv7_gather(const void* x, const void* w, const void* bias, void* y, in
   conv7_gather_kernel<<<grid, kGatherThreads, kGatherSmem, (cudaStream_t)stream>>>(
       (const uint16_t*)x, (const uint16_t*)w, (const uint16_t*)bias, (uint16_t*)y, di, hi, wi,
       d_o, h_o, w_o, c, pad, vec, segment, segs, tiles_y);
+  return (int)cudaGetLastError();
+}
+
+// The weight gradient's first pass runs min(tiles, resident blocks) blocks
+// of each channel group: a number fixed by the field's box and the card, so
+// that every sum keeps its order from run to run. Returns that number for
+// the stem (head 0) or the head (head 1), or minus a CUDA error. The field
+// box is (n, fd, fh, fw).
+int mra_conv7_wgrad_blocks(int head, int n, int fd, int fh, int fw) {
+  const auto kernel = head ? conv7_wgrad_gather_kernel : conv7_wgrad_spread_kernel;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = allow_smem(kernel, kWSmem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWThreads, kWSmem);
+  if (e != cudaSuccess) return -(int)e;
+  const int tiles = wgrad_tiles(n, fd, fh, fw), resident = sms * (per_sm > 0 ? per_sm : 1);
+  return tiles < resident ? tiles : resident;
+}
+
+// The first pass: partial sums (blocks, ceil(c / 32) * 32, 49, 8) float32.
+// The stem (head 0): field = g (N, fd, fh, fw, c) the output gradient, one =
+// a (N, fd + 6, fh + 6, fw + 6) the input. The head (head 1): field = x (N,
+// fd, fh, fw, c) the input, one = g (N, fd - 6, fh - 6, fw - 6) the output
+// gradient, its taps flipped. All bf16.
+int mra_conv7_wgrad(int head, const void* field, const void* one, void* partial, int blocks,
+                    int n, int fd, int fh, int fw, int c, int vec, void* stream) {
+  const auto kernel = head ? conv7_wgrad_gather_kernel : conv7_wgrad_spread_kernel;
+  cudaError_t e = allow_smem(kernel, kWSmem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(blocks, (c + kGroup - 1) / kGroup);
+  kernel<<<grid, kWThreads, kWSmem, (cudaStream_t)stream>>>(
+      (const uint16_t*)field, (const uint16_t*)one, (float*)partial, fd, fh, fw, c, vec,
+      wgrad_tiles(n, fd, fh, fw));
+  return (int)cudaGetLastError();
+}
+
+// The second pass: dw (c, 343) bf16 from the partials of `blocks` blocks,
+// the taps flipped (342 - k) where flip is set.
+int mra_conv7_wgrad_reduce(const void* partial, void* dw, int blocks, int c, int flip,
+                           void* stream) {
+  const int grid = (c * kTaps + kReduceThreads - 1) / kReduceThreads;
+  conv7_wgrad_reduce_kernel<<<grid, kReduceThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)partial, (uint16_t*)dw, blocks, c, flip);
   return (int)cudaGetLastError();
 }
 

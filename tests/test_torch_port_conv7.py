@@ -1,6 +1,7 @@
 """The 7^3 single-channel convs of the port (mra_gan_tpu_torch/ops/conv.py:
-``c7_convolution``, ``c7_convolution_input_grad``; kernels' wrappers and
-plain versions in ops/kernels/conv7.py) on the CPU.
+``c7_convolution``, ``c7_convolution_input_grad``,
+``c7_convolution_weight_grad``; kernels' wrappers and plain versions in
+ops/kernels/conv7.py) on the CPU.
 
 Two routes run here. The ops' own CPU route is F.conv3d and
 torch.nn.grad.conv3d_input. The kernel route (what a bfloat16 CUDA tensor
@@ -148,7 +149,7 @@ def test_generator_through_the_kernel_route_matches_jax(n_blocks, kernel_route):
         got = to_ndhwc(net(to_ncdhw(x)))
     np.testing.assert_allclose(got, np.asarray(jax_forward(jnet, params)(x)),
                                rtol=1e-3, atol=1e-4)
-    assert conv7.LAUNCHES == {"conv7_spread": 0, "conv7_gather": 0}  # no launch on the CPU
+    assert not any(conv7.LAUNCHES.values())  # no launch on the CPU
 
 
 def test_generator_gradients_agree_between_routes(monkeypatch):
@@ -210,7 +211,7 @@ def test_flop_counts_equal_aten(shape):
     fwd = aten["aten.convolution"]
     assert ours["mra_torch.c7_convolution"] == fwd
     assert ours["mra_torch.c7_convolution_input_grad"] == fwd
-    assert ours["aten.convolution_backward"] == fwd  # the weight gradient alone
+    assert ours["mra_torch.c7_convolution_weight_grad"] == fwd
     assert aten["aten.convolution_backward"] == 2 * fwd
     assert sum(ours.values()) == sum(aten.values())
 
@@ -223,13 +224,14 @@ def test_flop_count_without_an_input_gradient():
     with FlopCounterMode(display=False) as counter:
         conv.conv3d(x, wt, b).backward(g)
     counts = {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}
-    assert set(counts) == {"mra_torch.c7_convolution", "aten.convolution_backward"}
-    assert counts["aten.convolution_backward"] == counts["mra_torch.c7_convolution"]
+    assert set(counts) == {"mra_torch.c7_convolution", "mra_torch.c7_convolution_weight_grad"}
+    assert counts["mra_torch.c7_convolution_weight_grad"] == counts["mra_torch.c7_convolution"]
 
 
 def test_op_names_contain_convolution():
     """The benchmark counts the ops whose name contains 'convolution'."""
-    for op in (torch.ops.mra_torch.c7_convolution, torch.ops.mra_torch.c7_convolution_input_grad):
+    for op in (torch.ops.mra_torch.c7_convolution, torch.ops.mra_torch.c7_convolution_input_grad,
+               torch.ops.mra_torch.c7_convolution_weight_grad):
         assert "convolution" in str(op.default)
 
 
@@ -257,7 +259,7 @@ def test_plain_versions_round_once(pad):
     assert y.shape == (2, 8, *box) and z.shape == (2, 1, *box)
     assert torch.equal(y, F.conv3d(a.float(), w.float()[:, None], None, 1, pad).bfloat16())
     assert torch.equal(z, F.conv3d(x.float(), w.float()[None], None, 1, pad).bfloat16())
-    assert conv7.LAUNCHES == {"conv7_spread": 0, "conv7_gather": 0}
+    assert not any(conv7.LAUNCHES.values())
 
 
 def test_wrappers_refuse_other_devices():
@@ -268,3 +270,159 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         conv7.conv7_gather(torch.empty(1, 4, 9, 9, 9, device="meta", dtype=torch.bfloat16)
                            .contiguous(memory_format=torch.channels_last_3d), w)
+
+
+# ---------------------------------------------------------------------------
+# the weight gradients (c7_convolution_weight_grad; conv7_wgrad_spread for
+# the stem, conv7_wgrad_gather for the head, and their reduce pass)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_kernel_route_weight_and_bias_grads_match_conv3d(shape, kernel_route):
+    """Both roles' weight gradient (and the live bias's) on the kernel
+    route, with no input gradient asked for, against F.conv3d's autograd."""
+    x, w, b, g = _case(*shape, seed=8)
+    wt, bt = w.clone().requires_grad_(), b.clone().requires_grad_()
+    conv.conv3d(x, wt, bt).backward(g)
+    wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+    F.conv3d(x, wr, br).backward(g)
+    torch.testing.assert_close(wt.grad, wr.grad, rtol=0, atol=F32_ATOL)
+    torch.testing.assert_close(bt.grad, br.grad, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_kernel_route_weight_grad_matches_jax_vjp(shape, kernel_route):
+    """The weight gradient against the VJP of the JAX package's conv3d
+    (mra_gan_tpu/ops/conv.py:35) with respect to its DHWIO kernel, float32.
+    The file's float32 bars are for O(1) results, which the forward gets by
+    scaling the weights by 1/sqrt(fan-in); a weight gradient sums N x the
+    output box's products, so the output gradient is scaled by
+    1/sqrt(that count) here alike."""
+    x, w, _, g = _case(*shape, seed=9, bias=False)
+    g = g / np.sqrt(g.shape[0] * g[0, 0].numel())
+    jx, jw = jnp.asarray(to_ndhwc(x)), jnp.asarray(w.permute(2, 3, 4, 1, 0).numpy())
+    _, vjp = jax.vjp(lambda k: jax_conv3d(jx, k), jw)
+    (jgw,) = vjp(jnp.asarray(to_ndhwc(g)))
+    wt = w.clone().requires_grad_()
+    conv.conv3d(x, wt).backward(g)
+    np.testing.assert_allclose(wt.grad.permute(2, 3, 4, 1, 0).numpy(), np.asarray(jgw),
+                               rtol=F32_RTOL, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_bf16_weight_and_bias_grads_round_once(shape, kernel_route):
+    """bfloat16 on the kernel route: the weight gradient is the wrappers'
+    float32 conv3d_weight rounded once (bit for bit), the bias gradient the
+    output gradient's float32 sum rounded once; both within the file's bar of
+    the float32 gradients of the same bf16-rounded inputs."""
+    x, w, b, g = (t.bfloat16() for t in _case(*shape, seed=10))
+    wt, bt = w.clone().requires_grad_(), b.clone().requires_grad_()
+    conv.conv3d(x, wt, bt).backward(g)
+    wr, br = w.float().requires_grad_(), b.float().requires_grad_()
+    F.conv3d(x.float(), wr, br).backward(g.float())
+    once = torch.nn.grad.conv3d_weight(x.float(), w.shape, g.float()).bfloat16()
+    assert wt.grad.dtype == bt.grad.dtype == torch.bfloat16
+    assert torch.equal(wt.grad, once)
+    assert torch.equal(bt.grad, g.float().sum((0, 2, 3, 4)).bfloat16())
+    assert _within_bf16_bar(wt.grad, wr.grad) and _within_bf16_bar(bt.grad, br.grad)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_ops_route_weight_grad_is_aten(shape):
+    """Off the kernels (the CPU, float32 or float64 on CUDA) the weight
+    gradient is aten's, bit for bit, as before the weight-gradient op."""
+    x, w, _, g = _case(*shape, seed=11, bias=False)
+    got = conv.c7_convolution_weight_grad(g, x, w)
+    ref = torch.ops.aten.convolution_backward(g, x, w, None, [1] * 3, [0] * 3, [1] * 3, False,
+                                              [0] * 3, 1, [False, True, False])[1]
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_weight_grad_flop_count_equals_aten(shape):
+    """The weight-gradient op's FLOP count is what aten counts for a weight
+    gradient alone (torch.nn.grad.conv3d_weight's convolution_backward)."""
+    x, w, _, g = _case(*shape, seed=12, bias=False)
+    with FlopCounterMode(display=False) as ours:
+        conv.c7_convolution_weight_grad(g, x, w)
+    with FlopCounterMode(display=False) as aten:
+        torch.nn.grad.conv3d_weight(x, w.shape, g)
+    ours = {str(k): v for k, v in ours.get_flop_counts()["Global"].items()}
+    aten = {str(k): v for k, v in aten.get_flop_counts()["Global"].items()}
+    assert set(ours) == {"mra_torch.c7_convolution_weight_grad"}
+    assert ours["mra_torch.c7_convolution_weight_grad"] == aten["aten.convolution_backward"] > 0
+
+
+@pytest.mark.parametrize("cin, cout", [(1, 32), (32, 1)])
+def test_weight_grad_fake_route_gives_the_weights_shape(cin, cout):
+    """Meta tensors: the weight gradient has the weight's shape and dtype."""
+    x = torch.empty(2, cin, 70, 70, 70, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(cout, cin, 7, 7, 7, device="meta", dtype=torch.bfloat16)
+    g = torch.empty(2, cout, 64, 64, 64, device="meta", dtype=torch.bfloat16)
+    gw = conv.c7_convolution_weight_grad(g, x, w)
+    assert gw.shape == w.shape and gw.dtype == w.dtype and gw.device.type == "meta"
+
+
+@pytest.mark.parametrize("kernel", ["conv7_wgrad_spread", "conv7_wgrad_gather"])
+def test_wgrad_plain_versions_round_once(kernel):
+    """The weight-gradient wrappers on the CPU: float32 conv3d_weight of the
+    role, (C, 7, 7, 7), rounded once; no launch counted."""
+    rs = np.random.RandomState(13)
+    one = torch.from_numpy(rs.uniform(-1, 1, (2, 1, 9, 10, 11)).astype(np.float32)).bfloat16()
+    field = torch.from_numpy(rs.uniform(-1, 1, (2, 8, 9, 10, 11)).astype(np.float32)).bfloat16()
+    small = torch.from_numpy(rs.uniform(-1, 1, (2, 8, 3, 4, 5)).astype(np.float32)).bfloat16()
+    conv7.reset_launches()
+    if kernel == "conv7_wgrad_spread":  # a the input, g (C channels) the output gradient
+        dw = conv7.conv7_wgrad_spread(one, small)
+        ref = torch.nn.grad.conv3d_weight(one.float(), (8, 1, 7, 7, 7), small.float())[:, 0]
+    else:  # x (C channels) the input, g the output gradient
+        g = small[:, :1]
+        dw = conv7.conv7_wgrad_gather(field, g)
+        ref = torch.nn.grad.conv3d_weight(field.float(), (1, 8, 7, 7, 7), g.float())[0]
+    assert dw.shape == (8, 7, 7, 7) and dw.dtype == torch.bfloat16
+    assert torch.equal(dw, ref.bfloat16())
+    assert not any(conv7.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_wgrad_reduce_plain_version(flip):
+    """The reduce pass's plain version: the blocks' partials summed, the
+    spare kx column and the channels past C dropped, the head's taps
+    flipped on all three axes, one rounding."""
+    rs = np.random.RandomState(14)
+    partial = torch.from_numpy(rs.randn(3, conv7.GROUP, conv7.WGRAD_ROWS,
+                                        conv7.WGRAD_COLS).astype(np.float32))
+    c = 5
+    dw = conv7.conv7_wgrad_reduce(partial, c, flip)
+    want = partial.sum(0)[:c, :, :7].reshape(c, 7, 7, 7)
+    if flip:
+        want = torch.from_numpy(want.numpy()[:, ::-1, ::-1, ::-1].copy())
+    assert dw.shape == (c, 7, 7, 7) and dw.dtype == torch.bfloat16
+    assert torch.equal(dw, want.bfloat16())
+
+
+def test_wgrad_wrappers_refuse_other_devices_and_dtypes():
+    """No fallback: a tensor neither on the CPU nor on CUDA raises, and the
+    kernels' argument check refuses another dtype, layout or box."""
+    cl = torch.channels_last_3d
+    one = torch.empty(1, 1, 9, 9, 9, device="meta", dtype=torch.bfloat16)
+    field = torch.empty(1, 4, 3, 3, 3, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        conv7.conv7_wgrad_spread(one, field.contiguous(memory_format=cl))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        conv7.conv7_wgrad_gather(torch.empty(1, 4, 9, 9, 9, device="meta", dtype=torch.bfloat16)
+                                 .contiguous(memory_format=cl), one[:, :, :3, :3, :3])
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        conv7.conv7_wgrad_reduce(torch.empty(2, 32, 49, 8, device="meta"), 4, False)
+    what = "conv7_wgrad_spread"
+    g = torch.zeros(1, 4, 3, 3, 3, dtype=torch.bfloat16).contiguous(memory_format=cl)
+    a = torch.zeros(1, 1, 9, 9, 9, dtype=torch.bfloat16)
+    conv7.check_wgrad_tensors(g, a, 6, what)  # what the kernel takes
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv7.check_wgrad_tensors(g.float(), a, 6, what)
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv7.check_wgrad_tensors(g, a.half(), 6, what)
+    with pytest.raises(ValueError, match="channels_last_3d"):
+        conv7.check_wgrad_tensors(g.contiguous(), a, 6, what)
+    with pytest.raises(ValueError, match="one-channel field"):
+        conv7.check_wgrad_tensors(g, a[:, :, :8], 6, what)
