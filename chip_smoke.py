@@ -25,8 +25,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    their roles (CONV7_ROLES: spread for the stem forward and the head's
    input gradient, gather for the head forward and the stem's input
    gradient) at every batch size the decode and the train step at batch 1
-   and 8 give them, against float32 F.conv3d on the card with TF32 off
-   (phase_conv7_kernels states the bar); and the two weight-gradient
+   and 8 give them, and both at both pads on an odd unequal box, at C = 4
+   (no tensor map), C = 40 (a partial second channel group), C = 96 and
+   C = 128 (three and four groups) and at phase 14's shard boxes
+   (CONV7_EXTRA, CONV7_SHARD_BOXES), against float32 F.conv3d on the card
+   with TF32 off (phase_conv7_kernels states the bar), each twice and
+   bit-equal; and the two weight-gradient
    kernels (conv7_wgrad_spread for the stem, conv7_wgrad_gather for the
    head, each a first pass of partial sums and the conv7_wgrad_reduce pass)
    at N = 16, 8, 2, 1 and at phase 14's shard boxes (CONV7_SHARD_BOXES)
@@ -226,8 +230,9 @@ VOLUME = (128, 256, 256)  # bench.py:80
 STRIDE = 32
 DECODE_BATCH = 8
 # phase 5's timed decodes: the host sets a decode's pace (its idle share is
-# 25-45% with the conv7 kernels), so its median takes more than three
-DECODE_REPEATS = 7
+# 25-45% with the conv7 kernels) and the host's load moves it from one
+# decode to the next, so the median phase 15 holds the benchmark to takes 15
+DECODE_REPEATS = 15
 EXPECTED_GRID = (147, 19)  # patches, batches
 CLI_SHAPES = [(96, 128, 77), (128, 128, 64), (100, 90, 45)]  # odd, even, sub-patch Z
 NGF = 32
@@ -265,6 +270,15 @@ CONV7_ROLES = (
     ("stem input grad", "conv7_gather", 6, 64, (8, 1)),
 )
 CONV7_TIMED = (16, 8)  # phase 3 times each role at the cells' batch sizes
+# phase 2's further cases for both kernels at both pads: (what, N, C, input
+# box): an odd unequal box (2 W is no multiple of 16: the one-channel field
+# goes voxel by voxel), C = 4 (no tensor map: the threads' loader and
+# stores), C = 40 (a partial second channel group), C = 96 and 128 (three
+# and four groups: the spread's walk changes weights between groups, the
+# gather runs each row once a group) and phase 14's shard boxes
+CONV7_EXTRA = (("odd box", 2, NGF, (75, 69, 71)), ("C=4", 2, 4, (40, 38, 42)),
+               ("C=40", 2, 40, (40, 38, 42)), ("C=96", 2, 96, (40, 38, 42)),
+               ("C=128", 2, 128, (40, 38, 42)))
 # the weight gradients of the stem and head: (role, kernel, the batch sizes
 # the step gives it: 2B = 16 and B = 8 at batch 8, 2 and 1 at batch 1); each
 # at the 70^3 input box, and at phase 14's spatial steps' shard boxes
@@ -792,31 +806,47 @@ def conv7_launched(want: dict) -> bool:
     return all(C7.LAUNCHES[k] == want.get(k, 0) for k in C7.LAUNCHES)
 
 
-def conv7_case(kernel: str, pad: int, edge: int, n: int, gen):
+def conv7_case(kernel: str, pad: int, box, n: int, gen, c: int = NGF):
     """One role's bf16 inputs on the card at O(1) output scale: the field
-    (one channel, or NGF in channels_last_3d), the (NGF, 7, 7, 7) taps and
-    the bias (forward roles only: an input gradient has none)."""
+    (one channel, or c in channels_last_3d) of input box ``box`` (an edge:
+    a cube), the (c, 7, 7, 7) taps and the bias (forward roles only: an
+    input gradient has none)."""
     import torch
 
     spread = kernel == "conv7_spread"
-    shape = (n, 1 if spread else NGF) + (edge,) * 3
-    field = torch.randn(shape, generator=gen, device=DEVICE).bfloat16()
+    box = (box,) * 3 if isinstance(box, int) else tuple(box)
+    field = torch.randn((n, 1 if spread else c) + box, generator=gen, device=DEVICE).bfloat16()
     if not spread:
         field = field.contiguous(memory_format=torch.channels_last_3d)
-    fan_in = 343 * (1 if spread else NGF)
-    w = (torch.randn((NGF, 7, 7, 7), generator=gen, device=DEVICE) / math.sqrt(fan_in)).bfloat16()
+    fan_in = 343 * (1 if spread else c)
+    w = (torch.randn((c, 7, 7, 7), generator=gen, device=DEVICE) / math.sqrt(fan_in)).bfloat16()
     b = None
     if pad == 0:
-        b = (0.1 * torch.randn((NGF if spread else 1,), generator=gen, device=DEVICE)).bfloat16()
+        b = (0.1 * torch.randn((c if spread else 1,), generator=gen, device=DEVICE)).bfloat16()
     return field, w, b
 
 
+def conv7_cases():
+    """Phase 2's cases: (role, kernel, pad, N, C, input box), every role at
+    every batch size of CONV7_ROLES, then CONV7_EXTRA and the shard boxes
+    for both kernels at both pads."""
+    for role, kernel, pad, edge, batches in CONV7_ROLES:
+        for n in batches:
+            yield role, kernel, pad, n, NGF, (edge,) * 3
+    for kernel in ("conv7_spread", "conv7_gather"):
+        for pad in (0, 6):
+            for what, n, c, box in CONV7_EXTRA:
+                yield f"{what} pad {pad}", kernel, pad, n, c, box
+            for n, box in CONV7_SHARD_BOXES:
+                yield f"shard box pad {pad}", kernel, pad, n, NGF, box
+
+
 def phase_conv7_kernels(results: dict) -> None:
-    """Phase 2's conv7 part: each kernel in each role at every batch size of
-    CONV7_ROLES against float32 F.conv3d of the same bf16 inputs with TF32
-    off. Bar, elementwise: |kernel - ref| <= 2^-8 |ref| + 2^-12 max|ref|:
-    half an ulp of each element (the kernel rounds once) plus 1/16 of an ulp
-    at the output's scale for the order of the float32 sums."""
+    """Phase 2's conv7 part: each case of conv7_cases against float32
+    F.conv3d of the same bf16 inputs with TF32 off, each run twice and
+    bit-equal. Bar, elementwise: |kernel - ref| <= 2^-8 |ref| + 2^-12
+    max|ref|: half an ulp of each element (the kernel rounds once) plus 1/16
+    of an ulp at the output's scale for the order of the float32 sums."""
     import torch
 
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
@@ -825,28 +855,29 @@ def phase_conv7_kernels(results: dict) -> None:
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for role, kernel, pad, edge, batches in CONV7_ROLES:
-            for n in batches:
-                field, w, b = conv7_case(kernel, pad, edge, n, gen)
-                y = getattr(C7, kernel)(field, w, b, pad)
-                torch.cuda.synchronize()
-                # the plain version on float32 input: float32 F.conv3d, not rounded
-                ref = getattr(C7, f"{kernel}_plain")(field.float(), w, b, pad)
-                out = (n, NGF if kernel == "conv7_spread" else 1) + (edge + 2 * pad - 6,) * 3
-                check(tuple(y.shape) == out and y.dtype == torch.bfloat16,
-                      f"{kernel} {role} n={n}: shape {tuple(y.shape)}, want {out}")
-                err = (y.float() - ref).abs()
-                scale = float(ref.abs().max())
-                worst = float((err - 2 ** -8 * ref.abs()).max()) / scale
-                results[kernel]["shapes"].append({
-                    "role": role, "n": n, "shape": list(field.shape), "pad": pad,
-                    "max_abs_err": float(err.max()), "out_scale": scale,
-                    "over_half_ulp_rel": worst})
-                print(f"[conv7] {role:16s} {kernel} n={n:2d} {str(tuple(field.shape)):24s} "
-                      f"max err {float(err.max()):.3g} at scale {scale:.3g}; beyond half an "
-                      f"ulp {worst:.3g} of the scale (bar 2^-12)", flush=True)
-                check(worst <= 2 ** -12, f"{kernel} {role} n={n}: {worst} > 2^-12")
-                del field, w, b, y, ref, err
+        for role, kernel, pad, n, c, box in conv7_cases():
+            field, w, b = conv7_case(kernel, pad, box, n, gen, c)
+            fn = getattr(C7, kernel)
+            y, again = fn(field, w, b, pad), fn(field, w, b, pad)
+            torch.cuda.synchronize()
+            # the plain version on float32 input: float32 F.conv3d, not rounded
+            ref = getattr(C7, f"{kernel}_plain")(field.float(), w, b, pad)
+            out = (n, c if kernel == "conv7_spread" else 1) + tuple(s + 2 * pad - 6 for s in box)
+            check(tuple(y.shape) == out and y.dtype == torch.bfloat16,
+                  f"{kernel} {role} n={n}: shape {tuple(y.shape)}, want {out}")
+            check(torch.equal(y, again), f"{kernel} {role} n={n} {box}: two runs differ")
+            err = (y.float() - ref).abs()
+            scale = float(ref.abs().max())
+            worst = float((err - 2 ** -8 * ref.abs()).max()) / scale
+            results[kernel]["shapes"].append({
+                "role": role, "n": n, "shape": list(field.shape), "pad": pad,
+                "max_abs_err": float(err.max()), "out_scale": scale,
+                "over_half_ulp_rel": worst})
+            print(f"[conv7] {role:16s} {kernel} n={n:2d} {str(tuple(field.shape)):24s} "
+                  f"max err {float(err.max()):.3g} at scale {scale:.3g}; beyond half an "
+                  f"ulp {worst:.3g} of the scale (bar 2^-12); bit-equal twice", flush=True)
+            check(worst <= 2 ** -12, f"{kernel} {role} n={n} {box}: {worst} > 2^-12")
+            del field, w, b, y, again, ref, err
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -984,8 +1015,8 @@ def phase_conv7_times(bw: float, tc: float, results: dict) -> list:
                 rows.append(row)
                 results[kernel].setdefault("times", []).append(row)
                 print(f"[conv7] {role:16s} n={n:2d} kernel {row['ms']:.4f} ms "
-                      f"({row['tflops']:.1f} TFLOP/s); cuDNN heuristic {row['cudnn_ms']:.4f} "
-                      f"({row['cudnn_tflops']:.2f} TFLOP/s), searched "
+                      f"({row['tflops']:.1f} TFLOP/s); cuDNN heuristic "
+                      f"{row['cudnn_ms']:.4f} ({row['cudnn_tflops']:.2f} TFLOP/s), searched "
                       f"{row['cudnn_benchmark_ms']:.4f}; plain f32 {row['plain_ms']:.4f}; "
                       f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
                 del field, w, b
@@ -3974,16 +4005,18 @@ def conv7_line(results: dict, train: dict, decode: dict) -> list:
             entry.update(
                 ms=head["reduce_ms"], plain_ms=head["reduce_plain_ms"],
                 bound_ms=head["reduce_bound_ms"],
-                bound_by="bytes", library_ms=head["reduce_library_ms"],
+                bound_by="bytes", library_ms=None, sum_only_ms=head["reduce_library_ms"],
                 roles=[{"role": t["role"], "n": t["n"], "blocks": t["blocks"],
-                        "ms": t["reduce_ms"], "library_ms": t["reduce_library_ms"],
+                        "ms": t["reduce_ms"], "sum_only_ms": t["reduce_library_ms"],
                         "bound_ms": t["reduce_bound_ms"]}
                        for k in ("conv7_wgrad_spread", "conv7_wgrad_gather")
                        for t in results[k]["times"]],
                 note="the second pass of both weight gradients: the partial sums of a fixed "
                      "grid in block order, the head's taps flipped, one rounding; max_abs_err "
                      "against its plain version (torch's float32 sum of the same partials); "
-                     "library_ms: torch.sum of the partials over the blocks")
+                     "library_ms: none, no one PyTorch call sums the partials, drops the "
+                     "spare column, flips the head's taps and rounds; sum_only_ms: torch.sum "
+                     "of the partials over the blocks alone")
         out.append(entry)
     return out
 

@@ -10,6 +10,8 @@ reference's "+0.01 after dividing" bias is not reproduced, as in the JAX
 package."""
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -85,18 +87,22 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
         raise ValueError(f"unknown blend {blend!r}")
     patch = tuple(int(p) for p in patch_size)
     strides = (int(stride_inplane), int(stride_inplane), int(stride_layer))
-    dev = generate_fn.device
+    dev = torch.device(generate_fn.device)
     vshape = volume.shape
-    padded = [max(v, p) for v, p in zip(vshape, patch)]
+    padded = tuple(max(v, p) for v, p in zip(vshape, patch))
     in_dtype = generate_fn.dtype if input_transfer_dtype is None else input_transfer_dtype
-    host = torch.from_numpy(np.ascontiguousarray(volume, np.float32)).to(in_dtype)
-    vol = host.to(dev)
+    host_out, faulted = None, None
+    if dev.type == "cuda":
+        # a thread touches the result's fresh host pages while the device
+        # works; left to the download, their faults would follow the last kernel
+        host_out = torch.empty(vshape, dtype=transfer_dtype)
+        faulted = threading.Thread(target=_touch, args=(host_out,))
+        faulted.start()
+    vol = _upload(volume, in_dtype, dev)
     vol = F.pad(vol, [x for v, p in reversed(list(zip(vshape, padded))) for x in (0, p - v)])
 
-    win_np = gaussian_window(patch) if blend == "gaussian" else np.ones(patch, np.float32)
-    win = torch.from_numpy(win_np).to(dev)
+    win, wsum = _blend_weights(padded, patch, strides, blend, dev)
     acc = torch.zeros(padded, dtype=torch.float32, device=dev)
-    wsum = torch.zeros(padded, dtype=torch.float32, device=dev)
     starts = patch_grid(vshape, patch, strides)
     batch = per_call(generate_fn, batch)
     for i in range(0, len(starts), batch):
@@ -105,8 +111,54 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
                          for a, b, c in chunk])[:, None]
         out = generate_fn(x)[:, 0].float() * win
         for (a, b, c), o in zip(chunk, out):
-            acc[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += o
-            wsum[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += win
-    out = acc / wsum.clamp_min(1e-8)
+            acc[a:a + patch[0], b:b + patch[1], c:c + patch[2]].add_(o)
+    out = acc / wsum
     out = out[:vshape[0], :vshape[1], :vshape[2]].to(transfer_dtype)
-    return out.cpu().numpy().astype(np.float32, copy=False)
+    if host_out is None:
+        return out.cpu().numpy().astype(np.float32, copy=False)
+    faulted.join()
+    host_out.copy_(out)
+    return host_out.numpy().astype(np.float32, copy=False)
+
+
+@functools.lru_cache(maxsize=4)
+def _blend_weights(padded: tuple, patch: tuple, strides: tuple, blend: str,
+                   dev: torch.device):
+    """(window, max(window sum, 1e-8)) on ``dev`` for a volume padded to
+    ``padded``: the sum over the patch grid, added patch by patch in the
+    grid's order, depends only on the geometry, so it is made once a shape."""
+    win_np = gaussian_window(patch) if blend == "gaussian" else np.ones(patch, np.float32)
+    with torch.inference_mode():
+        win = torch.from_numpy(win_np).to(dev)
+        wsum = torch.zeros(padded, dtype=torch.float32, device=dev)
+        for a, b, c in patch_grid(padded, patch, strides):
+            wsum[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += win
+        return win, wsum.clamp_min(1e-8)
+
+
+def _touch(t: torch.Tensor) -> None:
+    with torch.inference_mode():
+        t.zero_()
+
+
+_staging = threading.local()
+
+
+def _upload(volume: np.ndarray, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """The volume on ``dev`` as ``dtype``. To a card it is cast into a pinned
+    buffer kept for the calling thread (pages already resident) and copied
+    from there; the buffer is rewritten only once its last copy has ended."""
+    host = torch.from_numpy(np.ascontiguousarray(volume, np.float32))
+    if dev.type != "cuda":
+        return host.to(dtype).to(dev)
+    key = (tuple(host.shape), dtype, dev)
+    held = getattr(_staging, "held", None)
+    if held is None or held[0] != key:
+        held = (key, torch.empty(host.shape, dtype=dtype, pin_memory=True), torch.cuda.Event())
+        _staging.held = held
+    _, stage, copied = held
+    copied.synchronize()
+    stage.copy_(host)
+    vol = stage.to(dev, non_blocking=True)
+    copied.record(torch.cuda.current_stream(dev))
+    return vol

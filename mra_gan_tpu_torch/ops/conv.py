@@ -3,7 +3,8 @@ mra_gan_tpu/ops/conv.py:35,65,131).
 
 Weights stay float32 and are cast to the activation's dtype at each call, as
 the JAX Conv3D casts its kernel, so bfloat16 compute runs over float32
-parameters. torch's ConvTranspose3d already has the reference's semantics
+parameters; without gradients (inference) a parameter's cast is kept until
+the parameter changes. torch's ConvTranspose3d already has the reference's semantics
 (out = (in - 1) * stride - 2 * pad + k + output_padding).
 
 On CUDA the generator runs in channels_last_3d (NDHWC in memory, the layout of
@@ -191,12 +192,28 @@ def _c7_weight_grad_flops(grad_shape, x_shape, w_shape, *args, out_shape, **kwar
     return conv_flop_count(t(x_shape), t(grad_shape), t(w_shape), transposed=False)
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """``t`` in ``dtype``. Where no gradient is recorded (inference), a
+    parameter's cast is kept on it and made again only once the parameter has
+    changed (its version, storage, device), so a decode casts each weight once
+    and not at every patch batch; the bits are the same either way."""
+    if t is None or t.dtype == dtype:
+        return t
+    if torch.is_grad_enabled() or not isinstance(t, torch.nn.Parameter):
+        return t.to(dtype)
+    key = (t._version, t.data_ptr(), t.device, dtype)
+    held = getattr(t, "_mra_cast", None)
+    if held is None or held[0] != key:
+        held = (key, t.to(dtype))
+        t._mra_cast = held
+    return held[1]
+
+
 def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride=1, padding=0) -> torch.Tensor:
     """x (N, Cin, D, H, W); weight (Cout, Cin, kd, kh, kw). A
     ``single_channel_7`` conv goes through ``c7_convolution``."""
-    b = None if bias is None else bias.to(x.dtype)
-    w = weight.to(x.dtype)
+    b, w = _cast(bias, x.dtype), _cast(weight, x.dtype)
     if single_channel_7(weight.shape, stride, padding):
         return _keep_layout(c7_convolution(x, w, b), x)
     return _keep_layout(F.conv3d(x, w, b, stride, padding), x)
@@ -206,8 +223,8 @@ def conv_transpose3d(x: torch.Tensor, weight: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, stride=2, padding=1,
                      output_padding=0) -> torch.Tensor:
     """x (N, Cin, D, H, W); weight (Cin, Cout, kd, kh, kw)."""
-    b = None if bias is None else bias.to(x.dtype)
-    y = F.conv_transpose3d(x, weight.to(x.dtype), b, stride, padding, output_padding)
+    y = F.conv_transpose3d(x, _cast(weight, x.dtype), _cast(bias, x.dtype), stride, padding,
+                           output_padding)
     return _keep_layout(y, x)
 
 

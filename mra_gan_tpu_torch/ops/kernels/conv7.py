@@ -33,12 +33,28 @@ refused launch). Each launch adds one to ``LAUNCHES[<kernel name>]``: a
 weight gradient counts its first pass under its own name and its second
 under ``conv7_wgrad_reduce``. ``GRAD_RELAYOUTS["count"]`` counts the stem
 gradients ``ops/conv.py`` copied into channels_last_3d.
+
+The spread and the gather run a persistent grid over tiles of the output
+box; the host side of that is pure functions here, so the CPU tests reach
+it: ``spread_plan`` and ``gather_plan`` (the tiling and the grid, from the
+blocks the card holds), ``tile_extent`` and ``block_tiles`` (which outputs,
+and for the spread which channel group, a tile holds, and which tiles a
+block walks), ``segments`` (a row cut into balanced segments),
+``takes_tma`` (whether a C-channel field goes through a tensor map: every
+stride a multiple of 16 bytes) and ``one_channel_granules`` (whether the
+one-channel field is copied in 4-byte granules). Both take any C: a spread
+tile holds every channel where C <= 64 and one group of 32 above (its
+chunk of channels), and a gather tile sums every channel.
+``python -m mra_gan_tpu_torch.conv7_sweep`` times the gather's tilings on
+the card against ``gather_plan``'s pick.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import math
+from dataclasses import dataclass
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +70,28 @@ GRAD_RELAYOUTS = {"count": 0}
 WGRAD_ROWS, WGRAD_COLS, GROUP = 49, 8, 32
 
 
+# csrc/conv7.cu's tiles. The spread: an output tile of (z, y, x) voxels of
+# every channel where C <= SPREAD_HELD (the weights it holds at once), else
+# of one group of 32, stored a group at a time by a TMA box over the NDHWC
+# output (C, W, H, D, N).
+SPREAD_TILE = (4, 4, 16)
+SPREAD_HELD = 2 * GROUP
+SPREAD_STORE_BOX = (GROUP, SPREAD_TILE[2], SPREAD_TILE[1], SPREAD_TILE[0], 1)
+# The gather: a row segment of at most 74 outputs and its 6-voxel halo in
+# the 80 input slots of one TMA box over the NDHWC input (C, W, H, D * N);
+# a tile holds one of the depths in output planes and the rows of the box
+# cut into one of the splits
+GATHER_SLOTS = 80
+GATHER_MAX_SEGMENT = GATHER_SLOTS - 6
+GATHER_LOAD_BOX = (GROUP, GATHER_SLOTS, 1, 1)
+GATHER_DEPTHS = (16, 8, 4)  # multiples of the four consumer warpgroups
+GATHER_ROW_SPLITS = (1, 2, 3, 4)
+# an input-row load against an item of 14 wgmma in the gather's cost model,
+# fitted to conv7_sweep's timings of every depth and split on an H100 80GB
+# HBM3 (PERF.md)
+GATHER_LOAD_COST = 0.6
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -63,6 +101,125 @@ def reset_launches() -> None:
 def out_shape(spatial, pad: int) -> tuple:
     """The output box of an input box: each axis grown by 2 pad - 6."""
     return tuple(s + 2 * pad - 6 for s in spatial)
+
+
+# ---------------------------------------------------------------------------
+# the persistent grids' geometry (host side, pure)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A persistent grid over an (n, D, H, W) output box of ``chunks``
+    chunks of channels: tiles of ``tile`` = (z, y, x) outputs (the last
+    along each axis cut by the box), ``counts`` = (nz, ny, nx) of them a
+    sample, numbered x fastest, then y, z, the sample and the chunk; block b
+    walks tiles b, b + grid, ... in order."""
+    n: int
+    box: Tuple[int, int, int]
+    tile: Tuple[int, int, int]
+    counts: Tuple[int, int, int]
+    grid: int
+    chunks: int = 1
+
+    @property
+    def tiles(self) -> int:
+        return self.chunks * self.n * math.prod(self.counts)
+
+
+def segments(width: int, longest: int) -> Tuple[int, int]:
+    """The fewest balanced segments of at most ``longest`` covering
+    ``width``: (count, length), the last one cut by the width."""
+    count = -(-width // longest)
+    return count, -(-width // count)
+
+
+def _plan(n: int, box, tile, resident: int, chunks: int = 1) -> Plan:
+    counts = tuple(-(-b // t) for b, t in zip(box, tile))
+    tiles = chunks * n * math.prod(counts)
+    return Plan(n, tuple(box), tuple(tile), counts, max(1, min(tiles, resident)), chunks)
+
+
+def spread_plan(n: int, out_box, resident: int, c: int = GROUP) -> Plan:
+    """The spread's grid for c channels: SPREAD_TILE tiles of each chunk of
+    channels (one chunk where C <= SPREAD_HELD, else a group of 32 each; a
+    block loads a chunk's weights where its walk enters it), as many blocks
+    as the card holds (``resident``) or as there are tiles."""
+    chunks = 1 if c <= SPREAD_HELD else -(-c // GROUP)
+    return _plan(n, out_box, SPREAD_TILE, resident, chunks)
+
+
+def _overlap(lo: int, hi: int, size: int) -> int:
+    return max(0, min(hi, size) - max(lo, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def gather_plan(n: int, out_box: Tuple[int, int, int], resident: int, pad: int = 0,
+                load_cost: float = GATHER_LOAD_COST) -> Plan:
+    """The gather's grid. A tile multiplies each of its live input rows
+    (those inside the box, of its Rt + 6) once for each of its Zt output
+    planes and loads it once for each of its Zt + 6 input planes inside the
+    box (one outside is zeros, written in shared memory); more tiles than
+    resident blocks run in waves. The depth (GATHER_DEPTHS) and row split
+    (GATHER_ROW_SPLITS) whose busiest tile, times the waves, costs least in
+    multiplies + load_cost x loads win, the deeper tile on a tie. Cached:
+    the search runs once a shape, not on every launch."""
+    d, h, w = out_box
+    in_d, in_h = d + 6 - 2 * pad, h + 6 - 2 * pad
+    _, xt = segments(w, GATHER_MAX_SEGMENT)
+    best = None
+    for zt in GATHER_DEPTHS:
+        for split in GATHER_ROW_SPLITS:
+            plan = _plan(n, out_box, (min(zt, d), -(-h // split), xt), resident)
+            tz, ty, _ = plan.tile
+            busiest = 0.0
+            for z0 in range(0, d, tz):
+                zn = min(tz, d - z0)
+                planes = _overlap(z0 - pad, z0 + zn + 6 - pad, in_d)
+                for y0 in range(0, h, ty):
+                    rows = _overlap(y0 - pad, y0 + min(ty, h - y0) + 6 - pad, in_h)
+                    busiest = max(busiest, rows * (zn + load_cost * planes))
+            key = (-(-plan.tiles // plan.grid) * busiest, -tz)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best[1]
+
+
+def tile_extent(plan: Plan, t: int):
+    """Tile t's chunk of channels, its sample and its output ranges [lo,
+    hi) on z, y and x."""
+    nz, ny, nx = plan.counts
+    xi, t = t % nx, t // nx
+    yi, t = t % ny, t // ny
+    zi, t = t % nz, t // nz
+    chunk, n = divmod(t, plan.n)
+    ranges = tuple((i * s, min((i + 1) * s, b))
+                   for i, s, b in zip((zi, yi, xi), plan.tile, plan.box))
+    return (chunk, n) + ranges
+
+
+def block_tiles(plan: Plan, block: int) -> Iterator[int]:
+    """The tiles block ``block`` walks, in order."""
+    return iter(range(block, plan.tiles, plan.grid))
+
+
+def takes_tma(t: torch.Tensor) -> bool:
+    """Whether a C-channel NDHWC field (an (N, C, D, H, W) tensor contiguous
+    in channels_last_3d) goes through a tensor map: TMA needs its base and
+    every stride past the channels' (W, H, D, N) to be multiples of 16
+    bytes, which holds where C % 8 == 0."""
+    if t.dim() != 5 or not t.is_contiguous(memory_format=torch.channels_last_3d):
+        return False
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(1) == 1
+            and all(t.stride(i) * size % 16 == 0 for i in (0, 2, 3, 4)))
+
+
+def one_channel_granules(width: int, ptr: int) -> bool:
+    """Whether the spread copies its one-channel (N, D, H, W) input in 4-byte
+    granules: every row starts on 4 bytes (W even, the base so) and a tile's
+    halo starts on an even x, so a granule lies inside the box or outside it
+    whole. Otherwise its threads load it voxel by voxel."""
+    return width % 2 == 0 and ptr % 4 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +273,10 @@ def _lib() -> ctypes.CDLL:
 
     lib = ctypes.CDLL(str(build_library("conv7")))
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.mra_conv7_spread, lib.mra_conv7_gather):
-        fn.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, i32, i32, p]
+    lib.mra_conv7_spread.argtypes = [p, p, p, p] + [i32] * 12 + [p]
+    lib.mra_conv7_gather.argtypes = [p, p, p, p] + [i32] * 14 + [p]
+    lib.mra_conv7_resident.argtypes = [i32, i32]
+    for fn in (lib.mra_conv7_spread, lib.mra_conv7_gather, lib.mra_conv7_resident):
         fn.restype = ctypes.c_int
     lib.mra_conv7_wgrad_blocks.argtypes = [i32] * 5
     lib.mra_conv7_wgrad.argtypes = [i32, p, p, p] + [i32] * 7 + [p]
@@ -174,8 +333,25 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# the current stream's handle without a torch.cuda.Stream object, which costs
+# more than a launch: the wrappers run hundreds of times a decoded volume
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(t: torch.Tensor) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(gather: int, c: int, device: int) -> int:
+    """Blocks of the spread (gather 0) or gather kernel the card holds at
+    once for c channels, asked once."""
+    blocks = _lib().mra_conv7_resident(gather, c)
+    if blocks <= 0:
+        _raise_on(-blocks, "conv7_resident")
+    return blocks
 
 
 def conv7_spread(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -192,11 +368,14 @@ def conv7_spread(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] 
     c = w.shape[0]
     _check_args(a, w, bias, pad, c, c, what)
     n, _, d, h, wd = a.shape
-    y = torch.empty((n, c, *out_shape((d, h, wd), pad)), device=a.device, dtype=a.dtype,
+    box = out_shape((d, h, wd), pad)
+    y = torch.empty((n, c, *box), device=a.device, dtype=a.dtype,
                     memory_format=torch.channels_last_3d)
-    vec = int(c % 8 == 0 and y.data_ptr() % 16 == 0)
+    plan = spread_plan(n, box, _resident(0, c, a.device.index), c)
     err = _lib().mra_conv7_spread(a.data_ptr(), w.data_ptr(), _ptr(bias), y.data_ptr(), n, d, h,
-                                  wd, c, pad, vec, _stream(a))
+                                  wd, c, pad, int(takes_tma(y)),
+                                  int(one_channel_granules(wd, a.data_ptr())), plan.grid,
+                                  *plan.counts, _stream(a))
     _raise_on(err, what)
     LAUNCHES["conv7_spread"] += 1
     return y
@@ -215,11 +394,25 @@ def conv7_gather(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] 
                          f"channels_last_3d, got {tuple(x.shape)}")
     n, c, d, h, wd = x.shape
     _check_args(x, w, bias, pad, c, 1, what)
-    y = torch.empty((n, 1, *out_shape((d, h, wd), pad)), device=x.device, dtype=x.dtype)
-    vec = int(c % 8 == 0 and x.data_ptr() % 16 == 0)
+    box = out_shape((d, h, wd), pad)
+    return gather_launch(x, w, bias, pad, gather_plan(n, box, gather_resident(x), pad))
+
+
+def gather_resident(x: torch.Tensor) -> int:
+    """Blocks of the gather the card holds at once for x's channels."""
+    return _resident(1, x.shape[1], x.device.index)
+
+
+def gather_launch(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], pad: int,
+                  plan: Plan) -> torch.Tensor:
+    """conv7_gather's launch on a given plan, its tensors checked by the
+    caller (conv7_sweep times other plans through it)."""
+    n, c, d, h, wd = x.shape
+    y = torch.empty((n, 1, *plan.box), device=x.device, dtype=x.dtype)
     err = _lib().mra_conv7_gather(x.data_ptr(), w.data_ptr(), _ptr(bias), y.data_ptr(), n, d, h,
-                                  wd, c, pad, vec, _stream(x))
-    _raise_on(err, what)
+                                  wd, c, pad, int(takes_tma(x)), plan.grid, *plan.tile,
+                                  *plan.counts, _stream(x))
+    _raise_on(err, "conv7_gather")
     LAUNCHES["conv7_gather"] += 1
     return y
 

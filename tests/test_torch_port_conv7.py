@@ -18,6 +18,8 @@ bf16-rounded inputs: |got - ref| <= 2^-8 |ref| + 2^-12 max|ref|, that is
 half an ulp of each element (one rounding of the output) plus 1/16 of an
 ulp at the output's scale for the order of the float32 sums; the decode's
 bar (mean 0.02, max 0.5 of a [-1, 1] output) is far looser."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -175,6 +177,42 @@ def test_generator_gradients_agree_between_routes(monkeypatch):
     assert len(got) == len(ref) == 20  # the input, 18 conv weights and the head's bias
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=F32_ATOL)
+
+
+def test_wide_train_step_through_the_kernel_route(monkeypatch):
+    """A train step at ngf = 96 (three channel groups in the stem's and the
+    head's kernels) with the 7^3 convs on the kernel route, against the same
+    step in float64 on the ops' route: per network, the raw gradients' float32
+    error is at most twice that of the ops' route in float32 plus 1e-4 of the
+    network's largest gradient. (At this width the step's float32 gradients
+    of the stem weight are off by ~0.7% of that scale on either route: the
+    network amplifies the rounding.)"""
+    from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, create_state, make_train_step
+
+    rs = np.random.RandomState(8)
+    a, b = (torch.from_numpy(rs.uniform(-1, 1, (1, 1, 16, 16, 16))) for _ in range(2))
+
+    def step_grads(dtype):
+        cfg = CycleGANConfig(ngf=96, ndf=4, net_g="resnet_6blocks", net_d="n_layers",
+                             n_layers_d=2, norm="instance", gan_mode="lsgan", pool_size=0,
+                             dtype=dtype)
+        state = create_state(cfg, 3, (16, 16, 16), device="cpu")
+        make_train_step(cfg)(state, a.to(dtype), b.to(dtype), 2e-4)
+        return {name: {k: p.grad.double() for k, p in net.named_parameters() if p.grad is not None}
+                for name, net in state.nets.items()}
+
+    ref, ops = step_grads(torch.float64), step_grads(torch.float32)
+    monkeypatch.setattr(conv, "_on_kernels", lambda t: True)
+    conv7.reset_launches()
+    got = step_grads(torch.float32)
+    assert not any(conv7.LAUNCHES.values())  # no launch on the CPU
+    assert got["g_a"]["model.1.weight"].shape == (96, 1, 7, 7, 7)
+    for name, grads in ref.items():
+        assert got[name].keys() == ops[name].keys() == grads.keys()
+        scale = max(float(g.abs().max()) for g in grads.values())
+        err = max(float((got[name][k] - g).abs().max()) for k, g in grads.items())
+        ops_err = max(float((ops[name][k] - g).abs().max()) for k, g in grads.items())
+        assert err <= 2 * ops_err + 1e-4 * scale, f"{name}: {err:.3e}, ops {ops_err:.3e}"
 
 
 @pytest.mark.parametrize("cin, cout, k, stride, padding, routed", [
@@ -426,3 +464,154 @@ def test_wgrad_wrappers_refuse_other_devices_and_dtypes():
         conv7.check_wgrad_tensors(g.contiguous(), a, 6, what)
     with pytest.raises(ValueError, match="one-channel field"):
         conv7.check_wgrad_tensors(g, a[:, :, :8], 6, what)
+
+
+# ---------------------------------------------------------------------------
+# the spread's and the gather's persistent grids (host-side geometry)
+
+# (N, input box) of phase 14's shard steps (chip_smoke CONV7_SHARD_BOXES)
+SHARD_BOXES = ((2, (38, 70, 70)), (4, (70, 134, 134)), (1, (22, 70, 70)))
+GRID_BOXES = [(64, 64, 64), (70, 70, 70)] + [b for _, b in SHARD_BOXES] + [(134, 262, 262),
+                                                                         (75, 69, 71)]
+# blocks the H100 holds at once (132 SMs; the spread three a SM, the gather
+# one) and a small card whose blocks each walk many tiles
+RESIDENT = {"spread": (396, 7), "gather": (132, 5)}
+
+
+def _plan(kernel, n, out_box, resident, pad, c=32):
+    if kernel == "spread":
+        return conv7.spread_plan(n, out_box, resident, c)
+    return conv7.gather_plan(n, out_box, resident, pad)
+
+
+def _axis_partition(ranges, size):
+    """The distinct ranges of an axis tile [0, size) exactly once."""
+    ranges = sorted(set(ranges))
+    assert ranges[0][0] == 0 and ranges[-1][1] == size
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("pad", [0, 6])
+@pytest.mark.parametrize("box", GRID_BOXES, ids=["x".join(map(str, b)) for b in GRID_BOXES])
+@pytest.mark.parametrize("kernel", ["spread", "gather"])
+def test_grid_covers_every_output_once(kernel, box, pad):
+    out_box = conv7.out_shape(box, pad)
+    for n in (1, 3, 8, 16):
+        for resident in RESIDENT[kernel]:
+            plan = _plan(kernel, n, out_box, resident, pad)
+            assert plan.grid <= resident and plan.grid <= plan.tiles
+            walked = [t for b in range(plan.grid) for t in conv7.block_tiles(plan, b)]
+            assert sorted(walked) == list(range(plan.tiles))  # each tile by one block, once
+            extents = [conv7.tile_extent(plan, t) for t in walked]
+            assert len(set(extents)) == len(extents)
+            # the tiles are the product of the group, the sample and three
+            # partitions of the box's axes
+            for axis in range(3):
+                _axis_partition([e[2 + axis] for e in extents], out_box[axis])
+            zr, yr, xr = (sorted({e[2 + a] for e in extents}) for a in range(3))
+            assert len(extents) == n * len(zr) * len(yr) * len(xr)
+            assert {e[0] for e in extents} == {0}
+            assert {e[1] for e in extents} == set(range(n))
+    # and voxel by voxel where the box is small, for every chunk of channels
+    if math.prod(out_box) <= 70 ** 3:
+        c = 160 if kernel == "spread" else 32
+        plan = _plan(kernel, 3, out_box, RESIDENT[kernel][1], pad, c)
+        seen = np.zeros((plan.chunks, 3, *out_box), np.int32)
+        for b in range(plan.grid):
+            for t in conv7.block_tiles(plan, b):
+                g, s, (z0, z1), (y0, y1), (x0, x1) = conv7.tile_extent(plan, t)
+                seen[g, s, z0:z1, y0:y1, x0:x1] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("c", [1, 32, 40, 64, 65, 96, 128, 200])
+def test_spread_grid_walks_each_channel_chunk_once(c):
+    """A spread tile holds every channel up to 64, else one group of 32,
+    the chunk the slowest index: every (chunk, voxel) once, and a block's
+    walk enters each chunk at most once."""
+    chunks = 1 if c <= 64 else -(-c // 32)
+    for n, out_box in ((3, (10, 9, 33)), (1, (64, 64, 64))):
+        for resident in (396, 7):
+            plan = conv7.spread_plan(n, out_box, resident, c)
+            assert plan.chunks == chunks and plan.tiles == chunks * n * math.prod(plan.counts)
+            seen = {}
+            for b in range(plan.grid):
+                walk = [conv7.tile_extent(plan, t)[0] for t in conv7.block_tiles(plan, b)]
+                assert walk == sorted(walk)  # the weights change only where the chunk does
+                for t in conv7.block_tiles(plan, b):
+                    e = conv7.tile_extent(plan, t)
+                    seen[e] = seen.get(e, 0) + 1
+            assert set(seen.values()) == {1}
+            assert {e[0] for e in seen} == set(range(chunks))
+
+
+def _kernel_constants():
+    """The tiles' constants of csrc/conv7.cu, read from the source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(conv7.__file__).parent / "csrc" / "conv7.cu").read_text()
+    found = {}
+    for name in ("kSX", "kSY", "kSZ", "kGSlots", "kGMaxDepth", "kGroup", "kMaxGroups"):
+        m = re.search(rf"\b{name} = (\d+)", src)
+        found[name] = int(m.group(1))
+    found["kGMaxSegment"] = found["kGSlots"] - 6
+    return found
+
+
+def test_geometry_matches_the_kernels():
+    k = _kernel_constants()
+    assert conv7.SPREAD_TILE == (k["kSZ"], k["kSY"], k["kSX"])
+    assert conv7.SPREAD_STORE_BOX == (k["kGroup"], k["kSX"], k["kSY"], k["kSZ"], 1)
+    assert conv7.GATHER_SLOTS == k["kGSlots"]
+    assert conv7.GATHER_MAX_SEGMENT == k["kGMaxSegment"]
+    assert conv7.GATHER_LOAD_BOX == (k["kGroup"], k["kGSlots"], 1, 1)
+    assert max(conv7.GATHER_DEPTHS) == k["kGMaxDepth"]
+    assert conv7.GROUP == k["kGroup"]
+    assert conv7.SPREAD_HELD == k["kGroup"] * k["kMaxGroups"]
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 16])
+@pytest.mark.parametrize("box", GRID_BOXES, ids=["x".join(map(str, b)) for b in GRID_BOXES])
+def test_gather_tiles_fit_the_kernel(box, n):
+    for pad in (0, 6):
+        out_box = conv7.out_shape(box, pad)
+        plan = conv7.gather_plan(n, out_box, 132, pad)
+        tz, ty, tx = plan.tile
+        assert tz in conv7.GATHER_DEPTHS or tz == out_box[0] < max(conv7.GATHER_DEPTHS)
+        assert 1 <= tx <= conv7.GATHER_MAX_SEGMENT and tx + 6 <= conv7.GATHER_SLOTS
+        assert ty >= -(-out_box[1] // max(conv7.GATHER_ROW_SPLITS))
+
+
+@pytest.mark.parametrize("longest", [conv7.GATHER_MAX_SEGMENT, 16])
+def test_segments_are_the_fewest_balanced(longest):
+    for width in range(1, 700):
+        count, length = conv7.segments(width, longest)
+        assert length <= longest and count * length >= width > (count - 1) * length
+        assert count == -(-width // longest)
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 12, 16, 24, 32, 40, 64])
+@pytest.mark.parametrize("box", [(5, 6, 7), (7, 9, 11), (8, 8, 8)])
+def test_takes_tma_only_where_every_stride_is_16_bytes(c, box):
+    t = torch.zeros((2, c, *box), dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    strides = [t.stride(i) * t.element_size() for i in (0, 2, 3, 4)]
+    aligned = t.data_ptr() % 16 == 0
+    assert conv7.takes_tma(t) == (aligned and all(s % 16 == 0 for s in strides))
+    if aligned:
+        assert conv7.takes_tma(t) == (c % 8 == 0)
+    # not channels_last_3d, or off a 16-byte base: never
+    assert not conv7.takes_tma(t.contiguous())
+    flat = torch.zeros(t.numel() + 8, dtype=torch.bfloat16)
+    off = flat[1:1 + t.numel()].view(2, *box, c).permute(0, 4, 1, 2, 3)
+    assert off.is_contiguous(memory_format=torch.channels_last_3d)
+    assert not conv7.takes_tma(off)
+
+
+def test_one_channel_granules():
+    assert conv7.one_channel_granules(70, 256) and conv7.one_channel_granules(262, 4)
+    assert not conv7.one_channel_granules(71, 256)  # an odd row: voxel by voxel
+    assert not conv7.one_channel_granules(70, 258)  # a base off 4 bytes
+

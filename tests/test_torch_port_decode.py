@@ -143,3 +143,74 @@ def test_batch_norm_cli_decode_is_independent_of_decode_batch(batch_norm_nets, t
         assert one.shape == eight.shape and np.all(np.isfinite(one))
         # atol 1e-5 on the generator's [-1, 1], in the CLI's 0-255 output
         np.testing.assert_allclose(eight, one, rtol=0, atol=1e-5 * 127.5)
+
+
+def _decode_per_patch(volume, generate_fn, patch, stride, blend, batch):
+    """The decode with the window sum made per patch beside the output sum
+    and each weight cast at each call: what sliding_window_inference computes
+    with its kept window sums and casts."""
+    strides = (stride,) * 3
+    padded = [max(v, p) for v, p in zip(volume.shape, patch)]
+    vol = torch.nn.functional.pad(
+        torch.from_numpy(volume).to(generate_fn.dtype),
+        [x for v, p in reversed(list(zip(volume.shape, padded))) for x in (0, p - v)])
+    win_np = port_sw.gaussian_window(patch) if blend == "gaussian" else np.ones(patch, np.float32)
+    win = torch.from_numpy(win_np)
+    acc = torch.zeros(padded)
+    wsum = torch.zeros(padded)
+    starts = port_sw.patch_grid(volume.shape, patch, strides)
+    for i in range(0, len(starts), batch):
+        chunk = starts[i:i + batch]
+        x = torch.stack([vol[a:a + patch[0], b:b + patch[1], c:c + patch[2]]
+                         for a, b, c in chunk])[:, None]
+        with torch.no_grad():
+            out = generate_fn.net(x.to(generate_fn.dtype))[:, 0].float() * win
+        for (a, b, c), o in zip(chunk, out):
+            acc[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += o
+            wsum[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += win
+    out = acc / wsum.clamp_min(1e-8)
+    return out[:volume.shape[0], :volume.shape[1], :volume.shape[2]].numpy()
+
+
+@pytest.mark.parametrize("blend", ["gaussian", "uniform"])
+def test_kept_window_sums_give_the_per_patch_bits(nets, blend):
+    port_fn = nets[3]
+    shape, patch = (36, 20, 18), (16, 16, 16)
+    vol = np.random.RandomState(5).uniform(-1, 1, shape).astype(np.float32)
+    want = _decode_per_patch(vol, port_fn, patch, 8, blend, 4)
+    for _ in range(2):  # the second call reads the kept sums
+        got = port_sw.sliding_window_inference(vol, port_fn, patch, 8, 8, blend, 4)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_window_sums_are_made_once_a_geometry():
+    key = ((40, 24, 16), (16, 16, 16), (8, 8, 8), "gaussian", torch.device("cpu"))
+    win, wsum = port_sw._blend_weights(*key)
+    assert port_sw._blend_weights(*key)[1] is wsum
+    want = torch.zeros(key[0])
+    for a, b, c in port_sw.patch_grid(key[0], key[1], key[2]):
+        want[a:a + 16, b:b + 16, c:c + 16] += win
+    torch.testing.assert_close(wsum, want.clamp_min(1e-8), rtol=0, atol=0)
+    assert port_sw._blend_weights(key[0], key[1], key[2], "uniform", key[4])[1] is not wsum
+
+
+def test_inference_keeps_a_weight_cast_until_the_weight_changes():
+    from mra_gan_tpu_torch.ops.conv import _cast
+
+    w = torch.nn.Parameter(torch.randn(4, 3, 3, 3, 3))
+    with torch.inference_mode():
+        first = _cast(w, torch.bfloat16)
+        assert _cast(w, torch.bfloat16) is first
+        assert _cast(w, torch.float32) is w and _cast(None, torch.bfloat16) is None
+    with torch.no_grad():
+        w.mul_(2)  # an optimizer's or a loader's in-place update
+    with torch.inference_mode():
+        again = _cast(w, torch.bfloat16)
+    assert again is not first
+    torch.testing.assert_close(again, (w.detach() * 1).bfloat16(), rtol=0, atol=0)
+    # with gradients recorded every call casts afresh, so autograd sees the cast
+    y = _cast(w, torch.bfloat16)
+    assert y.requires_grad and y is not _cast(w, torch.bfloat16)
+    plain = torch.randn(3, 3)
+    with torch.inference_mode():
+        assert _cast(plain, torch.bfloat16) is not _cast(plain, torch.bfloat16)
