@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (mra_gan_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --conv7   # phase 1 and the conv7 parts of phases 2-3 alone
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -33,9 +34,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bit-equal; and the two weight-gradient
    kernels (conv7_wgrad_spread for the stem, conv7_wgrad_gather for the
    head, each a first pass of partial sums and the conv7_wgrad_reduce pass)
-   at N = 16, 8, 2, 1 and at phase 14's shard boxes (CONV7_SHARD_BOXES)
-   against float32 conv3d_weight at the same bar, each twice and bit-equal,
-   and the reduce alone on each case's partials;
+   at N = 16, 8, 2, 1, at phase 14's shard boxes (CONV7_SHARD_BOXES) and at
+   CONV7_EXTRA's odd box and C = 4, 40, 96 and 128 against float32
+   conv3d_weight at the same bar, each twice and bit-equal, and the reduce
+   alone on each case's partials;
 3. cuDNN conv3d / conv_transpose3d at the generator's shapes, NCDHW against
    channels_last_3d; and each conv7 role, the weight gradients included, at
    the cells' batch sizes (16, 8) timed beside cuDNN's heuristic pick in
@@ -270,12 +272,13 @@ CONV7_ROLES = (
     ("stem input grad", "conv7_gather", 6, 64, (8, 1)),
 )
 CONV7_TIMED = (16, 8)  # phase 3 times each role at the cells' batch sizes
-# phase 2's further cases for both kernels at both pads: (what, N, C, input
-# box): an odd unequal box (2 W is no multiple of 16: the one-channel field
-# goes voxel by voxel), C = 4 (no tensor map: the threads' loader and
-# stores), C = 40 (a partial second channel group), C = 96 and 128 (three
-# and four groups: the spread's walk changes weights between groups, the
-# gather runs each row once a group) and phase 14's shard boxes
+# phase 2's further cases for both kernels at both pads and for both weight
+# gradients: (what, N, C, input box): an odd unequal box (2 W is no multiple
+# of 16, W odd: the one-channel field goes voxel by voxel), C = 4 (no
+# tensor map: the threads' loader and stores), C = 40 (a partial second
+# channel group), C = 96 and 128 (three and four groups: the spread's walk
+# changes weights between groups, the gather runs each row once a group, a
+# weight gradient runs a grid a group) and phase 14's shard boxes
 CONV7_EXTRA = (("odd box", 2, NGF, (75, 69, 71)), ("C=4", 2, 4, (40, 38, 42)),
                ("C=40", 2, 40, (40, 38, 42)), ("C=96", 2, 96, (40, 38, 42)),
                ("C=128", 2, 128, (40, 38, 42)))
@@ -883,15 +886,16 @@ def phase_conv7_kernels(results: dict) -> None:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
-def conv7_wgrad_case(kernel: str, n: int, box, gen):
-    """A weight gradient's bf16 inputs on the card, laid out as the step
-    gives them: (field, one) = (g in channels_last_3d, a) for the stem,
-    (x in channels_last_3d, g) for the head; the C-channel one at O(1)."""
+def conv7_wgrad_case(kernel: str, n: int, box, gen, c: int = NGF):
+    """A weight gradient's bf16 inputs on the card for the input box
+    ``box``, laid out as the step gives them: (field, one) = (g in
+    channels_last_3d, a) for the stem, (x in channels_last_3d, g) for the
+    head; the C-channel one (c channels) at O(1)."""
     import torch
 
     out = tuple(s - 6 for s in box)
     c_box, one_box = (out, box) if kernel == "conv7_wgrad_spread" else (box, out)
-    field = torch.randn((n, NGF, *c_box), generator=gen, device=DEVICE).bfloat16()
+    field = torch.randn((n, c, *c_box), generator=gen, device=DEVICE).bfloat16()
     one = torch.randn((n, 1, *one_box), generator=gen, device=DEVICE).bfloat16()
     return field.contiguous(memory_format=torch.channels_last_3d), one
 
@@ -903,13 +907,28 @@ def conv7_wgrad_call(C7, kernel: str, field, one):
     return (lambda: C7.conv7_wgrad_gather(field, one)), (field, one)
 
 
+def conv7_wgrad_cases():
+    """Phase 2's weight-gradient cases: (role, kernel, N, C, input box),
+    each role at every batch size of CONV7_WGRAD_ROLES (the 70^3 input
+    box), at CONV7_SHARD_BOXES and at CONV7_EXTRA (the odd box: the
+    one-channel field voxel by voxel; C = 4: no tensor map; C = 40: a
+    partial second group; C = 96 and 128: a grid a group)."""
+    for role, kernel, batches in CONV7_WGRAD_ROLES:
+        for n in batches:
+            yield role, kernel, n, NGF, (70, 70, 70)
+        for n, box in CONV7_SHARD_BOXES:
+            yield f"{role}, shard box", kernel, n, NGF, box
+        for what, n, c, box in CONV7_EXTRA:
+            yield f"{role}, {what}", kernel, n, c, box
+
+
 def phase_conv7_wgrad_kernels(results: dict) -> None:
     """Phase 2's weight-gradient part: both kernels (first pass and reduce,
-    through their wrappers) at every batch size of CONV7_WGRAD_ROLES and at
-    CONV7_SHARD_BOXES against float32 torch.nn.grad.conv3d_weight of the
-    same bf16 inputs on the card with TF32 off, phase_conv7_kernels' bar;
-    and the reduce alone on each case's partials against its plain version
-    (the partials summed in float32 by torch). Each case twice: bit-equal."""
+    through their wrappers) at every case of conv7_wgrad_cases against
+    float32 torch.nn.grad.conv3d_weight of the same bf16 inputs on the card
+    with TF32 off, phase_conv7_kernels' bar; and the reduce alone on each
+    case's partials against its plain version (the partials summed in
+    float32 by torch). Each case twice: bit-equal."""
     import torch
 
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
@@ -918,44 +937,42 @@ def phase_conv7_wgrad_kernels(results: dict) -> None:
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for role, kernel, batches in CONV7_WGRAD_ROLES:
-            cases = [(n, (70, 70, 70)) for n in batches] + list(CONV7_SHARD_BOXES)
-            for n, box in cases:
-                field, one = conv7_wgrad_case(kernel, n, box, gen)
-                fn, args = conv7_wgrad_call(C7, kernel, field, one)
-                dw, again = fn(), fn()
-                torch.cuda.synchronize()
-                ref = getattr(C7, f"{kernel}_plain")(*(t.float() for t in args))
-                check(tuple(dw.shape) == (NGF, 7, 7, 7) and dw.dtype == torch.bfloat16,
-                      f"{kernel} n={n} {box}: {tuple(dw.shape)} {dw.dtype}")
-                check(torch.equal(dw, again), f"{kernel} n={n} {box}: two runs differ")
-                err = (dw.float() - ref).abs()
-                scale = float(ref.abs().max())
-                worst = float((err - 2 ** -8 * ref.abs()).max()) / scale
-                row = {"role": role, "n": n, "shape": list(field.shape), "box": list(box),
-                       "max_abs_err": float(err.max()), "out_scale": scale,
-                       "over_half_ulp_rel": worst}
-                results[kernel]["shapes"].append(row)
-                # the reduce alone, on this case's partials
-                head = kernel == "conv7_wgrad_gather"
-                part = C7.conv7_wgrad_partials(kernel, field, one)
-                red = C7.conv7_wgrad_reduce(part, NGF, head)
-                red_ref = C7.conv7_wgrad_reduce_plain(part, NGF, head)
-                sums = part.sum(0)[:NGF, :, :7].reshape(NGF, 7, 7, 7)
-                sums = sums.flip(1, 2, 3) if head else sums
-                r_err = (red.float() - sums).abs()
-                r_worst = float((r_err - 2 ** -8 * sums.abs()).max()) / float(sums.abs().max())
-                results["conv7_wgrad_reduce"]["shapes"].append({
-                    "role": role, "n": n, "box": list(box), "blocks": part.shape[0],
-                    "max_abs_err": float((red.float() - red_ref.float()).abs().max()),
-                    "over_half_ulp_rel": r_worst})
-                print(f"[conv7] {role:16s} {kernel} n={n:2d} box {box}: max err "
-                      f"{float(err.max()):.3g} at scale {scale:.3g}; beyond half an ulp "
-                      f"{worst:.3g} of the scale (bar 2^-12); bit-equal twice; reduce over "
-                      f"{part.shape[0]} blocks beyond half an ulp {r_worst:.3g}", flush=True)
-                check(worst <= 2 ** -12, f"{kernel} n={n} {box}: {worst} > 2^-12")
-                check(r_worst <= 2 ** -12, f"conv7_wgrad_reduce n={n} {box}: {r_worst} > 2^-12")
-                del field, one, dw, again, ref, err, part
+        for role, kernel, n, c, box in conv7_wgrad_cases():
+            field, one = conv7_wgrad_case(kernel, n, box, gen, c)
+            fn, args = conv7_wgrad_call(C7, kernel, field, one)
+            dw, again = fn(), fn()
+            torch.cuda.synchronize()
+            ref = getattr(C7, f"{kernel}_plain")(*(t.float() for t in args))
+            check(tuple(dw.shape) == (c, 7, 7, 7) and dw.dtype == torch.bfloat16,
+                  f"{kernel} n={n} {box}: {tuple(dw.shape)} {dw.dtype}")
+            check(torch.equal(dw, again), f"{kernel} n={n} c={c} {box}: two runs differ")
+            err = (dw.float() - ref).abs()
+            scale = float(ref.abs().max())
+            worst = float((err - 2 ** -8 * ref.abs()).max()) / scale
+            row = {"role": role, "n": n, "c": c, "shape": list(field.shape), "box": list(box),
+                   "max_abs_err": float(err.max()), "out_scale": scale,
+                   "over_half_ulp_rel": worst}
+            results[kernel]["shapes"].append(row)
+            # the reduce alone, on this case's partials
+            head = kernel == "conv7_wgrad_gather"
+            part = C7.conv7_wgrad_partials(kernel, field, one)
+            red = C7.conv7_wgrad_reduce(part, c, head)
+            red_ref = C7.conv7_wgrad_reduce_plain(part, c, head)
+            sums = part.sum(0)[:c, :, :7].reshape(c, 7, 7, 7)
+            sums = sums.flip(1, 2, 3) if head else sums
+            r_err = (red.float() - sums).abs()
+            r_worst = float((r_err - 2 ** -8 * sums.abs()).max()) / float(sums.abs().max())
+            results["conv7_wgrad_reduce"]["shapes"].append({
+                "role": role, "n": n, "c": c, "box": list(box), "partials": part.shape[0],
+                "max_abs_err": float((red.float() - red_ref.float()).abs().max()),
+                "over_half_ulp_rel": r_worst})
+            print(f"[conv7] {role:16s} {kernel} n={n:2d} c={c} box {box}: max err "
+                  f"{float(err.max()):.3g} at scale {scale:.3g}; beyond half an ulp "
+                  f"{worst:.3g} of the scale (bar 2^-12); bit-equal twice; reduce over "
+                  f"{part.shape[0]} partials beyond half an ulp {r_worst:.3g}", flush=True)
+            check(worst <= 2 ** -12, f"{kernel} n={n} c={c} {box}: {worst} > 2^-12")
+            check(r_worst <= 2 ** -12, f"conv7_wgrad_reduce n={n} c={c} {box}: {r_worst} > 2^-12")
+            del field, one, dw, again, ref, err, part
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -1071,7 +1088,7 @@ def phase_conv7_wgrad_times(bw: float, flops: float, tc: float, results: dict) -
                 flop = 2 * 343 * NGF * n * 64 ** 3
                 nbytes = 2 * (field.numel() + one.numel() + NGF * 343)
                 r_bytes = 4 * part.numel() + 2 * NGF * 343
-                row.update(flop=flop, bytes=nbytes, blocks=part.shape[0],
+                row.update(flop=flop, bytes=nbytes, partials=part.shape[0],
                            bound_ms=max(flop / tc, nbytes / bw) * 1e3,
                            bound_by="operations" if flop / tc >= nbytes / bw else "bytes",
                            tflops=flop / row["ms"] / 1e9,
@@ -1081,7 +1098,7 @@ def phase_conv7_wgrad_times(bw: float, flops: float, tc: float, results: dict) -
                 results[kernel].setdefault("times", []).append(row)
                 print(f"[conv7] {role:16s} n={n:2d} kernel {row['ms']:.4f} ms "
                       f"({row['tflops']:.1f} TFLOP/s; its reduce {row['reduce_ms']:.4f} over "
-                      f"{row['blocks']} blocks, torch.sum {row['reduce_library_ms']:.4f}); "
+                      f"{row['partials']} partials, torch.sum {row['reduce_library_ms']:.4f}); "
                       f"cuDNN heuristic {row['cudnn_ms']:.4f} ({row['cudnn_tflops']:.2f} "
                       f"TFLOP/s), searched {row['cudnn_benchmark_ms']:.4f}; plain f32 "
                       f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} ms "
@@ -4006,7 +4023,7 @@ def conv7_line(results: dict, train: dict, decode: dict) -> list:
                 ms=head["reduce_ms"], plain_ms=head["reduce_plain_ms"],
                 bound_ms=head["reduce_bound_ms"],
                 bound_by="bytes", library_ms=None, sum_only_ms=head["reduce_library_ms"],
-                roles=[{"role": t["role"], "n": t["n"], "blocks": t["blocks"],
+                roles=[{"role": t["role"], "n": t["n"], "partials": t["partials"],
                         "ms": t["reduce_ms"], "sum_only_ms": t["reduce_library_ms"],
                         "bound_ms": t["reduce_bound_ms"]}
                        for k in ("conv7_wgrad_spread", "conv7_wgrad_gather")
@@ -4029,6 +4046,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--json-out", default="",
                     help="also write the full report, every shape's numbers included, here")
+    ap.add_argument("--conv7", action="store_true",
+                    help="phase 1, then only the conv7 parts of phases 2 and 3 (every kernel "
+                         "against its plain version, the times); prints their rows and no "
+                         "result line")
     ap.add_argument("--single-pass-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -4088,6 +4109,18 @@ def main(argv=None) -> int:
                                                   "conv7_wgrad_spread", "conv7_wgrad_gather",
                                                   "conv7_wgrad_reduce")}
 
+    if args.conv7:
+        phase_conv7_kernels(conv7_results)
+        phase_conv7_wgrad_kernels(conv7_results)
+        conv7_rows = phase_conv7_times(bw, tc, conv7_results)
+        conv7_rows += phase_conv7_wgrad_times(bw, flops, tc, conv7_results)
+        if args.json_out:
+            Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json_out).write_text(json.dumps(
+                {"gpu": card, "conv7": conv7_rows, "shapes": conv7_results}, indent=1))
+        print(json.dumps({"conv7": conv7_rows}))
+        print(gpu_line())
+        return 0
     phase_kernels(K, bw, flops, results)
     phase_train_kernels(K, bw, flops, results)
     phase_conv7_kernels(conv7_results)

@@ -12,11 +12,11 @@ from __future__ import annotations
 
 import functools
 import threading
+from concurrent import futures
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..models.networks import BatchNorm3d
 
@@ -82,7 +82,11 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
     ``input_transfer_dtype`` is the upload's, by default the generator's
     compute dtype, which is exact: the generator's first op casts to it
     anyway. ``transfer_dtype`` is the download's: float32 is exact, float16
-    rounds the [-1, 1] result to about 5e-4."""
+    rounds the [-1, 1] result to about 5e-4.
+
+    Both transfers go in slabs along X (``transfer_marks``): a batch waits
+    only for the planes its patches read, and the planes no later patch
+    reaches are divided and sent back while the device works on the rest."""
     if blend not in ("gaussian", "uniform"):
         raise ValueError(f"unknown blend {blend!r}")
     patch = tuple(int(p) for p in patch_size)
@@ -91,34 +95,154 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
     vshape = volume.shape
     padded = tuple(max(v, p) for v, p in zip(vshape, patch))
     in_dtype = generate_fn.dtype if input_transfer_dtype is None else input_transfer_dtype
-    host_out, faulted = None, None
-    if dev.type == "cuda":
-        # a thread touches the result's fresh host pages while the device
-        # works; left to the download, their faults would follow the last kernel
-        host_out = torch.empty(vshape, dtype=transfer_dtype)
-        faulted = threading.Thread(target=_touch, args=(host_out,))
-        faulted.start()
-    vol = _upload(volume, in_dtype, dev)
-    vol = F.pad(vol, [x for v, p in reversed(list(zip(vshape, padded))) for x in (0, p - v)])
-
-    win, wsum = _blend_weights(padded, patch, strides, blend, dev)
-    acc = torch.zeros(padded, dtype=torch.float32, device=dev)
     starts = patch_grid(vshape, patch, strides)
     batch = per_call(generate_fn, batch)
-    for i in range(0, len(starts), batch):
-        chunk = starts[i:i + batch]
-        x = torch.stack([vol[a:a + patch[0], b:b + patch[1], c:c + patch[2]]
-                         for a, b, c in chunk])[:, None]
-        out = generate_fn(x)[:, 0].float() * win
-        for (a, b, c), o in zip(chunk, out):
-            acc[a:a + patch[0], b:b + patch[1], c:c + patch[2]].add_(o)
-    out = acc / wsum
-    out = out[:vshape[0], :vshape[1], :vshape[2]].to(transfer_dtype)
-    if host_out is None:
-        return out.cpu().numpy().astype(np.float32, copy=False)
-    faulted.join()
-    host_out.copy_(out)
-    return host_out.numpy().astype(np.float32, copy=False)
+    batches = [starts[i:i + batch] for i in range(0, len(starts), batch)]
+    win, wsum = _blend_weights(padded, patch, strides, blend, dev)
+    io = _Transfers(volume, padded, in_dtype, transfer_dtype, dev)
+    try:
+        acc = torch.zeros(padded, dtype=torch.float32, device=dev)
+        for chunk, (need, final) in zip(batches, transfer_marks(batches, patch[0], vshape[0])):
+            vol = io.upload_to(need)
+            x = torch.stack([vol[a:a + patch[0], b:b + patch[1], c:c + patch[2]]
+                             for a, b, c in chunk])[:, None]
+            out = generate_fn(x)[:, 0].float() * win
+            for (a, b, c), o in zip(chunk, out):
+                acc[a:a + patch[0], b:b + patch[1], c:c + patch[2]].add_(o)
+            io.download_to(final, acc, wsum)
+    finally:
+        io.finish()
+    return io.host_out.numpy().astype(np.float32, copy=False)
+
+
+def transfer_marks(batches: Sequence[Sequence[tuple]], patch_x: int, size_x: int) -> list:
+    """For each batch of patch starts, in order: (need, final). ``need`` is
+    the X planes of the volume that must be on the device before the batch
+    runs (every plane its patches read, and all those of earlier batches);
+    ``final`` is the planes whose sums are whole once it has run (those
+    below every later patch's start). Both rise to ``size_x``, ``final``
+    reaching it at the last batch."""
+    later = size_x
+    finals = []
+    for chunk in reversed(batches):
+        finals.append(min(later, size_x))
+        later = min([later] + [a for a, _, _ in chunk])
+    marks, need = [], 0
+    for chunk, final in zip(batches, reversed(finals)):
+        need = max([need] + [min(a + patch_x, size_x) for a, _, _ in chunk])
+        marks.append((need, final))
+    return marks
+
+
+class _Transfers:
+    """The volume's slabs up to the device and the result's back. On a card
+    the upload is cast on the host into a pinned buffer and copied on a
+    stream of its own, which the compute stream waits for; each finished
+    slab of the sum is divided in place, copied into a pinned buffer on
+    the copy stream, and moved into the result's host pages by a worker
+    thread, which first touches those fresh pages. On the CPU each slab is
+    cast or divided in place. The pinned buffers are kept for the calling
+    thread: the upload's is rewritten only once its last copy has ended,
+    the download's once the last call's worker jobs have, which ``finish``
+    waits for."""
+
+    def __init__(self, volume: np.ndarray, padded: tuple, in_dtype: torch.dtype,
+                 out_dtype: torch.dtype, dev: torch.device):
+        self.host = torch.from_numpy(np.ascontiguousarray(volume, np.float32))
+        self.shape, self.out_dtype = tuple(self.host.shape), out_dtype
+        make = torch.empty if self.shape == padded else torch.zeros
+        self.vol = make(padded, dtype=in_dtype, device=dev)
+        self.host_out = torch.empty(self.shape, dtype=out_dtype)
+        self.uploaded = self.downloaded = 0
+        self.cuda = dev.type == "cuda"
+        self.jobs = []
+        if self.cuda:
+            self.compute = torch.cuda.current_stream(dev)
+            self.copy = _copy_stream(dev)
+            self.stage = _pinned("up", self.shape, in_dtype)
+            self.out_stage = _pinned("down", self.shape, out_dtype)[0]
+            self.copy.wait_stream(self.compute)  # the blocks it writes are free
+
+    def upload_to(self, need: int) -> torch.Tensor:
+        x0, x1 = self.uploaded, need
+        if x1 > x0:
+            y, z = self.shape[1:]
+            if not self.cuda:
+                self.vol[x0:x1, :y, :z].copy_(self.host[x0:x1])
+            else:
+                stage, ended = self.stage
+                if x0 == 0:
+                    ended.synchronize()
+                stage[x0:x1].copy_(self.host[x0:x1])
+                with torch.cuda.stream(self.copy):
+                    self.vol[x0:x1, :y, :z].copy_(stage[x0:x1], non_blocking=True)
+                    ended.record(self.copy)
+                self.compute.wait_stream(self.copy)
+                if x0 == 0:
+                    self.jobs.append(_worker().submit(_touch, self.host_out))
+            self.uploaded = x1
+        return self.vol
+
+    def download_to(self, final: int, acc: torch.Tensor, wsum: torch.Tensor) -> None:
+        x0, x1 = self.downloaded, final
+        if x1 <= x0:
+            return
+        y, z = self.shape[1:]
+        # no later patch adds to these planes, so they are divided in place
+        part = acc[x0:x1].div_(wsum[x0:x1])[:, :y, :z].to(self.out_dtype)
+        if not self.cuda:
+            self.host_out[x0:x1].copy_(part)
+        else:
+            stage = self.out_stage
+            self.copy.wait_stream(self.compute)
+            part.record_stream(self.copy)  # a cast's block waits for the copy
+            with torch.cuda.stream(self.copy):
+                stage[x0:x1].copy_(part, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.copy)
+            self.jobs.append(_worker().submit(_drain, done, self.host_out[x0:x1], stage[x0:x1]))
+        self.downloaded = x1
+
+    def finish(self) -> None:
+        # every job ends, even where the decode raised; then the first error
+        futures.wait(self.jobs)
+        for job in self.jobs:
+            job.result()
+
+
+def _touch(t: torch.Tensor) -> None:
+    with torch.inference_mode():
+        t.zero_()
+
+
+def _drain(done: torch.cuda.Event, dst: torch.Tensor, src: torch.Tensor) -> None:
+    done.synchronize()
+    with torch.inference_mode():
+        dst.copy_(src)
+
+
+@functools.lru_cache(maxsize=None)
+def _worker() -> futures.ThreadPoolExecutor:
+    return futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="decode-transfers")
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_stream(dev: torch.device) -> "torch.cuda.Stream":
+    return torch.cuda.Stream(dev)
+
+
+_staging = threading.local()
+
+
+def _pinned(role: str, shape: tuple, dtype: torch.dtype):
+    """(a pinned host buffer, the event its last copy records) for the
+    calling thread, remade only where the shape or dtype changes."""
+    held = getattr(_staging, role, None)
+    if held is None or held[0] != (shape, dtype):
+        held = ((shape, dtype), torch.empty(shape, dtype=dtype, pin_memory=True),
+                torch.cuda.Event())
+        setattr(_staging, role, held)
+    return held[1:]
 
 
 @functools.lru_cache(maxsize=4)
@@ -134,31 +258,3 @@ def _blend_weights(padded: tuple, patch: tuple, strides: tuple, blend: str,
         for a, b, c in patch_grid(padded, patch, strides):
             wsum[a:a + patch[0], b:b + patch[1], c:c + patch[2]] += win
         return win, wsum.clamp_min(1e-8)
-
-
-def _touch(t: torch.Tensor) -> None:
-    with torch.inference_mode():
-        t.zero_()
-
-
-_staging = threading.local()
-
-
-def _upload(volume: np.ndarray, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
-    """The volume on ``dev`` as ``dtype``. To a card it is cast into a pinned
-    buffer kept for the calling thread (pages already resident) and copied
-    from there; the buffer is rewritten only once its last copy has ended."""
-    host = torch.from_numpy(np.ascontiguousarray(volume, np.float32))
-    if dev.type != "cuda":
-        return host.to(dtype).to(dev)
-    key = (tuple(host.shape), dtype, dev)
-    held = getattr(_staging, "held", None)
-    if held is None or held[0] != key:
-        held = (key, torch.empty(host.shape, dtype=dtype, pin_memory=True), torch.cuda.Event())
-        _staging.held = held
-    _, stage, copied = held
-    copied.synchronize()
-    stage.copy_(host)
-    vol = stage.to(dev, non_blocking=True)
-    copied.record(torch.cuda.current_stream(dev))
-    return vol

@@ -66,8 +66,11 @@ class _ConvBase(nn.Module):
         self.dead_bias = dead_bias
 
     def live_bias(self) -> Optional[torch.Tensor]:
-        """The bias as the forward adds it: detached where it is norm-dead."""
-        if self.bias is None or not self.dead_bias:
+        """The bias as the forward adds it: detached where it is norm-dead
+        and a gradient is recorded. Where none is (inference), the parameter
+        itself, whose cast ``ops.conv`` keeps: a fresh detached view would
+        be cast again at every call."""
+        if self.bias is None or not self.dead_bias or not torch.is_grad_enabled():
             return self.bias
         return self.bias.detach()
 

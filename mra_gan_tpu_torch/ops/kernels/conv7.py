@@ -18,8 +18,9 @@ XLA, mra_gan_tpu/ops/conv.py:35). The kernels' design is described in
   -> dw (C, 7, 7, 7): dw[c, k] = sum_n sum_v x[n, c, v + k] * g[n, v], the
   head's weight gradient
 - ``conv7_wgrad_reduce``  the second pass of both weight gradients: the
-  first pass's per-block partial sums (blocks, 32 * groups, 49, 8) float32
-  -> (C, 7, 7, 7), summed in block order, flipped for the head, rounded once
+  first pass's partial sums (WGRAD_PARTS a block: (partials, 32 * groups,
+  49, 8) float32) -> (C, 7, 7, 7), summed in order, flipped for the head,
+  rounded once
 
 with D' = D + 2 pad - 6 (H', W' alike) and input voxels outside the box read
 as zero. pad 0 is a forward conv; pad 6 with w flipped on its three axes is
@@ -42,11 +43,14 @@ and for the spread which channel group, a tile holds, and which tiles a
 block walks), ``segments`` (a row cut into balanced segments),
 ``takes_tma`` (whether a C-channel field goes through a tensor map: every
 stride a multiple of 16 bytes) and ``one_channel_granules`` (whether the
-one-channel field is copied in 4-byte granules). Both take any C: a spread
+one-channel field is read in 4-byte granules). Both take any C: a spread
 tile holds every channel where C <= 64 and one group of 32 above (its
 chunk of channels), and a gather tile sums every channel.
 ``python -m mra_gan_tpu_torch.conv7_sweep`` times the gather's tilings on
-the card against ``gather_plan``'s pick.
+the card against ``gather_plan``'s pick. The weight gradients' first pass
+runs a fixed grid too: ``wgrad_plan`` (its tiles, a grid a channel group),
+``wgrad_walk`` (the tiles a block of a group walks) and ``wgrad_smem``
+(what a tile and its halo take of shared memory).
 """
 from __future__ import annotations
 
@@ -66,7 +70,7 @@ LAUNCHES = {"conv7_spread": 0, "conv7_gather": 0, "conv7_wgrad_spread": 0,
 # channels_last_3d before its input- and weight-gradient kernels
 GRAD_RELAYOUTS = {"count": 0}
 # a weight gradient's partial sums: per channel, (kz, ky) rows x kx (the 8th
-# column is the mma tile's spare), in groups of 32 channels
+# column is the wgmma tile's dead kx = 7 row), in groups of 32 channels
 WGRAD_ROWS, WGRAD_COLS, GROUP = 49, 8, 32
 
 
@@ -90,6 +94,16 @@ GATHER_ROW_SPLITS = (1, 2, 3, 4)
 # fitted to conv7_sweep's timings of every depth and split on an H100 80GB
 # HBM3 (PERF.md)
 GATHER_LOAD_COST = 0.6
+# The weight gradients' first pass: tiles of WGRAD_TILE_DEPTH planes x
+# WGRAD_TILE_ROWS rows x a row segment (even, at most WGRAD_MAX_SEGMENT
+# voxels) of the C-channel field's box, a group of 32 channels each, in a
+# ring of WGRAD_STAGES stages beside the one-channel halo as pair words; each
+# block writes WGRAD_PARTS partial sums (one per consumer warpgroup).
+WGRAD_TILE_DEPTH, WGRAD_TILE_ROWS = 8, 2
+WGRAD_MAX_SEGMENT = 72
+WGRAD_PARTS = 2
+WGRAD_STAGES = 2
+SMEM_LIMIT = 232448  # a block's shared memory on sm_90
 
 
 def reset_launches() -> None:
@@ -184,6 +198,48 @@ def gather_plan(n: int, out_box: Tuple[int, int, int], resident: int, pad: int =
     return best[1]
 
 
+def _cdiv16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def wgrad_smem(segment: int) -> int:
+    """Shared memory a weight-gradient block needs for row segments of
+    ``segment`` voxels (csrc/conv7.cu sizes it once, for WGRAD_MAX_SEGMENT):
+    1 KB of alignment, per stage the field tile (planes of whole k-steps of
+    16 voxels, 64 bytes a voxel) and the halo's pair words (4 bytes, the
+    tile's planes and rows each grown by 6, the segment by 8), the k-step
+    table (a word a voxel pair) and the ring's mbarriers."""
+    slots = _cdiv16(WGRAD_TILE_ROWS * segment)
+    field = WGRAD_TILE_DEPTH * slots * 2 * GROUP
+    halo = (WGRAD_TILE_DEPTH + 6) * (WGRAD_TILE_ROWS + 6) * (segment + 8) * 4
+    return 1024 + WGRAD_STAGES * (field + halo) + slots // 2 * 4 + 2 * WGRAD_STAGES * 8
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(n: int, box: Tuple[int, int, int], resident: int, c: int = GROUP) -> Plan:
+    """A weight gradient's first pass over the C-channel field's (n, D, H,
+    W) box: tiles of WGRAD_TILE_DEPTH planes x WGRAD_TILE_ROWS rows x the
+    row cut into the fewest balanced segments of at most WGRAD_MAX_SEGMENT
+    voxels (rounded up to even: a voxel pair never straddles two rows);
+    ``chunks`` the groups of 32 channels, a grid of ``grid`` blocks for each
+    (as many as the card holds for all of them, or as there are tiles of
+    one). Cached: fixed by the box, C and the card, so every sum keeps its
+    order from run to run."""
+    _, xt = segments(box[2], WGRAD_MAX_SEGMENT)
+    tile = (WGRAD_TILE_DEPTH, WGRAD_TILE_ROWS, xt + xt % 2)
+    groups = -(-c // GROUP)
+    counts = tuple(-(-b // t) for b, t in zip(box, tile))
+    per_group = n * math.prod(counts)
+    return Plan(n, tuple(box), tile, counts, max(1, min(per_group, resident // groups)), groups)
+
+
+def wgrad_walk(plan: Plan, block: int, group: int) -> Iterator[int]:
+    """The tiles (numbered as ``tile_extent`` reads them) that block
+    ``block`` of channel group ``group`` walks, in order."""
+    per_group = plan.tiles // plan.chunks
+    return iter(range(group * per_group + block, (group + 1) * per_group, plan.grid))
+
+
 def tile_extent(plan: Plan, t: int):
     """Tile t's chunk of channels, its sample and its output ranges [lo,
     hi) on z, y and x."""
@@ -215,10 +271,11 @@ def takes_tma(t: torch.Tensor) -> bool:
 
 
 def one_channel_granules(width: int, ptr: int) -> bool:
-    """Whether the spread copies its one-channel (N, D, H, W) input in 4-byte
-    granules: every row starts on 4 bytes (W even, the base so) and a tile's
-    halo starts on an even x, so a granule lies inside the box or outside it
-    whole. Otherwise its threads load it voxel by voxel."""
+    """Whether the spread and the weight gradients read their one-channel
+    (N, D, H, W) field in 4-byte granules: every row starts on 4 bytes (W
+    even, the base so) and a tile's halo starts on an even x, so a granule
+    lies inside the box or outside it whole. Otherwise their threads load it
+    voxel by voxel."""
     return width % 2 == 0 and ptr % 4 == 0
 
 
@@ -257,7 +314,7 @@ def conv7_wgrad_gather_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def conv7_wgrad_reduce_plain(partial: torch.Tensor, c: int, flip: bool) -> torch.Tensor:
-    """The partials summed over the blocks in float32, cut to (C, 7, 7, 7),
+    """The partials summed in float32, cut to (C, 7, 7, 7),
     flipped on the three axes for the head, rounded once to bfloat16."""
     dw = partial.float().sum(0)[:c, :, :7].reshape(c, *TAPS)
     return (dw.flip(1, 2, 3) if flip else dw).bfloat16()
@@ -278,10 +335,9 @@ def _lib() -> ctypes.CDLL:
     lib.mra_conv7_resident.argtypes = [i32, i32]
     for fn in (lib.mra_conv7_spread, lib.mra_conv7_gather, lib.mra_conv7_resident):
         fn.restype = ctypes.c_int
-    lib.mra_conv7_wgrad_blocks.argtypes = [i32] * 5
-    lib.mra_conv7_wgrad.argtypes = [i32, p, p, p] + [i32] * 7 + [p]
+    lib.mra_conv7_wgrad.argtypes = [i32, p, p, p] + [i32] * 12 + [p]
     lib.mra_conv7_wgrad_reduce.argtypes = [p, p, i32, i32, i32, p]
-    for fn in (lib.mra_conv7_wgrad_blocks, lib.mra_conv7_wgrad, lib.mra_conv7_wgrad_reduce):
+    for fn in (lib.mra_conv7_wgrad, lib.mra_conv7_wgrad_reduce):
         fn.restype = ctypes.c_int
     lib.mra_conv7_error_string.argtypes = [ctypes.c_int]
     lib.mra_conv7_error_string.restype = ctypes.c_char_p
@@ -345,10 +401,10 @@ def _stream(t: torch.Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(gather: int, c: int, device: int) -> int:
-    """Blocks of the spread (gather 0) or gather kernel the card holds at
-    once for c channels, asked once."""
-    blocks = _lib().mra_conv7_resident(gather, c)
+def _resident(kind: int, c: int, device: int) -> int:
+    """Blocks of the spread (kind 0), the gather (1) or a weight gradient's
+    first pass (2) the card holds at once for c channels, asked once."""
+    blocks = _lib().mra_conv7_resident(kind, c)
     if blocks <= 0:
         _raise_on(-blocks, "conv7_resident")
     return blocks
@@ -435,31 +491,22 @@ def check_wgrad_tensors(field: torch.Tensor, one: torch.Tensor, grow: int, what:
         raise ValueError(f"{what}: input box smaller than 7^3")
 
 
-@functools.lru_cache(maxsize=None)
-def _wgrad_blocks(head: int, n: int, d: int, h: int, w: int, device: int) -> int:
-    """The first pass's grid for a box on a card (fixed, so the sums keep
-    their order), asked once."""
-    blocks = _lib().mra_conv7_wgrad_blocks(head, n, d, h, w)
-    if blocks <= 0:
-        _raise_on(-blocks, "conv7_wgrad_blocks")
-    return blocks
-
-
 def conv7_wgrad_partials(what: str, field: torch.Tensor, one: torch.Tensor) -> torch.Tensor:
     """The first pass of a weight gradient (``what``: "conv7_wgrad_spread"
     with field = g and one = a, or "conv7_wgrad_gather" with field = x and
-    one = g): the partial sums (blocks, 32 * groups, 49, 8) float32 of a
-    number of blocks fixed by the box and the card."""
+    one = g): the partial sums (WGRAD_PARTS * blocks, 32 * groups, 49, 8)
+    float32 of ``wgrad_plan``'s grid, fixed by the box, C and the card."""
     head = int(what == "conv7_wgrad_gather")
     _check_device(field, what)
     check_wgrad_tensors(field, one, -6 if head else 6, what)
     n, c, d, h, wd = field.shape
-    blocks = _wgrad_blocks(head, n, d, h, wd, field.device.index)
-    partial = torch.empty((blocks, -(-c // GROUP) * GROUP, WGRAD_ROWS, WGRAD_COLS),
+    plan = wgrad_plan(n, (d, h, wd), _resident(2, c, field.device.index), c)
+    partial = torch.empty((WGRAD_PARTS * plan.grid, plan.chunks * GROUP, WGRAD_ROWS, WGRAD_COLS),
                           device=field.device, dtype=torch.float32)
-    vec = int(c % 8 == 0 and field.data_ptr() % 16 == 0)
     err = _lib().mra_conv7_wgrad(head, field.data_ptr(), one.data_ptr(), partial.data_ptr(),
-                                 blocks, n, d, h, wd, c, vec, _stream(field))
+                                 plan.grid, n, d, h, wd, c, int(takes_tma(field)),
+                                 int(one_channel_granules(one.shape[-1], one.data_ptr())),
+                                 plan.tile[2], *plan.counts, _stream(field))
     _raise_on(err, what)
     LAUNCHES[what] += 1
     return partial
@@ -485,14 +532,14 @@ def conv7_wgrad_gather(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def conv7_wgrad_reduce(partial: torch.Tensor, c: int, flip: bool) -> torch.Tensor:
     """(C, 7, 7, 7) bfloat16 from a weight gradient's partial sums
-    (blocks, 32 * groups, 49, 8) float32, contiguous."""
+    (partials, 32 * groups, 49, 8) float32, contiguous."""
     if partial.device.type == "cpu":
         return conv7_wgrad_reduce_plain(partial, c, flip)
     what = "conv7_wgrad_reduce"
     _check_device(partial, what)
     if partial.dtype != torch.float32 or not partial.is_contiguous() or partial.dim() != 4 \
             or tuple(partial.shape[1:]) != (-(-c // GROUP) * GROUP, WGRAD_ROWS, WGRAD_COLS):
-        raise ValueError(f"{what}: expected contiguous float32 partials (blocks, "
+        raise ValueError(f"{what}: expected contiguous float32 partials (partials, "
                          f"{-(-c // GROUP) * GROUP}, {WGRAD_ROWS}, {WGRAD_COLS}), got "
                          f"{partial.dtype} {tuple(partial.shape)}")
     dw = torch.empty((c, *TAPS), device=partial.device, dtype=torch.bfloat16)

@@ -151,30 +151,55 @@
 //   takes F = g (the 64^3 output box), S = a, off 0, and D is dW. The head
 //   takes F = x (the 70^3 input box), S = g, off -6 and D[c, k] = dW[c, 342 -
 //   k] (u = v + k, so dW[c, k] = sum_u x[u, c] g[u - k]; the reduce flips the
-//   taps). Per (kz, ky) this is a GEMM with M = 32 channels (two m-tiles), N
-//   = 8 kx (the 8th is the tile's spare: its column is dropped) and K = the
-//   voxels u: A[c][u] = F[u, c] comes from the field tile with ldmatrix.trans
-//   (16-byte channel chunks, XOR-swizzled as in the gather), and B[u][kx] =
-//   S[u + (kz, ky, kx)] is Hankel along x, so a voxel pair (u, u + 1) and kx
-//   read the pair word P[i] = (S[i], S[i + 1]) of the spread's halo trick: the
-//   two elements of a B fragment in one aligned load, at a compile-time
-//   offset per ky. A tile is 2 z-planes x 4 y-rows x one row segment (at
-//   most 72 voxels, of even length, so no pair straddles two rows), voxels
-//   flattened x fastest into k-steps of 16 (8 pairs: a table gives each
-//   pair's halo word); its S halo (8 x 10 x (segment + 8) words) sits beside
-//   it. Seven warps, one per kz, each hold 7 ky x 2 m-tiles of float32
-//   accumulators (56 a thread) over every tile of the block; three blocks
-//   of 62 KB an SM (-Xptxas -v: 80 registers, a 16-24-byte spill).
-//   Bound: the stem's operations (2 * 343 * C flops per output voxel against
-//   2 C + 2 bytes read); the head's bytes (its 70^3 x C input read once is
-//   the larger). The field tile comes by cp.async with zero-fill (ragged
-//   boxes, sharded depth boxes and C < 32 need no padded copy).
-//   Split-K without atomics: a fixed grid, min(tiles, resident blocks), each
-//   block walking tiles blockIdx.x, + gridDim.x, ... in order, writes its
-//   float32 partial (32 x 49 x 8 a channel group) to a workspace;
-//   wgrad_reduce_kernel sums the partials in block order, flips the head's
-//   taps and rounds each weight once to bf16. Same grid, same order, same
-//   bits on every run of a card.
+//   taps). Bound: both near the ridge, the stem by its operations (2 * 343 *
+//   C flops per voxel of F against 2 C + 2 bytes read), the head by its
+//   bytes (its 70^3 x C input read once); the tensor cores also multiply 15
+//   dead rows of 64, so 49/64 of the issued work is the conv's.
+//   Per kz the GEMM is D^T[m, c] = sum_u A[m][u] B[u][c] with the taps in M
+//   (m = 8 ky + kx: 49 of an m64 tile's rows live, ky 7 and kx 7 dropped at
+//   the store), the 32 channels of a group in N and the voxels in K:
+//   wgmma m64n32k16, seven accumulator tiles (one per kz, 112 floats a
+//   thread). B[u][c] = F[u, c] is the field tile as TMA lays it out (64-byte
+//   rows of 32 channels, the 64-byte swizzle), which for wgmma is an
+//   MN-major operand (desc_mn_sw64, the transpose bit set). A[m][u] = S[u +
+//   (kz, ky, kx) + off] comes from registers: it is Hankel along x, so the
+//   two neighbouring voxels of an A fragment are one pair word P[i] = (T[i],
+//   T[i + 1]) of the halo, the spread's trick; warp w of a warpgroup owns ky
+//   2w and 2w + 1 (ky 7 reads row 6). A tile is kWTZ = 8 planes x kWTY = 2
+//   rows x a row segment of xt <= 72 voxels (even, so no pair straddles two
+//   rows; conv7.py wgrad_plan), each plane's 2 xt voxels flattened x fastest
+//   into k-steps of 16 (a table gives each voxel pair's halo word; the
+//   slots past them stay zero). Voxels on tile plane pz read halo plane h =
+//   pz + kz, so the loop runs over the 14 halo planes of a k-step: each A
+//   fragment (four 32-bit loads) is loaded once and fed to every kz that
+//   reads it, 14 loads for 56 wgmma, double-buffered in registers so step
+//   h + 1's loads overlap step h's multiplies; the loops have no runtime
+//   branch around a wgmma (the halo planes and kz are unrolled).
+//   Warp specialised and pipelined: a producer warpgroup fills a ring of two
+//   stages (the field tile, 72 KB, by one TMA a plane over NDHWC with zero
+//   fill, or by its threads where C % 8 != 0; the halo's pair words, 35 KB)
+//   under mbarriers, while two consumer warpgroups multiply the other stage,
+//   warpgroup q taking k-steps q, q + 2, ... of each plane (the odd one
+//   alternates between tiles). Each producer warp makes two of the halo's
+//   eight rows: a lane loads its words (T[2j], T[2j + 1]) of all 14 planes
+//   into registers at once (32-bit loads where the one-channel field's
+//   width is even, else two 16-bit ones), takes word j + 1 from the next
+//   lane by a shuffle and stores the pair words 2j and 2j + 1 with one
+//   64-bit store. (Built first with one producer warp that staged the halo
+//   by cp.async and converted it in shared memory, then with four, the
+//   producer set the pace on an H100, several times and then ~1.5 times
+//   what the consumers alone take; registers and shuffles bring the first
+//   pass near the consumers' own time.) One block an SM (215 KB of shared
+//   memory).
+//   Split-K without atomics: a fixed grid, min(tiles, resident blocks / the
+//   channel groups) blocks a group, each walking tiles blockIdx.x, +
+//   gridDim.x, ... in order; each consumer warpgroup writes its float32
+//   partial (32 x 49 x 8 a channel group) to a workspace, and
+//   wgrad_reduce_kernel sums the partials in order, flips the head's taps
+//   and rounds each weight once to bf16. Same grid, same order, same bits on
+//   every run of a card.
+//   Registers (-Xptxas -v, sm_90a): 168 for both, no spills (the bound for
+//   384 threads; setmaxnreg is not used).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -202,14 +227,6 @@ __device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
   return (uint32_t)lo | ((uint32_t)hi << 16);
 }
 
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // byte offset of 16-byte chunk q (8 channels) of row u in a tile of 64-byte
 // rows: the chunk index is XOR-ed with bits 1-2 of u (the 64-byte swizzle of
 // TMA and wgmma, taken on address bits, so a tile starts on 512 bytes), and
@@ -219,18 +236,9 @@ __device__ __forceinline__ int chunk_offset(int u, int q) {
   return u * kSlotBytes + ((q ^ ((u >> 1) & 3)) << 4);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(full ? 16 : 0));
-}
-
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(full ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
 // ---------------------------------------------------------------------------
@@ -359,7 +367,9 @@ __device__ __forceinline__ void wgmma_m64n80k16_ss(float (&d)[40], uint64_t da, 
       : "l"(da), "l"(db), "r"(one));
 }
 
-// D (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, shared, K-major)
+// D (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, shared): B
+// K-major, or MN-major where kTransB is 1
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
                                                    uint64_t db) {
   const uint32_t one = 1;
@@ -367,11 +377,11 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one), "n"(kTransB));
 }
 
 // Every weight W[c, tap] of channels [c0, c1) of the (C, 343) tensor read
@@ -935,172 +945,282 @@ conv7_gather_kernel(const __grid_constant__ CUtensorMap in_map, const uint16_t* 
 // ---------------------------------------------------------------------------
 // weight gradient: D[c, k] = sum_n sum_u F[n, u, c] * S[n, u + k + kOff]
 
-constexpr int kWTZ = 2, kWTY = 4;                  // a tile: z planes x y rows x a row segment
-constexpr int kWMaxSeg = 72;                       // longest row segment (even)
-constexpr int kWThreads = 32 * 7;                  // one warp per kz
-constexpr int kWVox = kWTZ * kWTY * kWMaxSeg;      // 576 field voxels, 36 k-steps of 16
-constexpr int kWHZ = kWTZ + 6, kWHY = kWTY + 6;    // the one-channel halo's planes and rows
-constexpr int kWHX = kWMaxSeg + 8;                 // its row stride in pair words
-constexpr int kWFieldBytes = kWVox * kSlotBytes;   // 36,864
-constexpr int kWHaloBytes = kWHZ * kWHY * kWHX * 4;  // 25,600
-constexpr int kWTableBytes = kWVox / 2 * 4;          // 1,152
-constexpr int kWSmem = kWFieldBytes + kWHaloBytes + kWTableBytes;
-constexpr int kWRows = 49, kWCols = 8;             // a partial: (kz, ky) rows x 8 kx a channel
+constexpr int kWTZ = 8, kWTY = 2;               // a tile: z planes x y rows x a row segment
+constexpr int kWMaxSeg = 72;                    // longest row segment (even)
+constexpr int kWSlots = (kWTY * kWMaxSeg + 15) / 16 * 16;  // 144 voxel slots a plane
+constexpr int kWPlaneBytes = kWSlots * kSlotBytes;         // 9,216
+constexpr int kWFieldStage = kWTZ * kWPlaneBytes;          // 73,728
+constexpr int kWHZ = kWTZ + 6, kWHY = kWTY + 6;  // the one-channel halo's planes and rows
+constexpr int kWHX = kWMaxSeg + 8;              // its row stride in pair words
+constexpr int kWPStage = kWHZ * kWHY * kWHX * 4;  // 35,840
+constexpr int kWLoads = 3;  // halo words a producer lane loads a row: 16 lanes a row, 48 >= 41
+constexpr int kWStages = 2;                     // the ring
+constexpr int kWConsumers = 2;                  // consumer warpgroups: a partial sum each
+constexpr int kWThreads = 128 * kWConsumers + 128;  // and a producer warpgroup
+constexpr int kWSmem = 1024 + kWStages * (kWFieldStage + kWPStage) + kWSlots / 2 * 4 +
+                       2 * kWStages * 8;
+constexpr int kWRows = 49, kWCols = 8;  // a partial: (kz, ky) rows x 8 kx a channel
 constexpr int kWPartial = kGroup * kWRows * kWCols;
 constexpr int kReduceThreads = 256;
-static_assert(kWVox % 16 == 0, "whole k-steps");
+static_assert(kWSmem <= kMaxSmem, "two stages of a tile and its halo fit");
+static_assert(kWHZ % 2 == 0, "the A registers' double buffer runs on across k-steps");
+static_assert(kWHY == 2 * 4, "the producer's warps: two halo rows each");
+static_assert(16 * kWLoads >= (kWMaxSeg + 8) / 2 + 1, "a row's halo words in the loads");
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
+// a wgmma operand descriptor for an MN-major tile: per K index (a voxel) one
+// 64-byte row of 32 N values (channels) under the 64-byte swizzle, 8-row
+// groups 512 bytes apart. With N = 32 one swizzle atom spans all of N, so
+// the offset between atoms along N is never used; it is 512 as well.
+__device__ __forceinline__ uint64_t desc_mn_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(512 >> 4) << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
 
-// Row segments of a field row of w voxels: the fewest of at most kWMaxSeg,
-// balanced, each of an even length so that no voxel pair straddles two.
-__host__ __device__ inline int wgrad_segs(int w) { return (w + kWMaxSeg - 1) / kWMaxSeg; }
-__host__ __device__ inline int wgrad_seg(int w) {
-  const int segs = wgrad_segs(w);
-  return ((w + segs - 1) / segs + 1) & ~1;
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(bar)
+      : "memory");
 }
 
-// One block's partial sums over its tiles (tile = blockIdx.x, + gridDim.x, ...)
-// for channel group blockIdx.y: partial[block][group][c][kz * 7 + ky][kx].
-// F is the C-channel field (N, Fd, Fh, Fw, C), S the one-channel field (N,
-// Sd, Sh, Sw), zero outside its box; u runs over F's box.
+// One block's partial sums over its tiles (tile = blockIdx.x, + gridDim.x,
+// ...) for channel group blockIdx.y, one per consumer warpgroup:
+// partial[kWConsumers * block + q][group][c][kz * 7 + ky][kx]. F is the
+// C-channel field (N, Fd, Fh, Fw, C), through field_map where vec (TMA,
+// box (32, xt, kWTY, 1, 1)); S the one-channel field (N, Sd, Sh, Sw), zero
+// outside its box, in 32-bit words where `granules`; u runs over F's box
+// in tiles of kWTZ planes x kWTY rows x a row segment of xt (even) voxels.
 template <int kOff>
-__device__ __forceinline__ void wgrad_body(const uint16_t* __restrict__ field,
+__device__ __forceinline__ void wgrad_body(const CUtensorMap* field_map,
+                                           const uint16_t* __restrict__ field,
                                            const uint16_t* __restrict__ one,
                                            float* __restrict__ partial, int Fd, int Fh, int Fw,
-                                           int Sd, int Sh, int Sw, int C, int vec, int tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* P = reinterpret_cast<uint32_t*>(smem + kWFieldBytes);
-  int* table = reinterpret_cast<int*>(smem + kWFieldBytes + kWHaloBytes);
-  const uint32_t field_s = (uint32_t)__cvta_generic_to_shared(smem);
+                                           int Sd, int Sh, int Sw, int C, int vec, int granules,
+                                           int xt, int nz, int ny, int nx, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* fieldb = smem;  // kWStages x kWTZ planes x [kWSlots voxels][64 B]
+  uint32_t* Pw = reinterpret_cast<uint32_t*>(fieldb + kWStages * kWFieldStage);
+  int* table = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(Pw) + kWStages * kWPStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(table + kWSlots / 2);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kWStages);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = blockIdx.y * kGroup;  // the group's first channel
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int cb = blockIdx.y * kGroup;
-  const int segs = wgrad_segs(Fw), seg = wgrad_seg(Fw);
-  const int tiles_y = (Fh + kWTY - 1) / kWTY, tiles_z = (Fd + kWTZ - 1) / kWTZ;
-  const int vox = kWTZ * kWTY * seg;  // a tile's voxels, x fastest
-  const int ksteps = (vox + 15) >> 4;
-  const int hx = seg + 8;             // halo words a row that the k-steps read
-
-  // voxel pair p = (2p, 2p + 1): its halo word at tap (0, 0, 0); past the
-  // tile, word 0 (its field voxels are zero)
-  for (int p = tid; p < kWVox / 2; p += kWThreads) {
-    const int v = 2 * p, r = v / seg;
-    table[p] = v < vox ? ((r / kWTY) * kWHY + r % kWTY) * kWHX + v % seg : 0;
+  if (tid == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      // every producer thread once its halo words are written, and the
+      // TMA's expect-tx arrival where the field comes by TMA
+      mbar_init(full0 + 8 * s, 128 + (vec ? 1 : 0));
+      mbar_init(empty0 + 8 * s, 128 * kWConsumers);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // ldmatrix.trans rows: lane l feeds matrix j = l >> 3 with voxel 8 (j >> 1)
-  // + (l & 7) of a k-step and the 8 channels of chunk (j & 1) + 2 mt, which
-  // gives the A fragment of channels (m) x voxels (k)
-  const int lrow = 8 * ((lane >> 3) >> 1) + (lane & 7), lchunk = (lane >> 3) & 1;
-  const uint32_t lane_off0 = chunk_offset(lrow, lchunk), lane_off1 = chunk_offset(lrow, 2 + lchunk);
-  const int kz_off = warp * kWHY * kWHX;
+  // the slots past a plane's kWTY x xt voxels stay zero (TMA fills only the
+  // box); voxel pair p of a plane, (2p, 2p + 1) at row y, column x, reads
+  // halo word y * kWHX + x at tap (0, 0, 0) (past the voxels: word 0, whose
+  // field is zero)
+  zero_bytes(fieldb, kWStages * kWFieldStage, tid, kWThreads);
+  for (int p = tid; p < kWSlots / 2; p += kWThreads) {
+    const int v = 2 * p;
+    table[p] = v < kWTY * xt ? (v / xt) * kWHX + v % xt : 0;
+  }
+  fence_proxy_async();
+  __syncthreads();
 
-  float acc[7][2][4];
+  if (warp >= 4 * kWConsumers) {
+    // producer warpgroup: each tile's field (TMA, or its threads) and its
+    // halo as pair words P[h][r][i] = (T[h][r][i], T[h][r][i + 1]) of the
+    // raw halo T. Lane l of warp pw takes halo row r = 2 pw + l / 16 and its
+    // 32-bit words j = l % 16 + 16 i (T[2j], T[2j + 1]) of every plane,
+    // loaded into registers all at once; word j + 1 comes from the next lane
+    const int64_t splane = (int64_t)Sh * Sw;
+    const int pw = warp - 4 * kWConsumers, ptid = tid - 128 * kWConsumers;
+    const int r = 2 * pw + (lane >> 4), jl = lane & 15;
+    const int pairs = (xt + 8) / 2;  // word pairs a row: P words 0 .. xt + 7
+    int k = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+      int n, z0, y0, x0;
+      tile_origin(t, kWTZ, kWTY, xt, nz, ny, nx, n, z0, y0, x0);
+      const int s = k % kWStages;
+      const uint32_t full = full0 + 8 * s;
+      mbar_wait(empty0 + 8 * s, ((k / kWStages) & 1) ^ 1);
+      unsigned char* fs = fieldb + s * kWFieldStage;
+      if (vec) {
+        if (ptid == 0) {
+          mbar_expect_tx(full, kWTZ * kWTY * xt * kSlotBytes);
+          for (int pz = 0; pz < kWTZ; ++pz)
+            tma_load_5d(smem_u32(fs + pz * kWPlaneBytes), field_map, full, cg, x0, y0, z0 + pz,
+                        n);
+        }
+      } else {
+        // 16-byte chunks of 8 channels, zero outside the box or past C
+        const uint16_t* fn = field + (int64_t)n * Fd * Fh * Fw * C;
+        for (int e = ptid; e < kWTZ * kWTY * xt * 4; e += 128) {
+          const int q = e & 3, v = (e >> 2) % (kWTY * xt), pz = (e >> 2) / (kWTY * xt);
+          const int gx = x0 + v % xt, gy = y0 + v / xt, gz = z0 + pz, c = cg + 8 * q;
+          const bool inside = gx < Fw && gy < Fh && gz < Fd;
+          const int64_t src = inside ? (((int64_t)gz * Fh + gy) * Fw + gx) * C + c : 0;
+          union {
+            uint4 v;
+            uint16_t h[8];
+          } u;
+#pragma unroll
+          for (int e2 = 0; e2 < 8; ++e2)
+            u.h[e2] = (inside && c + e2 < C) ? fn[src + e2] : (uint16_t)0;
+          *reinterpret_cast<uint4*>(fs + pz * kWPlaneBytes + chunk_offset(v, q)) = u.v;
+        }
+        fence_proxy_async();
+      }
+      const uint16_t* sn = one + (int64_t)n * Sd * splane;
+      const int gy = y0 + r + kOff;
+      uint32_t word[kWHZ][kWLoads];
+#pragma unroll
+      for (int h = 0; h < kWHZ; ++h) {
+        const int gz = z0 + h + kOff;
+        const bool live = gy >= 0 && gy < Sh && gz >= 0 && gz < Sd;
+        const uint16_t* row = sn + (live ? gz * splane + (int64_t)gy * Sw : 0);
+#pragma unroll
+        for (int i = 0; i < kWLoads; ++i) {
+          const int gx = x0 + kOff + 2 * (jl + 16 * i);
+          if (granules) {  // Sw even, gx even: a word is inside or outside whole
+            word[h][i] = (live && gx >= 0 && gx < Sw)
+                             ? *reinterpret_cast<const uint32_t*>(row + gx) : 0u;
+          } else {
+            word[h][i] = pack((live && gx >= 0 && gx < Sw) ? row[gx] : (uint16_t)0,
+                              (live && gx + 1 >= 0 && gx + 1 < Sw) ? row[gx + 1] : (uint16_t)0);
+          }
+        }
+      }
+      uint32_t* Ps = Pw + s * (kWPStage / 4) + r * kWHX;
+#pragma unroll
+      for (int h = 0; h < kWHZ; ++h)
+#pragma unroll
+        for (int i = 0; i < kWLoads; ++i) {
+          // lane jl + 1 holds word j + 1; lane 0 of the row hands lane 15 its next word
+          const uint32_t give = (jl == 0 && i + 1 < kWLoads) ? word[h][i + 1] : word[h][i];
+          const uint32_t next = __shfl_sync(0xffffffffu, give, (lane & 16) | ((jl + 1) & 15));
+          const int j = jl + 16 * i;
+          if (j < pairs)
+            *reinterpret_cast<uint2*>(Ps + h * kWHY * kWHX + 2 * j) =
+                make_uint2(word[h][i], __byte_perm(word[h][i], next, 0x5432));
+        }
+      mbar_arrive(full);
+    }
+    return;
+  }
+
+  // consumers: warpgroup q takes the tile's k-steps (16 voxels of a plane)
+  // ks = (q + k) % 2, + 2, ... (the odd one alternates between tiles). A
+  // thread's rows m = 16 w + g (ky = 2 w, kx = g) and m + 8 (ky = 2 w + 1;
+  // ky 7 reads row 6 and is dropped); its columns the voxel pairs t4 and t4
+  // + 4 of the k-step, whose halo words the table gives
+  const int q = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int wr0 = 2 * w * kWHX + g, wr1 = min(2 * w + 1, 6) * kWHX + g;
+  const int nks = (kWTY * xt + 15) >> 4;
+  float acc[7][16];
 #pragma unroll
   for (int i = 0; i < 7; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    int rest = tile;
-    const int x0 = (rest % segs) * seg;
-    rest /= segs;
-    const int y0 = (rest % tiles_y) * kWTY;
-    rest /= tiles_y;
-    const int z0 = (rest % tiles_z) * kWTZ;
-    const int n = rest / tiles_z;
-    __syncthreads();  // the last tile's reads are done
-
-    // the field tile: 16-byte chunks of 8 channels, zero outside the box or past C
-    const uint16_t* fn = field + (int64_t)n * Fd * Fh * Fw * C;
-    for (int e = tid; e < ksteps * 16 * 4; e += kWThreads) {
-      const int q = e & 3, u = e >> 2;
-      const int x = u % seg, r = u / seg;
-      const int gx = x0 + x, gy = y0 + r % kWTY, gz = z0 + r / kWTY, c = cb + 8 * q;
-      const bool inside = u < vox && gx < Fw && gy < Fh && gz < Fd;
-      const int64_t src = inside ? (((int64_t)gz * Fh + gy) * Fw + gx) * C + c : 0;
-      const int dst = chunk_offset(u, q);
-      if (vec) {
-        cp_async16(field_s + dst, fn + src, inside && c < C);
-      } else {
-        uint16_t v[8];
+  for (int i = 0; i < 7; ++i)
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = (inside && c + k < C) ? fn[src + k] : (uint16_t)0;
-        *reinterpret_cast<uint4*>(smem + dst) =
-            make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7]));
+    for (int e = 0; e < 16; ++e) pin(acc[i][e]);
+  uint32_t af[2][4];
+  const uint32_t field_s = smem_u32(fieldb);
+  int k = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+    const int s = k % kWStages;
+    mbar_wait(full0 + 8 * s, (k / kWStages) & 1);
+    const uint32_t* Ps = Pw + s * (kWPStage / 4);
+    const uint64_t d0 = desc_mn_sw64(field_s + s * kWFieldStage);
+    for (int ks = (q + k) & 1; ks < nks; ks += 2) {
+      const int b0 = table[8 * ks + t4], b1 = table[8 * ks + t4 + 4];
+      const uint32_t* p00 = Ps + b0 + wr0;
+      const uint32_t* p01 = Ps + b0 + wr1;
+      const uint32_t* p10 = Ps + b1 + wr0;
+      const uint32_t* p11 = Ps + b1 + wr1;
+      const uint64_t dk = d0 + ks * (16 * kSlotBytes >> 4);
+      // halo plane h feeds tile plane pz at kz = h - pz: each A fragment is
+      // loaded once for every kz that reads it
+#pragma unroll
+      for (int h = 0; h < kWHZ; ++h) {
+        uint32_t(&a)[4] = af[h & 1];
+        a[0] = p00[h * kWHY * kWHX];
+        a[1] = p01[h * kWHY * kWHX];
+        a[2] = p10[h * kWHY * kWHX];
+        a[3] = p11[h * kWHY * kWHX];
+        wg_fence();
+#pragma unroll
+        for (int pz = 0; pz < kWTZ; ++pz) {
+          const int kz = h - pz;
+          if (kz < 0 || kz > 6) continue;
+          wgmma_m64n32k16_rs<1>(acc[kz], a, dk + pz * (kWPlaneBytes >> 4));
+        }
+        wg_commit();
+        wg_wait<1>();  // step h - 1 is done: its A registers may be reused
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pin(af[(h + 1) & 1][e]);
       }
     }
-    // the one-channel halo as pair words P[i] = (S[i], S[i + 1]), zero outside S's box
-    const uint16_t* sn = one + (int64_t)n * Sd * Sh * Sw;
-    for (int e = tid; e < kWHZ * kWHY * hx; e += kWThreads) {
-      const int ix = e % hx, r = e / hx, iy = r % kWHY, iz = r / kWHY;
-      const int gx = x0 + ix + kOff, gy = y0 + iy + kOff, gz = z0 + iz + kOff;
-      uint16_t lo = 0, hi = 0;
-      if (gz >= 0 && gz < Sd && gy >= 0 && gy < Sh) {
-        const uint16_t* row = sn + ((int64_t)gz * Sh + gy) * Sw;
-        if (gx >= 0 && gx < Sw) lo = row[gx];
-        if (gx + 1 >= 0 && gx + 1 < Sw) hi = row[gx + 1];
-      }
-      P[(iz * kWHY + iy) * kWHX + ix] = pack(lo, hi);
-    }
-    if (vec) cp_async_wait_all();
-    __syncthreads();
-
-    // warp kz: for each k-step of 16 voxels, 7 ky x 2 m-tiles of mma.sync
-    for (int s = 0; s < ksteps; ++s) {
-      uint32_t a0[4], a1[4];
-      ldmatrix_x4_trans(field_s + s * 16 * kSlotBytes + lane_off0, a0[0], a0[1], a0[2], a0[3]);
-      ldmatrix_x4_trans(field_s + s * 16 * kSlotBytes + lane_off1, a1[0], a1[1], a1[2], a1[3]);
-      const uint32_t* p0 = P + table[8 * s + t] + kz_off + g;
-      const uint32_t* p1 = P + table[8 * s + t + 4] + kz_off + g;
+    wg_wait<0>();  // every wgmma on this stage is done
 #pragma unroll
-      for (int ky = 0; ky < 7; ++ky) {
-        const uint32_t b0 = p0[ky * kWHX], b1 = p1[ky * kWHX];
-        mma16816(acc[ky][0], a0[0], a0[1], a0[2], a0[3], b0, b1);
-        mma16816(acc[ky][1], a1[0], a1[1], a1[2], a1[3], b0, b1);
-      }
+    for (int e = 0; e < 4; ++e) {
+      pin(af[0][e]);
+      pin(af[1][e]);
     }
+    mbar_arrive(empty0 + 8 * s);
   }
+#pragma unroll
+  for (int i = 0; i < 7; ++i)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) pin(acc[i][e]);
 
-  float* out = partial + ((int64_t)blockIdx.x * gridDim.y + blockIdx.y) * kWPartial;
+  float* out = partial +
+               ((int64_t)(kWConsumers * blockIdx.x + q) * gridDim.y + blockIdx.y) * kWPartial;
 #pragma unroll
-  for (int ky = 0; ky < 7; ++ky)
+  for (int kz = 0; kz < 7; ++kz)
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int c = mt * 16 + g, r = warp * 7 + ky;
-      *reinterpret_cast<float2*>(out + (c * kWRows + r) * kWCols + 2 * t) =
-          make_float2(acc[ky][mt][0], acc[ky][mt][1]);
-      *reinterpret_cast<float2*>(out + ((c + 8) * kWRows + r) * kWCols + 2 * t) =
-          make_float2(acc[ky][mt][2], acc[ky][mt][3]);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ky = 2 * w + hh;
+      if (ky > 6) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * j + 2 * t4, r = kz * 7 + ky;
+        out[(c * kWRows + r) * kWCols + g] = acc[kz][4 * j + 2 * hh];
+        out[((c + 1) * kWRows + r) * kWCols + g] = acc[kz][4 * j + 2 * hh + 1];
+      }
     }
 }
 
 // the stem: F = the output gradient (box Fd), S = the input (box Fd + 6), kOff 0
-__global__ void __launch_bounds__(kWThreads, 3)
-conv7_wgrad_spread_kernel(const uint16_t* __restrict__ g, const uint16_t* __restrict__ a,
+__global__ void __launch_bounds__(kWThreads, 1)
+conv7_wgrad_spread_kernel(const __grid_constant__ CUtensorMap field_map,
+                          const uint16_t* __restrict__ g, const uint16_t* __restrict__ a,
                           float* __restrict__ partial, int Fd, int Fh, int Fw, int C, int vec,
-                          int tiles) {
-  wgrad_body<0>(g, a, partial, Fd, Fh, Fw, Fd + 6, Fh + 6, Fw + 6, C, vec, tiles);
+                          int granules, int xt, int nz, int ny, int nx, int tiles) {
+  wgrad_body<0>(&field_map, g, a, partial, Fd, Fh, Fw, Fd + 6, Fh + 6, Fw + 6, C, vec, granules,
+                xt, nz, ny, nx, tiles);
 }
 
 // the head: F = the input (box Fd), S = the output gradient (box Fd - 6),
 // kOff -6; D[c, k] is dW[c, 342 - k], flipped by the reduce
-__global__ void __launch_bounds__(kWThreads, 3)
-conv7_wgrad_gather_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
+__global__ void __launch_bounds__(kWThreads, 1)
+conv7_wgrad_gather_kernel(const __grid_constant__ CUtensorMap field_map,
+                          const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
                           float* __restrict__ partial, int Fd, int Fh, int Fw, int C, int vec,
-                          int tiles) {
-  wgrad_body<-6>(x, g, partial, Fd, Fh, Fw, Fd - 6, Fh - 6, Fw - 6, C, vec, tiles);
+                          int granules, int xt, int nz, int ny, int nx, int tiles) {
+  wgrad_body<-6>(&field_map, x, g, partial, Fd, Fh, Fw, Fd - 6, Fh - 6, Fw - 6, C, vec, granules,
+                 xt, nz, ny, nx, tiles);
 }
 
-// dW[c, k] = sum over the blocks, in block order (four interleaved sums
-// joined as (s0 + s1) + (s2 + s3)), of partial[b][c][tap], the tap k or 342 - k
+// dW[c, k] = sum over the `blocks` partials (one per consumer warpgroup of
+// each first-pass block), in order (four interleaved sums joined as (s0 +
+// s1) + (s2 + s3)), of partial[b][c][tap], the tap k or 342 - k
 __global__ void __launch_bounds__(kReduceThreads)
 conv7_wgrad_reduce_kernel(const float* __restrict__ partial, uint16_t* __restrict__ dw,
                           int blocks, int C, int flip) {
@@ -1141,10 +1261,6 @@ auto gather_kernel(int c) -> decltype(&conv7_gather_kernel<1, false>) {
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-int wgrad_tiles(int n, int fd, int fh, int fw) {
-  return n * ((fd + kWTZ - 1) / kWTZ) * ((fh + kWTY - 1) / kWTY) * wgrad_segs(fw);
 }
 
 // cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda)
@@ -1191,21 +1307,27 @@ extern "C" {
 
 const char* mra_conv7_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Blocks of the spread (gather 0) or the gather (gather 1) kernel the card
-// holds at once for c channels: the persistent grid's largest useful size.
-// Minus a CUDA error on failure.
-int mra_conv7_resident(int gather, int c) {
-  if (c < 1) return -(int)cudaErrorInvalidValue;
+// Blocks of the spread (kind 0), the gather (kind 1) or a weight gradient's
+// first pass (kind 2) the card holds at once for c channels: the persistent
+// grid's largest useful size. Minus a CUDA error on failure.
+int mra_conv7_resident(int kind, int c) {
+  if (c < 1 || kind < 0 || kind > 2) return -(int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (gather) {
+  if (kind == 1) {
     const int groups = gather_chunk_groups(c);
     const auto kernel = gather_kernel(c);
     if (e == cudaSuccess) e = allow_smem(kernel, gather_smem(groups));
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, gather_threads(groups),
                                                         gather_smem(groups));
+  } else if (kind == 2) {  // the stem's and the head's instances take the same resources
+    if (e == cudaSuccess) e = allow_smem(conv7_wgrad_gather_kernel, kWSmem);
+    if (e == cudaSuccess) e = allow_smem(conv7_wgrad_spread_kernel, kWSmem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv7_wgrad_spread_kernel,
+                                                        kWThreads, kWSmem);
   } else {
     const auto kernel = spread_kernel(c);
     const int smem = spread_smem(spread_chunk_groups(c));
@@ -1284,43 +1406,43 @@ int mra_conv7_gather(const void* x, const void* w, const void* bias, void* y, in
   return (int)cudaGetLastError();
 }
 
-// The weight gradient's first pass runs min(tiles, resident blocks) blocks
-// of each channel group: a number fixed by the field's box and the card, so
-// that every sum keeps its order from run to run. Returns that number for
-// the stem (head 0) or the head (head 1), or minus a CUDA error. The field
-// box is (n, fd, fh, fw).
-int mra_conv7_wgrad_blocks(int head, int n, int fd, int fh, int fw) {
-  const auto kernel = head ? conv7_wgrad_gather_kernel : conv7_wgrad_spread_kernel;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = allow_smem(kernel, kWSmem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWThreads, kWSmem);
-  if (e != cudaSuccess) return -(int)e;
-  const int tiles = wgrad_tiles(n, fd, fh, fw), resident = sms * (per_sm > 0 ? per_sm : 1);
-  return tiles < resident ? tiles : resident;
-}
-
-// The first pass: partial sums (blocks, ceil(c / 32) * 32, 49, 8) float32.
-// The stem (head 0): field = g (N, fd, fh, fw, c) the output gradient, one =
-// a (N, fd + 6, fh + 6, fw + 6) the input. The head (head 1): field = x (N,
-// fd, fh, fw, c) the input, one = g (N, fd - 6, fh - 6, fw - 6) the output
-// gradient, its taps flipped. All bf16.
-int mra_conv7_wgrad(int head, const void* field, const void* one, void* partial, int blocks,
-                    int n, int fd, int fh, int fw, int c, int vec, void* stream) {
+// The first pass of a weight gradient: partial sums (kWConsumers * grid,
+// ceil(c / 32) * 32, 49, 8) float32, `grid` blocks a channel group, each
+// walking tiles blockIdx.x, + grid, ... of kWTZ planes x kWTY rows x xt
+// voxels (xt even, <= kWMaxSeg), nz x ny x nx a sample, of the field's box
+// (n, fd, fh, fw). The stem (head 0): field = g (N, fd, fh, fw, c) the
+// output gradient, one = a (N, fd + 6, fh + 6, fw + 6) the input. The head
+// (head 1): field = x (N, fd, fh, fw, c) the input, one = g (N, fd - 6, fh -
+// 6, fw - 6) the output gradient, its taps flipped. All bf16. vec: the field
+// is read by TMA (c % 8 == 0, 16-byte aligned); granules: the one-channel
+// field is read in 4-byte words (its width even, 4-byte aligned).
+int mra_conv7_wgrad(int head, const void* field, const void* one, void* partial, int grid, int n,
+                    int fd, int fh, int fw, int c, int vec, int granules, int xt, int nz, int ny,
+                    int nx, void* stream) {
+  if (c < 1 || grid < 1 || xt < 2 || xt > kWMaxSeg || xt % 2) return (int)cudaErrorInvalidValue;
   const auto kernel = head ? conv7_wgrad_gather_kernel : conv7_wgrad_spread_kernel;
   cudaError_t e = allow_smem(kernel, kWSmem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(blocks, (c + kGroup - 1) / kGroup);
-  kernel<<<grid, kWThreads, kWSmem, (cudaStream_t)stream>>>(
-      (const uint16_t*)field, (const uint16_t*)one, (float*)partial, fd, fh, fw, c, vec,
-      wgrad_tiles(n, fd, fh, fw));
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (vec) {
+    const cuuint64_t row = (cuuint64_t)c * 2;
+    const cuuint64_t dims[5] = {(cuuint64_t)c, (cuuint64_t)fw, (cuuint64_t)fh, (cuuint64_t)fd,
+                                (cuuint64_t)n};
+    const cuuint64_t strides[4] = {row, row * fw, row * fw * fh, row * fw * fh * fd};
+    const cuuint32_t box[5] = {kGroup, (cuuint32_t)xt, kWTY, 1, 1};
+    e = make_map(&map, field, 5, dims, strides, box);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 blocks(grid, (c + kGroup - 1) / kGroup);
+  kernel<<<blocks, kWThreads, kWSmem, (cudaStream_t)stream>>>(
+      map, (const uint16_t*)field, (const uint16_t*)one, (float*)partial, fd, fh, fw, c, vec,
+      granules, xt, nz, ny, nx, n * nz * ny * nx);
   return (int)cudaGetLastError();
 }
 
-// The second pass: dw (c, 343) bf16 from the partials of `blocks` blocks,
-// the taps flipped (342 - k) where flip is set.
+// The second pass: dw (c, 343) bf16 from `blocks` partial sums, the taps
+// flipped (342 - k) where flip is set.
 int mra_conv7_wgrad_reduce(const void* partial, void* dw, int blocks, int c, int flip,
                            void* stream) {
   const int grid = (c * kTaps + kReduceThreads - 1) / kReduceThreads;

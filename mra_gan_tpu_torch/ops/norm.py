@@ -46,12 +46,7 @@ class InstanceNormAct(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, eps, act, negative_slope, axis=None):
-        if axis is not None:
-            y, mean, rstd = instance_norm_two_pass_sharded(x, axis.group, act,
-                                                           negative_slope, eps)
-        else:
-            fwd = instance_norm_act_plain_fwd if x.device.type == "cpu" else instance_norm_act_fwd
-            y, mean, rstd = fwd(x, act, negative_slope, eps)
+        y, mean, rstd = _forward(x, eps, act, negative_slope, axis)
         ctx.save_for_backward(x, mean, rstd)
         ctx.act, ctx.negative_slope, ctx.axis = act, negative_slope, axis
         return y
@@ -70,11 +65,25 @@ class InstanceNormAct(torch.autograd.Function):
         return dx, None, None, None, None
 
 
+def _forward(x, eps, act, negative_slope, axis):
+    # (y, mean, rstd) by the route ``InstanceNormAct`` documents
+    if axis is not None:
+        return instance_norm_two_pass_sharded(x, axis.group, act, negative_slope, eps)
+    fwd = instance_norm_act_plain_fwd if x.device.type == "cpu" else instance_norm_act_fwd
+    return fwd(x, act, negative_slope, eps)
+
+
 def instance_norm_act(x: torch.Tensor, eps: float = EPS, act: str = "none",
                       negative_slope: float = 0.2) -> torch.Tensor:
     """act in {'none', 'relu', 'leaky_relu', 'tanh'}; over the whole volume
-    of a depth shard inside ``spatial_sharding``."""
-    return InstanceNormAct.apply(x, eps, act, negative_slope, spatial_shard_info())
+    of a depth shard inside ``spatial_sharding``. Where autograd records
+    nothing (inference, or an input that needs no gradient) the forward runs
+    without the autograd Function, whose cost a decode would pay at every
+    norm of every patch batch; the result is the same."""
+    axis = spatial_shard_info()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return InstanceNormAct.apply(x, eps, act, negative_slope, axis)
+    return _forward(x, eps, act, negative_slope, axis)[0]
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:

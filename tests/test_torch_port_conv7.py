@@ -553,7 +553,8 @@ def _kernel_constants():
 
     src = (Path(conv7.__file__).parent / "csrc" / "conv7.cu").read_text()
     found = {}
-    for name in ("kSX", "kSY", "kSZ", "kGSlots", "kGMaxDepth", "kGroup", "kMaxGroups"):
+    for name in ("kSX", "kSY", "kSZ", "kGSlots", "kGMaxDepth", "kGroup", "kMaxGroups", "kWTZ",
+                 "kWTY", "kWMaxSeg", "kWStages", "kWConsumers", "kWRows", "kWCols", "kMaxSmem"):
         m = re.search(rf"\b{name} = (\d+)", src)
         found[name] = int(m.group(1))
     found["kGMaxSegment"] = found["kGSlots"] - 6
@@ -570,6 +571,12 @@ def test_geometry_matches_the_kernels():
     assert max(conv7.GATHER_DEPTHS) == k["kGMaxDepth"]
     assert conv7.GROUP == k["kGroup"]
     assert conv7.SPREAD_HELD == k["kGroup"] * k["kMaxGroups"]
+    assert (conv7.WGRAD_TILE_DEPTH, conv7.WGRAD_TILE_ROWS) == (k["kWTZ"], k["kWTY"])
+    assert conv7.WGRAD_MAX_SEGMENT == k["kWMaxSeg"]
+    assert conv7.WGRAD_STAGES == k["kWStages"]
+    assert conv7.WGRAD_PARTS == k["kWConsumers"]
+    assert (conv7.WGRAD_ROWS, conv7.WGRAD_COLS) == (k["kWRows"], k["kWCols"])
+    assert conv7.SMEM_LIMIT == k["kMaxSmem"]
 
 
 @pytest.mark.parametrize("n", [1, 3, 8, 16])
@@ -615,3 +622,79 @@ def test_one_channel_granules():
     assert not conv7.one_channel_granules(71, 256)  # an odd row: voxel by voxel
     assert not conv7.one_channel_granules(70, 258)  # a base off 4 bytes
 
+
+
+# ---------------------------------------------------------------------------
+# the weight gradients' first pass (host-side geometry)
+
+# the C-channel fields the weight gradients walk: the stem's output-gradient
+# box (the input box less 6) and the head's input box
+WGRAD_BOXES = sorted({conv7.out_shape(b, 0) for b in GRID_BOXES} | set(GRID_BOXES))
+WGRAD_RESIDENT = (132, 7)  # the H100 (one block an SM), a small card
+
+
+@pytest.mark.parametrize("box", WGRAD_BOXES, ids=["x".join(map(str, b)) for b in WGRAD_BOXES])
+def test_wgrad_walk_covers_every_field_voxel_once(box):
+    """Every block of every channel group walks its tiles in increasing
+    order, and the walks together hold each (group, sample, tile) once; the
+    tiles are the product of the sample and three partitions of the box."""
+    for n in (1, 3, 8, 16):
+        for resident in WGRAD_RESIDENT:
+            plan = conv7.wgrad_plan(n, box, resident)
+            assert plan.chunks == 1 and 1 <= plan.grid <= min(resident, plan.tiles)
+            walks = [list(conv7.wgrad_walk(plan, b, 0)) for b in range(plan.grid)]
+            assert all(w == sorted(w) and w for w in walks)
+            walked = [t for w in walks for t in w]
+            assert sorted(walked) == list(range(plan.tiles))
+            extents = [conv7.tile_extent(plan, t) for t in walked]
+            for axis in range(3):
+                _axis_partition([e[2 + axis] for e in extents], box[axis])
+            zr, yr, xr = (sorted({e[2 + a] for e in extents}) for a in range(3))
+            assert len(extents) == n * len(zr) * len(yr) * len(xr)
+            assert {e[1] for e in extents} == set(range(n))
+    if math.prod(box) <= 70 ** 3:
+        plan = conv7.wgrad_plan(3, box, WGRAD_RESIDENT[1])
+        seen = np.zeros((3, *box), np.int32)
+        for b in range(plan.grid):
+            for t in conv7.wgrad_walk(plan, b, 0):
+                _, s, (z0, z1), (y0, y1), (x0, x1) = conv7.tile_extent(plan, t)
+                seen[s, z0:z1, y0:y1, x0:x1] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("c", [1, 4, 32, 40, 64, 96, 128])
+def test_wgrad_walks_each_channel_group_once(c):
+    """A group of 32 channels a grid (blockIdx.y): each group's tiles once,
+    by grids that together fit the card (at least a block a group)."""
+    groups = -(-c // conv7.GROUP)
+    for n, box in ((3, (10, 9, 33)), (1, (64, 64, 64)), (16, (70, 70, 70))):
+        for resident in WGRAD_RESIDENT:
+            plan = conv7.wgrad_plan(n, box, resident, c)
+            per_group = n * math.prod(plan.counts)
+            assert plan.chunks == groups and plan.tiles == groups * per_group
+            assert plan.grid == max(1, min(per_group, resident // groups))
+            seen = {}
+            for g in range(groups):
+                for b in range(plan.grid):
+                    for t in conv7.wgrad_walk(plan, b, g):
+                        e = conv7.tile_extent(plan, t)
+                        assert e[0] == g
+                        seen[e] = seen.get(e, 0) + 1
+            assert len(seen) == plan.tiles and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("n", [1, 16])
+@pytest.mark.parametrize("box", WGRAD_BOXES, ids=["x".join(map(str, b)) for b in WGRAD_BOXES])
+def test_wgrad_tiles_fit_the_kernel(box, n):
+    """A tile's row segment is even (no voxel pair straddles two rows), at
+    most WGRAD_MAX_SEGMENT, the fewest balanced ones; the tile and its halo,
+    two stages of them, fit the block's shared memory, and the next even
+    segment would not."""
+    plan = conv7.wgrad_plan(n, box, 132)
+    tz, ty, xt = plan.tile
+    assert (tz, ty) == (conv7.WGRAD_TILE_DEPTH, conv7.WGRAD_TILE_ROWS)
+    assert xt % 2 == 0 and 2 <= xt <= conv7.WGRAD_MAX_SEGMENT
+    count = -(-box[2] // conv7.WGRAD_MAX_SEGMENT)
+    assert plan.counts[2] == count and (count - 1) * xt < box[2] <= count * xt
+    assert conv7.wgrad_smem(xt) <= conv7.wgrad_smem(conv7.WGRAD_MAX_SEGMENT) <= conv7.SMEM_LIMIT
+    assert conv7.wgrad_smem(conv7.WGRAD_MAX_SEGMENT + 2) > conv7.SMEM_LIMIT

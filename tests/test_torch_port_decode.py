@@ -214,3 +214,93 @@ def test_inference_keeps_a_weight_cast_until_the_weight_changes():
     plain = torch.randn(3, 3)
     with torch.inference_mode():
         assert _cast(plain, torch.bfloat16) is not _cast(plain, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,patch,strides,batch", [
+    ((128, 256, 256), (64, 64, 64), (32, 32, 32), 8),
+    ((36, 20, 18), (16, 16, 16), (8, 8, 8), 4),
+    ((24, 20, 18), (16, 16, 16), (6, 6, 5), 3),
+    ((10, 20, 18), (16, 16, 16), (8, 8, 8), 4),
+    ((40, 24, 16), (16, 16, 16), (8, 8, 8), 1),
+])
+def test_transfer_marks_cover_what_each_batch_reads_and_writes(shape, patch, strides, batch):
+    starts = port_sw.patch_grid(shape, patch, strides)
+    batches = [starts[i:i + batch] for i in range(0, len(starts), batch)]
+    marks = port_sw.transfer_marks(batches, patch[0], shape[0])
+    assert len(marks) == len(batches) and marks[-1][1] == shape[0]
+    needs, finals = zip(*marks)
+    assert list(needs) == sorted(needs) and list(finals) == sorted(finals)
+    for k, (chunk, (need, final)) in enumerate(zip(batches, marks)):
+        # every plane a batch reads is up; no later patch adds to a final plane
+        assert all(min(a + patch[0], shape[0]) <= need for a, _, _ in chunk)
+        assert all(final <= a for later in batches[k + 1:] for a, _, _ in later)
+        # and no plane waits longer than it must
+        assert need == max(min(a + patch[0], shape[0]) for c in batches[:k + 1] for a, _, _ in c)
+        assert k + 1 == len(batches) or final == min(a for c in batches[k + 1:] for a, _, _ in c)
+
+
+def test_slab_transfers_give_the_whole_volume_bits(nets):
+    # three upload and three download slabs along X, a short last batch,
+    # and both wire dtypes, against the per-patch decode
+    port_fn = nets[3]
+    shape, patch = (40, 20, 18), (16, 16, 16)
+    vol = np.random.RandomState(9).uniform(-1, 1, shape).astype(np.float32)
+    starts = port_sw.patch_grid(shape, patch, (8, 8, 8))
+    batches = [starts[i:i + 5] for i in range(0, len(starts), 5)]
+    assert len({m[0] for m in port_sw.transfer_marks(batches, 16, 40)}) >= 3
+    want = _decode_per_patch(vol, port_fn, patch, 8, "gaussian", 5)
+    got = port_sw.sliding_window_inference(vol, port_fn, patch, 8, 8, "gaussian", 5)
+    np.testing.assert_array_equal(got, want)
+    half = port_sw.sliding_window_inference(vol, port_fn, patch, 8, 8, "gaussian", 5,
+                                            transfer_dtype=torch.float16)
+    np.testing.assert_array_equal(half, torch.from_numpy(want).half().float().numpy())
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+def test_inference_norm_and_bias_skip_autograd_with_the_same_bits(act):
+    from mra_gan_tpu_torch.models.networks import Conv3d
+    from mra_gan_tpu_torch.ops.norm import InstanceNormAct, instance_norm_act
+
+    x = torch.randn(2, 8, 6, 5, 4, generator=torch.Generator().manual_seed(3))
+    recorded = InstanceNormAct.apply(x.clone().requires_grad_(True), 1e-5, act, 0.2, None)
+    assert recorded.grad_fn is not None
+    for mode in (torch.inference_mode, torch.no_grad):
+        with mode():
+            y = instance_norm_act(x, act=act)
+        assert y.grad_fn is None
+        torch.testing.assert_close(y, recorded.detach(), rtol=0, atol=0)
+    y = instance_norm_act(x, act=act)  # grad on, but nothing needs one
+    assert y.grad_fn is None
+    torch.testing.assert_close(y, recorded.detach(), rtol=0, atol=0)
+    conv = Conv3d(8, 8, 3, dead_bias=True)
+    with torch.inference_mode():
+        assert conv.live_bias() is conv.bias  # so ops.conv keeps its cast
+    assert conv.live_bias() is not conv.bias and not conv.live_bias().requires_grad
+
+
+def test_decode_load_times_each_load_and_stops_its_spinners(monkeypatch):
+    from mra_gan_tpu_torch import decode_load
+
+    started, spin = [], decode_load.spinners
+
+    def spinners(n):
+        started.append(spin(n))
+        return started[-1]
+
+    monkeypatch.setattr(decode_load, "spinners", spinners)
+    calls = []
+    lines = list(decode_load.under_load(lambda: calls.append(1), [0, 2], 3))
+    assert [line["load"] for line in lines] == [0, 2] and len(calls) == 12
+    for line in lines:
+        for run in ("dropped", "kept"):
+            t = line[run]
+            assert 0 <= t["min"] <= t["median"] <= t["p75"] <= t["max"]
+    assert [len(procs) for procs in started] == [0, 2]
+    assert all(p.poll() is not None for procs in started for p in procs)
+
+    def fails():
+        raise RuntimeError("decode failed")
+
+    with pytest.raises(RuntimeError, match="decode failed"):
+        list(decode_load.under_load(fails, [1], 2))
+    assert all(p.poll() is not None for p in started[-1])
