@@ -37,7 +37,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    at N = 16, 8, 2, 1, at phase 14's shard boxes (CONV7_SHARD_BOXES) and at
    CONV7_EXTRA's odd box and C = 4, 40, 96 and 128 against float32
    conv3d_weight at the same bar, each twice and bit-equal, and the reduce
-   alone on each case's partials;
+   alone on each case's partials; and the two replication-pad kernels
+   (replication_pad_fwd, replication_pad_bwd) at every pad shape of the
+   decode (batch 8, the last batch of 3, the single pass) and of the train
+   step at batch 1 and 8 (the generators at 2B and B), at a depth shard of
+   phase 14's spatial step (depth pad 0), on an odd unequal box with an
+   axis of 1 voxel at C = 6 and at C = 128 (pad_cases; C = 1, 6, 32, 128),
+   in bf16 and float32, each bit-equal to its plain version and twice
+   bit-equal, then at the decode's and the step's batch sizes timed beside
+   the plain version, F.pad(mode="replicate") and its autograd backward (the
+   path before the kernels) and the byte bound;
 3. cuDNN conv3d / conv_transpose3d at the generator's shapes, NCDHW against
    channels_last_3d; and each conv7 role, the weight gradients included, at
    the cells' batch sizes (16, 8) timed beside cuDNN's heuristic pick in
@@ -50,25 +59,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    norms against plain norms in bfloat16 and (TF32 off) float32, and the
    exact launches of each forward kernel per forward that uses_slab gives
    (13 slab, 4 stats, 4 apply), none of a backward one (nor in phases 5-6),
-   and one launch of each conv7 kernel per bf16 forward (none in float32);
+   one launch of each conv7 kernel per bf16 forward (none in float32) and 14
+   of the pad forward in both (no backward, no relayout);
 5. the sliding-window decode of a 128x256x256 volume (147 patches in 19
-   batches, Gaussian blend; 19 x those launches; DECODE_REPEATS timed
-   decodes, the median kept), then the single-pass
+   batches, Gaussian blend; 19 x those launches, 266 pad forwards;
+   DECODE_REPEATS timed decodes, the median kept; its traced decode runs
+   after phase 7's timed steps, as nothing is traced in a benchmark
+   process before its timed block), then the single-pass
    whole-volume forward of the same volume (17 stats, 17 apply, no slab;
-   one launch of each conv7 kernel);
+   one launch of each conv7 kernel; 14 pad forwards);
 6. the decode CLI (python -m mra_gan_tpu_torch.test) in directory mode on
    three synthetic NIfTIs with a .pth checkpoint written from the same tree
-   (the norm and conv7 launches of its batches);
+   (the norm, conv7 and pad launches of its batches);
 7. the CycleGAN train step (create_state + make_train_step) at the
    reference default (bench.py:193-198: two resnet_6blocks generators, two
    3-layer PatchGANs, ngf = ndf = 32, LSGAN, pool 50, Adam 2e-4 / 0.5, bf16
-   over f32 parameters, 64^3 patches) at batch 1 and 8: s/step, pairs/s,
+   over f32 parameters, 64^3 patches) at batch 8, then 1: s/step (the
+   median of TRAIN_TIMED_STEPS steps, timed as the benchmark times them,
+   batch 8 before any step of this process was traced), pairs/s,
    peak memory, the exact launches per step (forward: 4 x 13 + 12 slab, 16
    stats, 16 apply; backward: 64 bwd slab, 16 bwd stats, 16 bwd apply;
    conv7: 8 spread, 6 gather, 4 wgrad spread, 4 wgrad gather, 8 wgrad
-   reduce), the stem gradients the conv7 backward had to relayout,
-   the gradient relayouts, finite losses, and one profiled step by kernel
-   class;
+   reduce; pads: 56 forward, 54 backward, the stems of the two leaf applies
+   having none), the stem gradients the conv7 backward had to relayout, the
+   pads' relayouts, the norms' gradient relayouts (none: the pads' backward
+   hands them channels_last_3d), finite losses, and one profiled step by
+   kernel class;
 8. step 0 at batch 1 through the kernels and through the plain norms, in
    float32 (TF32 off) and bf16, each against a float64 step
    (phase_train_parity states the bars);
@@ -76,8 +92,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    steps, CheckpointManager.save, 2 more; restore into a state made from
    another seed and the same 2 steps, against the straight run bit for bit,
    once with cuDNN's deterministic algorithms and once with
-   torch.use_deterministic_algorithms as well (phase_checkpoint states what
-   each must show); save and restore seconds and the files' bytes; the
+   torch.use_deterministic_algorithms as well, both required (every kernel
+   of the step sums in a fixed order), the norm and pad kernels run twice at
+   the batch-1 shapes and equal (phase_checkpoint states what each must
+   show); save and restore seconds and the files' bytes; the
    saved latest_net_G_A.pth decoded through python -m mra_gan_tpu_torch.test;
 10. the serving daemon (python -m mra_gan_tpu_torch.serve --once, in process)
    on 4 synthetic 128x256x256 .nii.gz volumes and one truncated file: 4
@@ -185,12 +203,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    collectives, every rank ending with the preflight's SystemExit, and how
    long after rank 1 they ended. Times carry the label "ranks share one
    card over gloo": no NCCL or scaling figure.
-15. the benchmark, ``python -m mra_gan_tpu_torch.bench --cell <name> ...
-   --seed 1``, both cells of BENCHMARK.json in one subprocess: each line
+15. the benchmark, ``python -m mra_gan_tpu_torch.bench --cell <name>
+   --seed 1``, each cell of BENCHMARK.json in a subprocess of its own (the
+   cell's timed block the first work of its process, as phases 5 and 7
+   time theirs before any traced run): each line
    parses, is correct (against bench_reference.py's float32 plain
-   reference) with no failure, and its median sits within BENCH_RTOL of
-   phase 7's batch-8 s/step (train-b8-p64) or phase 5's decode s/volume
-   (decode-sw-128x256x256); each kernel's launches per step or volume of
+   reference) with no failure, and sits within BENCH_RTOL of this run:
+   the decode's median s/volume of phase 5's, the train step's median
+   s/step of phase 7's batch-8 step's and its device time a step (its
+   profiled kernels) of phase 7's profiled batch-8 step's; each
+   kernel's launches per step or volume of
    a cell, as its wrapper counted them, join the kernels line
    ("launches_cells"). (``python -m mra_gan_tpu_torch.bench --controls``
    shows that each cell's limits reject its faults.)
@@ -205,9 +227,12 @@ largest K-shard error and their K-shard times beside K = 1; the five conv7
 kernels' launches are the batch-8 step's (the forward ones run there in
 both roles), their times those of the step's 2B = 16 forward or weight
 gradient role (both passes for a weight gradient; the reduce alone at the
-stem's), each role's times beside them. ``--json-out PATH`` also writes
-every shape's numbers. The last line is {"ok": true, "device": {...}}.
-Without CUDA the script exits non-zero and prints no result.
+stem's), each role's times beside them; the two pad kernels' launches are
+the batch-8 step's, their times those of the head's pad at the step's
+2B = 16, the decode's batch-8 head pad and the other timed shapes beside
+them. ``--json-out PATH`` also writes every shape's numbers. The last line
+is {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -232,9 +257,10 @@ VOLUME = (128, 256, 256)  # bench.py:80
 STRIDE = 32
 DECODE_BATCH = 8
 # phase 5's timed decodes: the host sets a decode's pace (its idle share is
-# 25-45% with the conv7 kernels) and the host's load moves it from one
-# decode to the next, so the median phase 15 holds the benchmark to takes 15
-DECODE_REPEATS = 15
+# 50-70% since the pads' kernels) and the host's load moves it from one
+# decode to the next, so the median phase 15 holds the benchmark to is over
+# the benchmark's window (BENCHMARK.json decode-sw-128x256x256 timed)
+DECODE_REPEATS = 40
 EXPECTED_GRID = (147, 19)  # patches, batches
 CLI_SHAPES = [(96, 128, 77), (128, 128, 64), (100, 90, 45)]  # odd, even, sub-patch Z
 NGF = 32
@@ -242,12 +268,12 @@ NDF = 32
 TRAIN_BATCHES = (1, 8)  # bench.py:186-251
 TRAIN_LR = 2e-4
 NORMS_PER_STEP = 80  # 4 generator applies x 17 norms + 4 discriminator applies x 3
-TRAIN_WARMUP = 2
-TRAIN_TIMED_STEPS = (5, 3)  # at batch 1 and 8
+TRAIN_WARMUP = 5  # the benchmark's train cell's warm-up (BENCHMARK.json train-b8-p64)
+TRAIN_TIMED_STEPS = (5, 40)  # at batch 1 and 8: at batch 8 the train cell's window
 CKPT_STEPS = 2  # phase 9: steps before the save, and again after it
 CKPT_DECODE_SHAPE = (80, 72, 40)
 PAIRED_ACTS = ("leaky_relu", "tanh")
-BENCH_RTOL = 0.15  # phase 15: the benchmark's medians against phases 5 and 7
+BENCH_RTOL = 0.15  # phase 15: the benchmark's readings against phases 5 and 7
 BF16_ULP = 2.0 ** -8
 # f32 operations per element, for the operations bound
 APPLY_OPS = {"none": 2, "relu": 3, "leaky_relu": 4, "tanh": 10}
@@ -299,6 +325,14 @@ CONV7_SHARD_BOXES = ((2, (38, 70, 70)), (4, (70, 134, 134)), (1, (22, 70, 70)))
 CONV7_PER_FORWARD = {"conv7_spread": 1, "conv7_gather": 1}
 CONV7_PER_STEP = {"conv7_spread": 8, "conv7_gather": 6, "conv7_wgrad_spread": 4,
                   "conv7_wgrad_gather": 4, "conv7_wgrad_reduce": 8}
+# replication-pad launches: per generator forward (the stem's and the head's
+# 3-voxel pads, two 1-voxel pads in each of the 6 residual blocks), and per
+# train step (4 generator applies; each pad's backward but the stems' of the
+# 2 leaf applies, whose inputs are real images)
+PAD_PER_FORWARD = {"replication_pad_fwd": 14}
+PAD_PER_STEP = {"replication_pad_fwd": 56, "replication_pad_bwd": 54}
+# the pad shapes phase 2 times (the decode's batch 8, the step's 2B = 16)
+PAD_TIMED = (DECODE_BATCH, 2 * max(TRAIN_BATCHES))
 
 
 def check(cond: bool, what: str) -> None:
@@ -1110,6 +1144,155 @@ def phase_conv7_wgrad_times(bw: float, flops: float, tc: float, results: dict) -
     return rows
 
 
+def generator_pads(n: int, spatial) -> list:
+    """(role, (N, C, D, H, W), pad) of the three pad shapes of one
+    resnet_6blocks forward on ``spatial`` input: the stem's and the head's
+    3-voxel pads at full size, the residual blocks' 1-voxel pads (12 of
+    them) at a quarter."""
+    full = tuple(spatial)
+    return [("stem", (n, 1) + full, 3), ("trunk", (n, 4 * NGF) + tuple(s // 4 for s in full), 1),
+            ("head", (n, NGF) + full, 3)]
+
+
+def pad_cases():
+    """Phase 2's pad cases: (label, role, (N, C, D, H, W), pads), pads per
+    axis low and high (D, H, W): every pad shape of the decode (batch 8,
+    the short last batch of 3, the single pass) and of the train step at
+    batch 1 and 8 (the generators at 2B and B); the three at a depth shard
+    of phase 14's 2-way 1 x 64^3 spatial step after its halo exchange (depth
+    pad 0); an odd unequal box with an axis of 1 voxel at C = 6 (no 16-byte
+    unit: one element a thread) and unequal pads, and one at C = 128."""
+    cases = {}
+    paths = [("decode b8", DECODE_BATCH, PATCH), ("decode b3", 3, PATCH), ("single", 1, VOLUME)]
+    paths += [(f"train b{b}", n, PATCH) for b in TRAIN_BATCHES for n in (2 * b, b)]
+    for label, n, spatial in paths:
+        for role, shape, pad in generator_pads(n, spatial):
+            cases.setdefault((shape, (pad,) * 6), (label, role))
+    for role, shape, pad in generator_pads(1, (PATCH[0] // 2,) + PATCH[1:]):
+        shard = shape[:2] + (shape[2] + 2 * pad,) + shape[3:]
+        cases.setdefault((shard, (0, 0) + (pad,) * 4), ("shard", role))
+    cases.setdefault(((2, 6, 1, 17, 23), (3, 2, 1, 3, 0, 2)), ("odd box", "C=6"))
+    cases.setdefault(((3, 4 * NGF, 5, 1, 9), (1, 0, 2, 1, 1, 1)), ("odd box", "C=128"))
+    return [(label, role, shape, pads) for (shape, pads), (label, role) in cases.items()]
+
+
+def pad_launched(want: dict) -> bool:
+    """Each replication-pad kernel launched as often as ``want`` says (0
+    where it names none) since its counters were zeroed."""
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
+
+    return all(RP.LAUNCHES[k] == want.get(k, 0) for k in RP.LAUNCHES)
+
+
+def pad_inputs(shape, pads, dtype, gen):
+    """x of ``shape`` and a gradient g of its padded shape, both O(1) in
+    channels_last_3d on the card."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
+
+    x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    g = torch.randn(shape[:2] + RP.out_shape(shape[2:], pads), generator=gen,
+                    device=DEVICE).to(dtype)
+    return (x.contiguous(memory_format=torch.channels_last_3d),
+            g.contiguous(memory_format=torch.channels_last_3d))
+
+
+def phase_pad_kernels(bw: float, results: dict) -> list:
+    """Phase 2's pad part: both replication-pad kernels at every case of
+    pad_cases, bf16 and float32, against their plain versions on the same
+    input: bit for bit (the forward a copy; the backward the same float32
+    folds in the same order, rounded once), each run twice and bit-equal.
+    Then each kernel at the decode's and the step's batch sizes (PAD_TIMED),
+    bf16, timed beside its plain version, F.pad(mode="replicate") and its
+    autograd backward (the library call, the path before the kernels) and
+    the bound: its input read and its output written once at the memory
+    rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    for label, role, shape, pads in pad_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g = pad_inputs(shape, pads, dtype, gen)
+            y, y2 = RP.replication_pad_fwd(x, pads), RP.replication_pad_fwd(x, pads)
+            dx, dx2 = (RP.replication_pad_bwd(g, pads, shape[2:]),
+                       RP.replication_pad_bwd(g, pads, shape[2:]))
+            torch.cuda.synchronize()
+            want_y = RP.replication_pad_fwd_plain(x, pads)
+            want_dx = RP.replication_pad_bwd_plain(g, pads, shape[2:])
+            dt = "bf16" if dtype == torch.bfloat16 else "f32"
+            for name, got, again, want in (("replication_pad_fwd", y, y2, want_y),
+                                           ("replication_pad_bwd", dx, dx2, want_dx)):
+                err = float((got.float() - want.float()).abs().max())
+                results[name]["shapes"].append({"path": label, "role": role, "shape": list(shape),
+                                                "pads": list(pads), "dtype": dt,
+                                                "max_abs_err": err})
+                check(got.shape == want.shape and got.dtype == dtype
+                      and got.is_contiguous(memory_format=torch.channels_last_3d),
+                      f"{name} {label} {role} {shape} {pads} {dt}: {tuple(got.shape)} {got.dtype}")
+                check(torch.equal(got, again), f"{name} {label} {role} {shape} {dt}: two runs differ")
+                check(torch.equal(got, want), f"{name} {label} {role} {shape} {pads} {dt}: "
+                      f"{err} from the plain version")
+            print(f"[pad] {label:10s} {role:6s} {dt:4s} {str(shape):26s} pads {pads}: forward and "
+                  f"backward bit-equal to plain, twice", flush=True)
+            del x, g, y, y2, dx, dx2, want_y, want_dx
+        torch.cuda.empty_cache()
+
+    rows = []
+    for n in PAD_TIMED:
+        for role, shape, pad in generator_pads(n, PATCH):
+            pads = (pad,) * 6
+            x, g = pad_inputs(shape, pads, torch.bfloat16, gen)
+            xr = x.detach().requires_grad_()
+            lib_y = F.pad(xr, pads, mode="replicate")
+            nbytes = 2 * (x.numel() + g.numel())
+            for name, fn, plain, lib in (
+                    ("replication_pad_fwd", lambda: RP.replication_pad_fwd(x, pads),
+                     lambda: RP.replication_pad_fwd_plain(x, pads),
+                     lambda: F.pad(x, pads, mode="replicate")),
+                    ("replication_pad_bwd", lambda: RP.replication_pad_bwd(g, pads, shape[2:]),
+                     lambda: RP.replication_pad_bwd_plain(g, pads, shape[2:]),
+                     lambda: torch.autograd.grad(lib_y, xr, g, retain_graph=True))):
+                row = {"kernel": name, "role": role, "n": n, "shape": list(shape), "pad": pad,
+                       "ms": device_ms(fn, 10, 2), "plain_ms": device_ms(plain, 3, 1),
+                       "library_ms": device_ms(lib, 5, 1), "bytes": nbytes,
+                       "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes"}
+                rows.append(row)
+                results[name]["times"].append(row)
+                print(f"[pad] {name} {role:5s} n={n:2d} {str(shape):24s} kernel {row['ms']:.4f} "
+                      f"ms; plain {row['plain_ms']:.4f}; F.pad{' backward' if 'bwd' in name else ''}"
+                      f" {row['library_ms']:.4f}; bound {row['bound_ms']:.4f} ms (bytes)",
+                      flush=True)
+            del x, g, xr, lib_y
+        torch.cuda.empty_cache()
+    return rows
+
+
+def pad_kernels_reproducible() -> list:
+    """Both pad kernels run twice on the same input at every pad shape of
+    the batch-1 train step in bf16: the shapes whose two results differ in
+    any bit (the backward sums in a fixed order, so none should)."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    b = min(TRAIN_BATCHES)
+    differ = []
+    for n in (2 * b, b):
+        for role, shape, pad in generator_pads(n, PATCH):
+            pads = (pad,) * 6
+            x, g = pad_inputs(shape, pads, torch.bfloat16, gen)
+            first = (RP.replication_pad_fwd(x, pads), RP.replication_pad_bwd(g, pads, shape[2:]))
+            second = (RP.replication_pad_fwd(x, pads), RP.replication_pad_bwd(g, pads, shape[2:]))
+            if not all(torch.equal(a, c) for a, c in zip(first, second)):
+                differ.append(f"{role} {shape} pad {pad}")
+    return differ
+
+
 def phase_conv_formats() -> list:
     import torch
     import torch.nn.functional as F
@@ -1151,6 +1334,7 @@ def phase_generator(K, tree) -> None:
     from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
     from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
 
     x = torch.from_numpy(np.random.RandomState(SEED).uniform(
         -1, 1, (DECODE_BATCH, 1) + PATCH).astype(np.float32))
@@ -1162,6 +1346,7 @@ def phase_generator(K, tree) -> None:
         gen(x)  # cuDNN and kernel warm-up
         K.reset_launches()
         C7.reset_launches()
+        RP.reset_launches()
         t0 = time.perf_counter()
         y = gen(x)
         torch.cuda.synchronize()
@@ -1171,6 +1356,10 @@ def phase_generator(K, tree) -> None:
               f"no backward")
         want7 = CONV7_PER_FORWARD if dtype == torch.bfloat16 else {}  # float32: cuDNN
         check(conv7_launched(want7), f"conv7 launches per forward {C7.LAUNCHES}, want {want7}")
+        # the pads take the kernels in float32 too; no backward, no relayout
+        check(pad_launched(PAD_PER_FORWARD) and RP.RELAYOUTS["count"] == 0,
+              f"pad launches per forward {RP.LAUNCHES}, want {PAD_PER_FORWARD}; "
+              f"relayouts {RP.RELAYOUTS}")
         with plain_norms():
             yp = gen(x)
         check(y.shape == (DECODE_BATCH, 1) + PATCH and bool(torch.isfinite(y).all()),
@@ -1201,6 +1390,7 @@ def phase_decode(K, tree, results: dict) -> dict:
     from mra_gan_tpu_torch.infer.sliding_window import patch_grid, sliding_window_inference
     from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
     from mra_gan_tpu_torch.parallel.spatial import single_pass_apply
 
     gen = make_generate_fn(CycleGANConfig(ngf=NGF, dtype=torch.bfloat16), "g_a", DEVICE)
@@ -1217,28 +1407,33 @@ def phase_decode(K, tree, results: dict) -> dict:
     torch.cuda.synchronize()
     K.reset_launches()
     C7.reset_launches()
+    RP.reset_launches()
     t0 = time.perf_counter()
     out = decode()
     secs = [time.perf_counter() - t0]
     launches = dict(K.LAUNCHES)
     conv7_launches = dict(C7.LAUNCHES)
+    pad_launches = dict(RP.LAUNCHES)
     per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
     check(launched(K, times(per_forward, n_batches)),
           f"{n_batches} x {per_forward} launches per decode, no backward: {launches}")
     check(conv7_launched(times(CONV7_PER_FORWARD, n_batches)),
           f"{n_batches} x {CONV7_PER_FORWARD} conv7 launches per decode: {conv7_launches}")
+    check(pad_launched(times(PAD_PER_FORWARD, n_batches)) and RP.RELAYOUTS["count"] == 0,
+          f"{n_batches} x {PAD_PER_FORWARD} pad launches per decode, no backward, no "
+          f"relayout: {pad_launches}, {RP.RELAYOUTS}")
     check(out.shape == VOLUME and out.dtype == np.float32 and bool(np.isfinite(out).all()),
           "decode output finite float32 of the volume's shape")
     for _ in range(DECODE_REPEATS - 1):
         t0 = time.perf_counter()
         decode()
         secs.append(time.perf_counter() - t0)
-    profile = profile_run(decode, "decode")
     with plain_norms():
         ref = decode()
     diff = np.abs(out - ref)
     print(f"[decode] {VOLUME} volume, {n_patches} patches in {n_batches} batches: "
-          f"{secs} s; launches {launches}, conv7 {conv7_launches}; vs plain norms "
+          f"{secs} s; launches {launches}, conv7 {conv7_launches}, pads {pad_launches}; "
+          f"vs plain norms "
           f"max {diff.max():.3g} "
           f"mean {diff.mean():.3g}", flush=True)
     check(float(diff.mean()) <= 0.02 and float(diff.max()) <= 0.5,
@@ -1248,13 +1443,17 @@ def phase_decode(K, tree, results: dict) -> dict:
     torch.cuda.synchronize()
     K.reset_launches()
     C7.reset_launches()
+    RP.reset_launches()
     t0 = time.perf_counter()
     sp = single_pass_apply(gen, vol)
     sp_secs = [time.perf_counter() - t0]
     sp_launches = dict(K.LAUNCHES)
+    sp_pad_launches = dict(RP.LAUNCHES)
     want = forward_launches(K, generator_norms(1, VOLUME), torch.bfloat16)
     check(launched(K, want), f"single pass launches {sp_launches}, want {want}, no backward")
     check(conv7_launched(CONV7_PER_FORWARD), f"single pass conv7 launches {C7.LAUNCHES}")
+    # the volume needs no pad to the generator's granularity: the 14 pads alone
+    check(pad_launched(PAD_PER_FORWARD), f"single pass pad launches {sp_pad_launches}")
     check(sp.shape == VOLUME and bool(np.isfinite(sp).all()), "single-pass output finite")
     t0 = time.perf_counter()
     single_pass_apply(gen, vol)
@@ -1272,8 +1471,9 @@ def phase_decode(K, tree, results: dict) -> dict:
         r["launches_decode"] = launches[k]
         r["launches_single_pass"] = sp_launches[k]
     return {"decode_s": secs, "single_pass_s": sp_secs, "decode_launches": launches,
-            "single_pass_launches": sp_launches, "decode_profile": profile,
-            "conv7_launches": conv7_launches}
+            "single_pass_launches": sp_launches, "trace_decode": decode,
+            "conv7_launches": conv7_launches, "pad_launches": pad_launches,
+            "single_pass_pad_launches": sp_pad_launches}
 
 
 def phase_cli(K, tree, workdir: Path) -> None:
@@ -1285,6 +1485,7 @@ def phase_cli(K, tree, workdir: Path) -> None:
     from mra_gan_tpu_torch.data import nifti
     from mra_gan_tpu_torch.infer.sliding_window import patch_grid
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
 
     ck = workdir / "ck" / "smoke"
     ck.mkdir(parents=True)
@@ -1303,6 +1504,7 @@ def phase_cli(K, tree, workdir: Path) -> None:
         batches += -(-len(patch_grid(padded, PATCH, (STRIDE,) * 3)) // DECODE_BATCH)
     K.reset_launches()
     C7.reset_launches()
+    RP.reset_launches()
     t0 = time.perf_counter()
     failed = cli.main(["--image", str(workdir / "in"), "--result", str(workdir / "out"),
                        "--checkpoints_dir", str(workdir / "ck"), "--name", "smoke",
@@ -1316,6 +1518,8 @@ def phase_cli(K, tree, workdir: Path) -> None:
           f"CLI launches {K.LAUNCHES}, want {batches} x {per_forward}, no backward")
     check(conv7_launched(times(CONV7_PER_FORWARD, batches)),
           f"CLI conv7 launches {C7.LAUNCHES}, want {batches} x {CONV7_PER_FORWARD}")
+    check(pad_launched(times(PAD_PER_FORWARD, batches)),
+          f"CLI pad launches {RP.LAUNCHES}, want {batches} x {PAD_PER_FORWARD}")
     for i, shp in enumerate(shapes):
         src = nifti.load(workdir / "in" / f"v{i}.nii.gz")
         got = nifti.load(workdir / "out" / f"v{i}.nii.gz")
@@ -1345,18 +1549,41 @@ def train_inputs(batch: int, seed: int):
                  .to(DEVICE) for _ in range(2))
 
 
+def timed_steps(step, state, real_a, real_b, n: int):
+    """n train steps back to back, timed as the benchmark's train cell times
+    them (mra_gan_tpu_torch/bench.py train_cell): the seconds between CUDA
+    events recorded after each step. Returns them and the last step's
+    metrics."""
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    for _ in range(n):
+        _, metrics = step(state, real_a, real_b, TRAIN_LR)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])], metrics
+
+
 def phase_train(K, results: dict) -> dict:
     """create_state + make_train_step at the reference default in bf16, at
-    batch 1 and 8: warm-up steps, then timed steps with the launch counters
-    zeroed just before them, then one profiled step."""
+    batch 8, then 1: warm-up steps, then timed steps with the launch counters
+    zeroed just before them (s/step their median, as the benchmark reads
+    it), then one profiled step."""
+    import statistics
+
     import torch
 
     from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
 
     cfg = train_config(torch.bfloat16)
     out = {}
-    for batch, timed in zip(TRAIN_BATCHES, TRAIN_TIMED_STEPS):
+    # batch 8 first: phase 15 holds the benchmark to its reading, which
+    # comes, as the benchmark's, before any traced step of the process
+    for batch, timed in reversed(list(zip(TRAIN_BATCHES, TRAIN_TIMED_STEPS))):
         state = create_state(cfg, SEED, PATCH, DEVICE)
         step = make_train_step(cfg)
         real_a, real_b = train_inputs(batch, SEED + batch)
@@ -1366,18 +1593,25 @@ def phase_train(K, results: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
         C7.reset_launches()
+        RP.reset_launches()
         t0 = time.perf_counter()
-        for _ in range(timed):
-            _, metrics = step(state, real_a, real_b, TRAIN_LR)
-        torch.cuda.synchronize()
-        secs = (time.perf_counter() - t0) / timed
+        per_step, metrics = timed_steps(step, state, real_a, real_b, timed)
+        wall = (time.perf_counter() - t0) / timed
+        secs = statistics.median(per_step)
         launches = dict(K.LAUNCHES)
         conv7_launches = dict(C7.LAUNCHES)
+        pad_launches = dict(RP.LAUNCHES)
         conv7_relayouts = C7.GRAD_RELAYOUTS["count"] / timed
+        pad_relayouts = RP.RELAYOUTS["count"] / timed
         check(conv7_launched(times(CONV7_PER_STEP, timed)),
               f"train b{batch}: {CONV7_PER_STEP} conv7 launches per step: {conv7_launches} "
               f"over {timed} steps")
+        check(pad_launched(times(PAD_PER_STEP, timed)),
+              f"train b{batch}: {PAD_PER_STEP} pad launches per step: {pad_launches} over "
+              f"{timed} steps")
         relayouts = K.GRAD_RELAYOUTS["count"] / timed
+        # the pads' backward hands the norms channels_last_3d gradients
+        check(relayouts == 0, f"train b{batch}: {relayouts:g} norm gradient relayouts per step")
         norms = 4 * generator_norms(batch, PATCH) + 4 * patchgan_norms(batch)
         check(len(norms) == NORMS_PER_STEP, f"{len(norms)} norms per step")
         per_step = {**forward_launches(K, norms, cfg.dtype),
@@ -1388,16 +1622,19 @@ def phase_train(K, results: dict) -> dict:
         check(len(losses) == 10 and all(math.isfinite(v) for v in losses.values()),
               f"train b{batch}: finite losses {losses}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[train] b{batch}: {secs:.4f} s/step, {batch / secs:.3f} pairs/s over {timed} "
-              f"steps; peak memory {peak:.2f} GiB; launches {launches}, conv7 "
-              f"{conv7_launches}; gradient relayouts {relayouts:g} per step (norms), "
-              f"{conv7_relayouts:g} (the stem's conv7 backward); losses {losses}", flush=True)
+        print(f"[train] b{batch}: {secs:.4f} s/step (median; mean wall {wall:.4f}), "
+              f"{batch / secs:.3f} pairs/s over {timed} steps; peak memory {peak:.2f} GiB; launches {launches}, conv7 "
+              f"{conv7_launches}, pads {pad_launches}; gradient relayouts {relayouts:g} per "
+              f"step (norms), {conv7_relayouts:g} (the stem's conv7 backward), "
+              f"{pad_relayouts:g} (the pads); losses {losses}", flush=True)
         prof = profile_run(lambda: step(state, real_a, real_b, TRAIN_LR), f"train b{batch}")
         out[f"b{batch}"] = {"s_per_step": secs, "pairs_per_s": batch / secs, "steps": timed,
                             "peak_gib": peak, "launches": launches,
                             "grad_relayouts_per_step": relayouts, "losses": losses,
                             "profile": prof, "conv7_launches": conv7_launches,
-                            "conv7_grad_relayouts_per_step": conv7_relayouts}
+                            "conv7_grad_relayouts_per_step": conv7_relayouts,
+                            "pad_launches": pad_launches,
+                            "pad_relayouts_per_step": pad_relayouts}
         for k, n in with_wholes(launches).items():
             results[k].setdefault("launches_train_per_step", {})[f"b{batch}"] = n / timed
             if batch == max(TRAIN_BATCHES):
@@ -1523,14 +1760,13 @@ def norm_kernels_reproducible(K) -> list:
 
 def library_calls_reproducible() -> dict:
     """Two runs each, on one input, of the library calls of the batch-1
-    train step that are not this repo's kernels: the replication pad's
-    backward at the step's pad shapes, and cuDNN's conv forward, input
+    train step that are not this repo's kernels: cuDNN's conv forward, input
     gradient and weight gradient at its conv shapes, in bf16 and
     channels_last_3d. Returns {call: largest |difference|} (0.0 where the
     two runs agree bit for bit), under whatever determinism settings are on."""
     import torch
 
-    from mra_gan_tpu_torch.ops.conv import conv3d, conv_transpose3d, replication_pad3d
+    from mra_gan_tpu_torch.ops.conv import conv3d, conv_transpose3d
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     b = min(TRAIN_BATCHES)
@@ -1543,13 +1779,6 @@ def library_calls_reproducible() -> dict:
         return max(float((x - y).detach().abs().max()) for x, y in zip(first, second))
 
     out = {}
-    for n, c, side, pad in ((2 * b, 4 * NGF, 16, 1), (b, 4 * NGF, 16, 1), (2 * b, NGF, 64, 3),
-                            (b, NGF, 64, 3), (b, 1, 64, 3)):
-        x = vol((n, c, side, side, side)).requires_grad_()
-        y = replication_pad3d(x, pad)
-        g = vol(tuple(y.shape))
-        out[f"replication_pad3d backward {tuple(x.shape)} pad {pad}"] = spread(
-            lambda: torch.autograd.grad(y, x, g, retain_graph=True))
     for name, tr, xs, ws, stride, padding in (  # the 7^3 convs are conv7 kernels, all ways
             ("down1 c3s2", False, (2 * b, NGF, 64, 64, 64), (2 * NGF, NGF, 3, 3, 3), 2, 1),
             ("trunk c3", False, (2 * b, 4 * NGF, 18, 18, 18), (4 * NGF, 4 * NGF, 3, 3, 3), 1, 0),
@@ -1667,13 +1896,16 @@ def phase_checkpoint(K, workdir: Path) -> dict:
     (train_config, bf16, batch 1): resume_run twice, first with cuDNN's
     deterministic algorithms alone, then with torch.use_deterministic_algorithms
     on as well (``reproducible``), each held to its round trip, layouts and
-    launches. The second must be bit-equal in every parameter, Adam state,
-    pool, generator state and metric. Where the first is not, the library
-    calls of the step that are not this repo's kernels are run twice
-    (library_calls_reproducible) and one of them must differ, to name the
-    cause; the norm kernels are run twice at every batch-1 norm shape
-    (norm_kernels_reproducible) and must agree. Then latest_net_G_A.pth
-    decodes a small volume through ``python -m mra_gan_tpu_torch.test`` in a
+    launches. Both must be bit-equal in every parameter, Adam state, pool,
+    generator state and metric: every kernel of the step sums in a fixed
+    order, the replication pads' backward included, so cuDNN's setting
+    alone is enough. Beside them, under cuDNN's setting alone, the norm
+    kernels run twice at every batch-1 norm shape
+    (norm_kernels_reproducible) and the pad kernels at every batch-1 pad
+    shape (pad_kernels_reproducible) and must agree; the library calls of
+    the step that are not this repo's kernels run twice
+    (library_calls_reproducible), reported. Then latest_net_G_A.pth decodes
+    a small volume through ``python -m mra_gan_tpu_torch.test`` in a
     process of its own."""
     import numpy as np
     import torch
@@ -1701,16 +1933,18 @@ def phase_checkpoint(K, workdir: Path) -> dict:
               f"{r['metrics_max_diff']:.3g}, state {r['state_max_diff']:.3g})", flush=True)
     with reproducible(False):
         kernels_differ = norm_kernels_reproducible(K)
+        pads_differ = pad_kernels_reproducible()
         calls = library_calls_reproducible()
-    print(f"[checkpoint] norm kernels run twice differ at {kernels_differ or 'no shape'}; "
-          f"library calls run twice, largest |diff|: {calls}", flush=True)
+    print(f"[checkpoint] norm kernels run twice differ at {kernels_differ or 'no shape'}; pad "
+          f"kernels at {pads_differ or 'no shape'}; library calls run twice, largest |diff|: "
+          f"{calls}", flush=True)
     check(not kernels_differ, f"norm kernels not bit-reproducible at {kernels_differ}")
+    check(not pads_differ, f"pad kernels not bit-reproducible at {pads_differ}")
     check(runs["deterministic_algorithms"]["bit_equal"],
           "resumed run bit-equal to the straight one with deterministic algorithms")
-    culprits = sorted(k for k, v in calls.items() if v > 0)
-    check(runs["cudnn_deterministic"]["bit_equal"] or culprits,
-          "a resume that is not bit-equal under cuDNN's deterministic algorithms with no "
-          "library call found that differs between two runs")
+    check(runs["cudnn_deterministic"]["bit_equal"],
+          "resumed run bit-equal to the straight one with cuDNN's deterministic algorithms "
+          "alone")
     sizes = runs["cudnn_deterministic"]["bytes"]
     print(f"[checkpoint] ckpt_{CKPT_STEPS}.pt {sizes[f'ckpt_{CKPT_STEPS}.pt'] / 1e6:.1f} MB, "
           f"{CKPT_STEPS}_net_*.pth "
@@ -1745,7 +1979,8 @@ def phase_checkpoint(K, workdir: Path) -> dict:
     for r in runs.values():
         del r["g_a"]
     return {"runs": runs, "steps": CKPT_STEPS, "launches_per_run": per_steps,
-            "library_calls_twice_max_diff": calls, "decode_cli_s": decode_s}
+            "library_calls_twice_max_diff": calls, "pad_kernels_differ": pads_differ,
+            "decode_cli_s": decode_s}
 
 
 SERVE_VOLUMES = 4
@@ -3932,26 +4167,37 @@ def phase_parallel(K, tree, results: dict, decode: dict, phase13: dict, driver_d
 
 
 def phase_bench(K, train: dict, decode: dict, results: dict) -> dict:
-    """Phase 15: the benchmark's cells in one subprocess at seed 1, each held
-    against phase 7's batch-8 s/step or phase 5's median decode s/volume."""
+    """Phase 15: the benchmark's cells at seed 1, each in a subprocess of its
+    own (its timed block before any traced run of its process), each held
+    within BENCH_RTOL of this run's own reading: the train step's median
+    s/step against phase 7's batch-8 median, and its device time a step
+    (the sum of its profiled kernel classes, ``layers``) against phase 7's
+    profiled batch-8 step; the decode's median s/volume against phase 5's
+    median. Phases 5 and 7 time the benchmark's window the benchmark's way."""
     import statistics
 
     import torch
 
     torch.cuda.empty_cache()  # the subprocess needs the card's memory
-    refs = {"train-b8-p64": ("s_per_step", train["b8"]["s_per_step"]),
-            "decode-sw-128x256x256": ("s_per_volume", statistics.median(decode["decode_s"]))}
+    b8 = f"b{max(TRAIN_BATCHES)}"
+    # cell: (time key, this run's reading, this run's device ms or None)
+    refs = {"train-b8-p64": ("s_per_step", train[b8]["s_per_step"],
+                             train[b8]["profile"]["busy_ms"]),
+            "decode-sw-128x256x256": ("s_per_volume", statistics.median(decode["decode_s"]),
+                                      None)}
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mra_gan_tpu_torch.bench", "--seed", "1",
-                           *[a for cell in refs for a in ("--cell", cell)]],
-                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-                          timeout=600)
+    lines = {}
+    for cell in refs:
+        proc = subprocess.run([sys.executable, "-m", "mra_gan_tpu_torch.bench", "--seed", "1",
+                               "--cell", cell], cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"bench {cell} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        lines.update((r["cell"], r) for r in (json.loads(x) for x in proc.stdout.splitlines()
+                                              if x.startswith("{")))
     secs = time.perf_counter() - t0
-    check(proc.returncode == 0, f"bench exited {proc.returncode}: {proc.stderr[-2000:]}")
-    lines = {r["cell"]: r for r in (json.loads(x) for x in proc.stdout.splitlines()
-                                    if x.startswith("{"))}
     out = {"seconds": secs}
-    for cell, (key, ref) in refs.items():
+    for cell, (key, ref, ref_busy) in refs.items():
         line = lines[cell]
         check(line["correct"] is True and line["failures"] == 0,
               f"bench {cell}: correct, no failure ({line['correct']}, {line['failures']}, "
@@ -3962,6 +4208,13 @@ def phase_bench(K, train: dict, decode: dict, results: dict) -> dict:
               f"layers {line['layers']}", flush=True)
         check(abs(median / ref - 1) <= BENCH_RTOL,
               f"bench {cell}: median {median:.4f} s within {BENCH_RTOL:.0%} of {ref:.4f} s")
+        if ref_busy is not None:
+            busy = sum(v for k, v in line["layers"].items() if k.endswith("_ms"))
+            print(f"[bench] {cell}: device {busy:.2f} ms, phase {ref_busy:.2f} ms, "
+                  f"{busy / ref_busy - 1:+.1%}", flush=True)
+            check(abs(busy / ref_busy - 1) <= BENCH_RTOL,
+                  f"bench {cell}: device {busy:.2f} ms within {BENCH_RTOL:.0%} of "
+                  f"{ref_busy:.2f} ms")
         launches = next(v for k, v in line["work"].items() if k.startswith("norm_launches"))
         for k, n in with_wholes({**dict.fromkeys(K.FORWARD + K.BACKWARD, 0),
                                  **launches}).items():
@@ -4038,6 +4291,45 @@ def conv7_line(results: dict, train: dict, decode: dict) -> list:
     return out
 
 
+def pad_line(results: dict, train: dict, decode: dict) -> list:
+    """The replication-pad kernels' entries of the kernels line. Main path:
+    the batch-8 train step (phase 7's timed steps), which runs both; the
+    times at the head's pad at its 2B = 16 (the largest pad of the step),
+    the decode's batch-8 head pad and every timed shape beside them.
+    Launches per cell: phase 7's batch-8 step and phase 5's decode."""
+    b8 = f"b{max(TRAIN_BATCHES)}"
+    steps = train[b8]["steps"]
+    keys = ("role", "n", "shape", "ms", "plain_ms", "library_ms", "bound_ms")
+    out = []
+    for kernel in ("replication_pad_fwd", "replication_pad_bwd"):
+        r = results[kernel]
+        head = next(t for t in r["times"] if t["role"] == "head" and t["n"] == max(PAD_TIMED))
+        dec = next(t for t in r["times"] if t["role"] == "head" and t["n"] == DECODE_BATCH)
+        launches = train[b8]["pad_launches"][kernel]
+        check(launches > 0, f"{kernel} launched on its main path")
+        out.append({
+            "name": kernel, "route": "cuda",
+            "source": "mra_gan_tpu_torch/ops/kernels/csrc/replication_pad.cu",
+            "replaces": "F.pad replicate", "launches": launches,
+            "max_abs_err": max(t["max_abs_err"] for t in r["shapes"]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "bytes", "library_ms": head["library_ms"],
+            "at": {"role": "head", "shape": head["shape"], "pad": head["pad"], "dtype": "bf16"},
+            "decode_at": {k: dec[k] for k in keys},
+            "launches_train_per_step": {f"b{b}": train[f"b{b}"]["pad_launches"][kernel]
+                                        / train[f"b{b}"]["steps"] for b in TRAIN_BATCHES},
+            "launches_decode": decode["pad_launches"][kernel],
+            "launches_single_pass": decode["single_pass_pad_launches"][kernel],
+            "launches_cells": {"train-b8-p64": launches / steps,
+                               "decode-sw-128x256x256": decode["pad_launches"][kernel]},
+            "roles": [{k: t[k] for k in keys} for t in r["times"]],
+            "note": "no Pallas kernel: XLA's edge pad on the TPU (mra_gan_tpu/ops/conv.py:131); "
+                    "library_ms: F.pad(mode='replicate')" + (" and its autograd backward"
+                                                             if "bwd" in kernel else "")
+                    + ", the path before this kernel; max_abs_err against its plain version"})
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4108,6 +4400,8 @@ def main(argv=None) -> int:
     conv7_results = {k: {"shapes": []} for k in ("conv7_spread", "conv7_gather",
                                                   "conv7_wgrad_spread", "conv7_wgrad_gather",
                                                   "conv7_wgrad_reduce")}
+    pad_results = {k: {"shapes": [], "times": []}
+                   for k in ("replication_pad_fwd", "replication_pad_bwd")}
 
     if args.conv7:
         phase_conv7_kernels(conv7_results)
@@ -4125,6 +4419,7 @@ def main(argv=None) -> int:
     phase_train_kernels(K, bw, flops, results)
     phase_conv7_kernels(conv7_results)
     phase_conv7_wgrad_kernels(conv7_results)
+    pad_rows = phase_pad_kernels(bw, pad_results)
     conv_rows = phase_conv_formats()
     conv7_rows = phase_conv7_times(bw, tc, conv7_results)
     conv7_rows += phase_conv7_wgrad_times(bw, flops, tc, conv7_results)
@@ -4136,6 +4431,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_cli(K, tree, Path(tmp))
     train = phase_train(K, results)
+    decode["decode_profile"] = profile_run(decode.pop("trace_decode"), "decode")
     parity = phase_train_parity()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         ckpt = phase_checkpoint(K, Path(tmp))
@@ -4199,16 +4495,18 @@ def main(argv=None) -> int:
                 if k in r}),
             **({"note": r["note"]} if "note" in r else {})})
     kernels += conv7_line(conv7_results, train, decode)
+    kernels += pad_line(pad_results, train, decode)
     summary = {"decode": decode, "train": train, "train_parity": parity, "checkpoint": ckpt,
                "serve": serving, "train_driver": train_driver, "zoo": zoo, "phase13": phase13,
                "parallel": parallel, "bench": bench,
-               "conv_formats": conv_rows, "conv7": conv7_rows,
+               "conv_formats": conv_rows, "conv7": conv7_rows, "pads": pad_rows,
                "seconds": time.perf_counter() - t_start}
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(
             {"gpu": card, **summary, "kernels": kernels,
-             "shapes": {k: r["shapes"] for k, r in results.items()}}, indent=1))
+             "shapes": {k: r["shapes"] for k, r in {**results, **pad_results}.items()}},
+            indent=1))
     for prof in [decode["decode_profile"]] + [t["profile"] for t in train.values()]:
         prof.pop("top", None)  # printed above; kept in --json-out
         prof.pop("gaps", None)

@@ -50,6 +50,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.kernels.replication_pad import replication_pad_fwd
+
 # the branches in the JAX package's order (augment.py:300-307)
 BRANCHES = ("none", "noise", "blur", "rotate", "bspline", "flip", "brightness", "contrast",
             "translate", "rotate_z", "rotate_x", "rotate_y", "imadjust")
@@ -89,8 +91,8 @@ def gaussian_blur(x: torch.Tensor, sigma: float, radius: int = BLUR_RADIUS) -> t
     y = x
     for axis in (2, 3, 4):
         pads = [0] * 6
-        pads[2 * (4 - axis)] = pads[2 * (4 - axis) + 1] = radius
-        yp = F.pad(y, pads, mode="replicate")
+        pads[2 * axis - 4] = pads[2 * axis - 3] = radius
+        yp = replication_pad_fwd(y, tuple(pads))
         n = y.shape[axis]
         acc = yp.narrow(axis, 0, n) * taps[0]
         for i in range(1, len(taps)):

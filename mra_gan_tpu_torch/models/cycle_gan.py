@@ -59,6 +59,7 @@ from ..core.device import resolve_device
 from ..core.dtypes import set_conv_precision
 from ..core.spatial_ctx import (data_shard_info, shard_axes, spatial_shard_info,
                                 spatial_unsharded)
+from ..ops.conv import param_casts
 from ..ops.losses import cor_coe_loss, gan_loss, l1_loss
 from ..parallel.collectives import all_gather, all_gather_stacked, all_reduce_
 from .networks import Dropout, check_patch, define_d, define_g, remat_segments
@@ -377,18 +378,20 @@ def make_train_step(cfg: CycleGANConfig):
     def apply_d(d: nn.Module, x: torch.Tensor) -> torch.Tensor:
         # depth shards are gathered; the discriminator runs on whole volumes
         sp = spatial_shard_info()
-        if sp is None:
-            return d(x)
-        xg = all_gather(x, sp.group, dim=2)
-        with spatial_unsharded():
-            return d(xg)
+        with param_casts(d, cfg.dtype):
+            if sp is None:
+                return d(x)
+            xg = all_gather(x, sp.group, dim=2)
+            with spatial_unsharded():
+                return d(xg)
 
     def apply_g(s: CycleGANState, g: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        if not cfg.remat:
-            return g(x)
-        for segment in remat_segments(g):
-            x = _checkpointed(segment, x, s.dropout_generator)
-        return x
+        with param_casts(g, cfg.dtype):
+            if not cfg.remat:
+                return g(x)
+            for segment in remat_segments(g):
+                x = _checkpointed(segment, x, s.dropout_generator)
+            return x
 
     def d_loss(s: CycleGANState, real_a, real_b, fake_a, fake_b):
         # 0.5 * (gan(D(real), 1) + gan(D(pooled fake), 0)) per D, real and

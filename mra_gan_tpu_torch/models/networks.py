@@ -47,7 +47,7 @@ from torch import nn
 
 from ..core.spatial_ctx import data_shard_info, spatial_shard_info
 from ..ops.conv import (_keep_layout, _triple, conv3d, conv_transpose3d, extend_sharded_d,
-                        replication_pad3d)
+                        param_cast, replication_pad3d)
 from ..ops.init import get_initializer, init_conv_
 from ..ops.norm import instance_norm_act
 
@@ -69,10 +69,11 @@ class _ConvBase(nn.Module):
         """The bias as the forward adds it: detached where it is norm-dead
         and a gradient is recorded. Where none is (inference), the parameter
         itself, whose cast ``ops.conv`` keeps: a fresh detached view would
-        be cast again at every call."""
+        be cast again at every call. Inside ``ops.conv.param_casts`` the
+        cast made there, detached."""
         if self.bias is None or not self.dead_bias or not torch.is_grad_enabled():
             return self.bias
-        return self.bias.detach()
+        return param_cast(self.bias).detach()
 
 
 class Conv3d(_ConvBase):

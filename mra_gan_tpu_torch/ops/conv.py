@@ -3,8 +3,10 @@ mra_gan_tpu/ops/conv.py:35,65,131).
 
 Weights stay float32 and are cast to the activation's dtype at each call, as
 the JAX Conv3D casts its kernel, so bfloat16 compute runs over float32
-parameters; without gradients (inference) a parameter's cast is kept until
-the parameter changes. torch's ConvTranspose3d already has the reference's semantics
+parameters; inside ``param_casts`` (each network apply of a train step) all
+of a network's casts are made, and their gradients cast back, in one copy
+each; without gradients (inference) a parameter's cast is kept until the
+parameter changes. torch's ConvTranspose3d already has the reference's semantics
 (out = (in - 1) * stride - 2 * pad + k + output_padding).
 
 On CUDA the generator runs in channels_last_3d (NDHWC in memory, the layout of
@@ -15,6 +17,12 @@ process group: ``extend_sharded_d`` grows a shard by halo rows from its
 neighbours (edge or zero rows at the volume's two ends), and
 ``replication_pad3d`` pads depth that way and H and W locally (JAX
 ops/conv.py:96-150).
+
+The replication pads go through the hand-written kernels of
+``ops/kernels/replication_pad.py`` on CUDA (bfloat16, float32, float64),
+forward and backward, and through their plain versions on the CPU; the
+backward is a gather in a fixed order, so a train step's input gradients do
+not change from run to run. Nothing here calls F.pad.
 
 The 7^3 single-channel convs. ``conv3d`` sends every conv with a 7^3
 kernel, stride 1, no padding and one input or one output channel (the
@@ -35,18 +43,23 @@ gradient's sum in float32, rounded once, on the kernels' route, and
 ``aten.convolution_backward``'s elsewhere. The ops carry
 torch.utils.flop_counter formulas, so FlopCounterMode counts them exactly as
 it counts ``aten.convolution`` and the input and weight parts of
-``aten.convolution_backward``."""
+``aten.convolution_backward``. Where no dispatch mode is on, ``conv3d``
+runs the same functions through the autograd Function ``C7Convolution``,
+without the custom ops' dispatch."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 from torch.utils.flop_counter import conv_flop_count, register_flop_formula
 
 from ..core.spatial_ctx import spatial_shard_info
 from ..parallel.collectives import neighbour_exchange
-from .kernels import conv7
+from .kernels import conv7, replication_pad
 
 _CL = torch.channels_last_3d
 _TAPS = (7, 7, 7)
@@ -83,15 +96,40 @@ def _taps(weight: torch.Tensor, flip: bool) -> torch.Tensor:
     return (w.flip(1, 2, 3) if flip else w).contiguous()
 
 
-@torch.library.custom_op("mra_torch::c7_convolution", mutates_args=())
-def c7_convolution(x: torch.Tensor, weight: torch.Tensor,
-                   bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """F.conv3d(x, weight, bias) for a ``single_channel_7`` weight."""
+def _c7_forward(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
     if not _on_kernels(x):
         return F.conv3d(x, weight, bias)
     if weight.shape[1] == 1:
         return conv7.conv7_spread(x.contiguous(), _taps(weight, False), bias)
     return conv7.conv7_gather(x.contiguous(memory_format=_CL), _taps(weight, False), bias)
+
+
+def _c7_input_grad(grad: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    if not _on_kernels(grad):
+        shape = (grad.shape[0], weight.shape[1], *(s + 6 for s in grad.shape[2:]))
+        return torch.nn.grad.conv3d_input(shape, weight, grad)
+    if weight.shape[1] == 1:
+        return conv7.conv7_gather(grad.contiguous(memory_format=_CL), _taps(weight, True), None,
+                                  6)
+    return conv7.conv7_spread(grad.contiguous(), _taps(weight, True), None, 6)
+
+
+def _c7_weight_grad(grad: torch.Tensor, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    if not _on_kernels(grad):
+        return torch.nn.grad.conv3d_weight(x, weight.shape, grad)
+    if weight.shape[1] == 1:
+        dw = conv7.conv7_wgrad_spread(x.contiguous(), grad.contiguous(memory_format=_CL))
+    else:
+        dw = conv7.conv7_wgrad_gather(x.contiguous(memory_format=_CL), grad.contiguous())
+    return dw.view(weight.shape)
+
+
+@torch.library.custom_op("mra_torch::c7_convolution", mutates_args=())
+def c7_convolution(x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """F.conv3d(x, weight, bias) for a ``single_channel_7`` weight."""
+    return _c7_forward(x, weight, bias)
 
 
 @c7_convolution.register_fake
@@ -103,13 +141,7 @@ def _(x, weight, bias):
 def c7_convolution_input_grad(grad: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The gradient of ``c7_convolution`` with respect to x, from the
     gradient of its output: a transposed conv, each axis 6 longer."""
-    if not _on_kernels(grad):
-        shape = (grad.shape[0], weight.shape[1], *(s + 6 for s in grad.shape[2:]))
-        return torch.nn.grad.conv3d_input(shape, weight, grad)
-    if weight.shape[1] == 1:
-        return conv7.conv7_gather(grad.contiguous(memory_format=_CL), _taps(weight, True), None,
-                                  6)
-    return conv7.conv7_spread(grad.contiguous(), _taps(weight, True), None, 6)
+    return _c7_input_grad(grad, weight)
 
 
 @c7_convolution_input_grad.register_fake
@@ -123,18 +155,24 @@ def c7_convolution_weight_grad(grad: torch.Tensor, x: torch.Tensor,
     """The gradient of ``c7_convolution`` with respect to its weight (of
     ``weight``'s shape and dtype), from its input and the gradient of its
     output."""
-    if not _on_kernels(grad):
-        return torch.nn.grad.conv3d_weight(x, weight.shape, grad)
-    if weight.shape[1] == 1:
-        dw = conv7.conv7_wgrad_spread(x.contiguous(), grad.contiguous(memory_format=_CL))
-    else:
-        dw = conv7.conv7_wgrad_gather(x.contiguous(memory_format=_CL), grad.contiguous())
-    return dw.view(weight.shape)
+    return _c7_weight_grad(grad, x, weight)
 
 
 @c7_convolution_weight_grad.register_fake
 def _(grad, x, weight):
     return weight.new_empty(weight.shape)
+
+
+# the number of dispatch modes on the stack (FlopCounterMode, FakeTensorMode)
+_DISPATCH_MODES = getattr(torch._C, "_len_torch_dispatch_stack", lambda: 1)
+
+
+def _as_op(impl, op):
+    """``op``, the custom op, where a dispatch mode is on the stack (a mode
+    sees the custom op, not what runs inside it); else ``impl``, the same
+    function without the custom op's dispatch, whose host time a train step
+    would pay at each stem and head conv and at their gradients."""
+    return op if _DISPATCH_MODES() else impl
 
 
 def _c7_setup(ctx, inputs, output):
@@ -151,8 +189,8 @@ def _c7_backward(ctx, grad):
         # the stem's kernels (input and weight gradient) take g in channels_last_3d
         conv7.GRAD_RELAYOUTS["count"] += 1
         grad = grad.contiguous(memory_format=_CL)
-    gx = c7_convolution_input_grad(grad, weight) if need_x else None
-    gw = c7_convolution_weight_grad(grad, x, weight) if need_w else None
+    gx = _as_op(_c7_input_grad, c7_convolution_input_grad)(grad, weight) if need_x else None
+    gw = _as_op(_c7_weight_grad, c7_convolution_weight_grad)(grad, x, weight) if need_w else None
     gb = _c7_bias_grad(grad, x, weight) if need_b and ctx.has_bias else None
     return gx, gw, gb
 
@@ -170,6 +208,23 @@ def _c7_bias_grad(grad: torch.Tensor, x: torch.Tensor, weight: torch.Tensor) -> 
 
 
 c7_convolution.register_autograd(_c7_backward, setup_context=_c7_setup)
+
+
+class C7Convolution(torch.autograd.Function):
+    """``c7_convolution`` and its backward as a plain autograd Function:
+    ``conv3d``'s route where no dispatch mode is on. The same functions run
+    inside, so the results are the custom op's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        out = _c7_forward(x, weight, bias)
+        _c7_setup(ctx, (x, weight, bias), out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return _c7_backward(ctx, grad)
 
 
 @register_flop_formula(torch.ops.mra_torch.c7_convolution)
@@ -192,13 +247,76 @@ def _c7_weight_grad_flops(grad_shape, x_shape, w_shape, *args, out_shape, **kwar
     return conv_flop_count(t(x_shape), t(grad_shape), t(w_shape), transposed=False)
 
 
+# {id(parameter): its cast} inside ``param_casts``
+_PARAM_CASTS: contextvars.ContextVar = contextvars.ContextVar("mra_torch_param_casts",
+                                                              default=None)
+
+
+class CastParams(torch.autograd.Function):
+    """A network's parameters cast to ``dtype`` in one foreach copy, and
+    the casts' gradients cast back in another: a train step would otherwise
+    cast each weight and bias of each network apply, and each gradient
+    back, one launch and one autograd node apiece. Each cast and each
+    gradient is ``t.to(dtype)``'s and its backward's, bit for bit; a cast
+    that no gradient reaches gives its parameter none."""
+
+    @staticmethod
+    def forward(ctx, dtype, *params):
+        ctx.set_materialize_grads(False)
+        ctx.dtypes = [p.dtype for p in params]
+        casts = [torch.empty_like(p, dtype=dtype) for p in params]
+        torch._foreach_copy_(casts, list(params))
+        return tuple(casts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        live = [i for i, g in enumerate(grads) if g is not None]
+        out = [None] * len(grads)
+        if live:
+            back = [torch.empty_like(grads[i], dtype=ctx.dtypes[i]) for i in live]
+            torch._foreach_copy_(back, [grads[i] for i in live])
+            for i, g in zip(live, back):
+                out[i] = g
+        return (None, *out)
+
+
+@contextlib.contextmanager
+def param_casts(net: torch.nn.Module, dtype: torch.dtype):
+    """Inside, ``_cast`` (every conv's weight and bias) takes ``net``'s
+    parameters cast to ``dtype`` by one ``CastParams``, where a gradient is
+    recorded; elsewhere, or where no parameter needs the cast, nothing
+    changes."""
+    params = ([p for p in net.parameters() if p.dtype != dtype and p.is_floating_point()]
+              if torch.is_grad_enabled() else [])
+    if not params:
+        yield
+        return
+    casts = CastParams.apply(dtype, *params)
+    token = _PARAM_CASTS.set({id(p): c for p, c in zip(params, casts)})
+    try:
+        yield
+    finally:
+        _PARAM_CASTS.reset(token)
+
+
+def param_cast(t: torch.Tensor) -> torch.Tensor:
+    """The cast of parameter ``t`` that ``param_casts`` made, else ``t``."""
+    casts = _PARAM_CASTS.get()
+    return t if casts is None else casts.get(id(t), t)
+
+
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
-    """``t`` in ``dtype``. Where no gradient is recorded (inference), a
-    parameter's cast is kept on it and made again only once the parameter has
-    changed (its version, storage, device), so a decode casts each weight once
-    and not at every patch batch; the bits are the same either way."""
+    """``t`` in ``dtype``. Inside ``param_casts`` a parameter takes the cast
+    made there. Where no gradient is recorded (inference), a parameter's
+    cast is kept on it and made again only once the parameter has changed
+    (its version, storage, device), so a decode casts each weight once and
+    not at every patch batch; the bits are the same either way."""
     if t is None or t.dtype == dtype:
         return t
+    held = param_cast(t)
+    if held.dtype == dtype:
+        return held
     if torch.is_grad_enabled() or not isinstance(t, torch.nn.Parameter):
         return t.to(dtype)
     key = (t._version, t.data_ptr(), t.device, dtype)
@@ -215,7 +333,7 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     ``single_channel_7`` conv goes through ``c7_convolution``."""
     b, w = _cast(bias, x.dtype), _cast(weight, x.dtype)
     if single_channel_7(weight.shape, stride, padding):
-        return _keep_layout(c7_convolution(x, w, b), x)
+        return _keep_layout(_as_op(C7Convolution.apply, c7_convolution)(x, w, b), x)
     return _keep_layout(F.conv3d(x, w, b, stride, padding), x)
 
 
@@ -240,11 +358,32 @@ def extend_sharded_d(x: torch.Tensor, lo: int, hi: int, boundary: str = "edge") 
     return neighbour_exchange(x, lo, hi, boundary, axis.group)
 
 
+class ReplicationPad(torch.autograd.Function):
+    """``replication_pad.replication_pad_fwd`` with its fixed-order backward,
+    ``replication_pad_bwd``: the kernels on CUDA, their plain versions on
+    the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, pads):
+        ctx.pads, ctx.box = pads, tuple(x.shape[2:])
+        return replication_pad.replication_pad_fwd(x, pads)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return replication_pad.replication_pad_bwd(g, ctx.pads, ctx.box), None
+
+
 def replication_pad3d(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Edge-replicate ``pad`` voxels on each side of D, H and W (torch
     nn.ReplicationPad3d); under spatial sharding the depth pad is a halo
-    exchange with edge rows at the volume's ends."""
+    exchange with edge rows at the volume's ends, and the kernels pad H and
+    W. Where autograd records nothing (a decode) the forward runs without
+    the autograd Function."""
+    pads = (pad,) * 6
     if spatial_shard_info() is not None:
         x = extend_sharded_d(x, pad, pad, "edge")
-        return _keep_layout(F.pad(x, (pad, pad, pad, pad, 0, 0), mode="replicate"), x)
-    return _keep_layout(F.pad(x, (pad,) * 6, mode="replicate"), x)
+        pads = (0, 0) + pads[2:]
+    if torch.is_grad_enabled() and x.requires_grad:
+        return ReplicationPad.apply(x, pads)
+    return replication_pad.replication_pad_fwd(x, pads)

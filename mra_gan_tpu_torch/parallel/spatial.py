@@ -33,6 +33,7 @@ from ..core.spatial_ctx import spatial_sharding
 from ..infer.sliding_window import gaussian_window, patch_grid, per_call
 from ..models.networks import ResnetGenerator3D, granularity, spatial_granularity
 from ..ops.conv import conv3d
+from ..ops.kernels.replication_pad import replication_pad_fwd
 from .collectives import all_gather_stacked, all_reduce_, neighbour_exchange
 from .sharding import data_rows, shard_state
 
@@ -59,7 +60,8 @@ def single_pass_apply(generate_fn, volume: np.ndarray) -> np.ndarray:
     host = torch.from_numpy(np.ascontiguousarray(volume, np.float32)).to(generate_fn.dtype)
     try:
         x = host.to(generate_fn.device)[None, None]
-        x = F.pad(x, [v for p in reversed(pads) for v in (0, p)], mode="replicate")
+        if any(pads):
+            x = replication_pad_fwd(x, (0, pads[0], 0, pads[1], 0, pads[2]))
         out = generate_fn(x)[0, 0, :shp[0], :shp[1], :shp[2]]
         return out.float().cpu().numpy()
     except torch.cuda.OutOfMemoryError:
