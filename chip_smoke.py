@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --conv7   # phase 1 and the conv7 parts of phases 2-3 alone
+    python3 chip_smoke.py --conv4s2   # phase 1 and the conv4s2 parts of phases 2-3 alone
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -46,7 +47,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    in bf16 and float32, each bit-equal to its plain version and twice
    bit-equal, then at the decode's and the step's batch sizes timed beside
    the plain version, F.pad(mode="replicate") and its autograd backward (the
-   path before the kernels) and the byte bound;
+   path before the kernels) and the byte bound; and the four conv4s2
+   kernels (the PatchGAN's first conv and the U-Net's outermost down conv:
+   conv4s2_spread forward, conv4s2_gather input gradient, conv4s2_wgrad
+   weight and bias gradient with its conv4s2_wgrad_reduce) at every case of
+   C4S2_CASES (the step's N = 16, 8, 2, 1 on 64^3, an odd box, C = 4, 5 and
+   40, the U-Net's depth shard at pads (0, 1, 1) and an odd box there,
+   unet_128's 128^3) against their plain versions at the conv7 bar, each
+   twice and bit-equal, the reduce bit-equal to its plain version;
 3. cuDNN conv3d / conv_transpose3d at the generator's shapes, NCDHW against
    channels_last_3d; and each conv7 role, the weight gradients included, at
    the cells' batch sizes (16, 8) timed beside cuDNN's heuristic pick in
@@ -54,13 +62,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    torch.backends.cudnn.benchmark on, the plain float32 version and the
    bound (FLOPs at the bf16 peak or bytes at the memory rate, whichever is
    larger, named); the reduce pass alone beside torch.sum of its partials;
+   and each conv4s2 kernel at N = 16 and 8 on 64^3 beside cuDNN's bf16
+   call for the same direction (heuristic, and with cudnn.benchmark on; it
+   must beat the heuristic call), its plain version and its bound (after
+   phase 7 a profile names the kernels of cuDNN's calls, the path before);
 4. the resnet_6blocks generator at ngf=32, batch 8, 64^3, weights from a
    seeded numpy tree in the JAX layout through state_dict_from_jax: kernel
    norms against plain norms in bfloat16 and (TF32 off) float32, and the
    exact launches of each forward kernel per forward that uses_slab gives
    (13 slab, 4 stats, 4 apply), none of a backward one (nor in phases 5-6),
    one launch of each conv7 kernel per bf16 forward (none in float32) and 14
-   of the pad forward in both (no backward, no relayout);
+   of the pad forward in both (no backward, no relayout), no conv4s2 launch
+   (nor in phases 5-6: the decode runs no discriminator);
 5. the sliding-window decode of a 128x256x256 volume (147 patches in 19
    batches, Gaussian blend; 19 x those launches, 266 pad forwards;
    DECODE_REPEATS timed decodes, the median kept; its traced decode runs
@@ -81,10 +94,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    stats, 16 apply; backward: 64 bwd slab, 16 bwd stats, 16 bwd apply;
    conv7: 8 spread, 6 gather, 4 wgrad spread, 4 wgrad gather, 8 wgrad
    reduce; pads: 56 forward, 54 backward, the stems of the two leaf applies
-   having none), the stem gradients the conv7 backward had to relayout, the
-   pads' relayouts, the norms' gradient relayouts (none: the pads' backward
-   hands them channels_last_3d), finite losses, and one profiled step by
-   kernel class;
+   having none; conv4s2: 4 spread, 2 gather, 2 wgrad, 2 reduce, the
+   generator update asking no discriminator weight gradient), the stem
+   gradients the conv7 backward had to relayout, the pads' relayouts, the
+   norms' gradient relayouts (none: the pads' backward hands them
+   channels_last_3d), finite losses, and one profiled step by kernel class;
+   a step whose host ops are profiled with their shapes must call no aten
+   convolution with the PatchGAN's first conv's (C, 1, 4, 4, 4) weight;
 8. step 0 at batch 1 through the kernels and through the plain norms, in
    float32 (TF32 off) and bf16, each against a float64 step
    (phase_train_parity states the bars);
@@ -93,8 +109,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    another seed and the same 2 steps, against the straight run bit for bit,
    once with cuDNN's deterministic algorithms and once with
    torch.use_deterministic_algorithms as well, both required (every kernel
-   of the step sums in a fixed order), the norm and pad kernels run twice at
-   the batch-1 shapes and equal (phase_checkpoint states what each must
+   of the step sums in a fixed order), the norm, pad and conv4s2 kernels run
+   twice at the batch-1 shapes and equal (phase_checkpoint states what each must
    show); save and restore seconds and the files' bytes; the
    saved latest_net_G_A.pth decoded through python -m mra_gan_tpu_torch.test;
 10. the serving daemon (python -m mra_gan_tpu_torch.serve --once, in process)
@@ -143,8 +159,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    unet_custom + PatchGAN, Dynet + PatchGAN, resnet_6blocks + pixel
    discriminator and resnet_6blocks + PatchGAN under --norm batch (plain
    PyTorch norms: no kernel launch), each one warm-up step and two timed
-   (s/step, pairs/s, peak memory, exact launches, gradient relayouts,
-   finite losses); and the Dynet state saved by CheckpointManager, its
+   (s/step, pairs/s, peak memory, exact launches, the conv4s2 ones from the
+   U-Net's outermost down conv and the PatchGAN's first conv, gradient
+   relayouts, finite losses; the U-Net decodes and forwards one conv4s2
+   forward a generator forward); and the Dynet state saved by CheckpointManager, its
    latest_net_G_A.pth with MONAI's skip_layers aliases decoded by the CLI
    bit-equal to an in-process decode. Cuts: two steps per configuration
    instead of an epoch; unet_128 and unet_256 need 2^7 and 2^8 voxels per
@@ -230,7 +248,9 @@ gradient role (both passes for a weight gradient; the reduce alone at the
 stem's), each role's times beside them; the two pad kernels' launches are
 the batch-8 step's, their times those of the head's pad at the step's
 2B = 16, the decode's batch-8 head pad and the other timed shapes beside
-them. ``--json-out PATH`` also writes every shape's numbers. The last line
+them; the four conv4s2 kernels' launches are the batch-8 step's, their
+times those of the step's largest call (the forward and the weight
+gradient at 16, the input gradient at 8), the other batch size beside. ``--json-out PATH`` also writes every shape's numbers. The last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
 and prints no result.
 """
@@ -1144,6 +1164,419 @@ def phase_conv7_wgrad_times(bw: float, flops: float, tc: float, results: dict) -
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the stride-2 4^3 one-channel convs (the PatchGAN's first conv, the U-Net's
+# outermost down conv) on the conv4s2 kernels
+
+C4S2_KERNELS = ("conv4s2_spread", "conv4s2_gather", "conv4s2_wgrad", "conv4s2_wgrad_reduce")
+# phase 2's cases: (label, N, C, input box, pads): the batch-8 step's
+# discriminator update (2B = 16) and generator update (B = 8), the batch-1
+# step's (2, 1), an odd unequal box, C = 4 and 5 (no 16-byte vectors), C = 40
+# (a partial second chunk), the U-Net's 2-way depth shard at 64^3 (34 planes
+# after the zero halo, depth pad 0), an odd box at those pads, and unet_128's
+# 128^3 input
+C4S2_CASES = (("step D", 16, NDF, PATCH, (1, 1, 1)), ("step G", 8, NDF, PATCH, (1, 1, 1)),
+              ("b1 D", 2, NDF, PATCH, (1, 1, 1)), ("b1 G", 1, NDF, PATCH, (1, 1, 1)),
+              ("odd box", 2, NDF, (21, 18, 23), (1, 1, 1)), ("C=4", 2, 4, (20, 22, 18), (1, 1, 1)),
+              ("C=5", 2, 5, (19, 20, 22), (1, 1, 1)), ("C=40", 2, 40, (20, 22, 18), (1, 1, 1)),
+              ("U-Net shard", 1, NGF, (34, 64, 64), (0, 1, 1)),
+              ("odd box p011", 2, NDF, (21, 18, 23), (0, 1, 1)),
+              ("unet_128", 1, NGF, (128, 128, 128), (1, 1, 1)))
+# launches per train step at the reference default: the discriminators'
+# first conv in 2 applies of the generator update (input gradients through
+# the fakes, no weight gradient) and 2 stacked applies of the discriminator
+# update (weight and bias gradients, no input gradient)
+C4S2_PER_STEP = {"conv4s2_spread": 4, "conv4s2_gather": 2, "conv4s2_wgrad": 2,
+                 "conv4s2_wgrad_reduce": 2}
+C4S2_TIMED = (16, 8)  # phase 3 times each kernel at the step's batch sizes
+
+
+def c4s2_launched(want: dict) -> bool:
+    """Each conv4s2 kernel launched as often as ``want`` says (0 where it
+    names none) since its counters were zeroed."""
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
+
+    return all(C4.LAUNCHES[k] == want.get(k, 0) for k in C4.LAUNCHES)
+
+
+def c4s2_per_step(net_g: str, net_d: str, norm: str, dtype) -> dict:
+    """conv4s2 launches per train step: a U-Net generator's outermost down
+    conv in its 4 applies (input gradients in the 2 cycle applies, whose
+    inputs are fakes), a PatchGAN's first conv in 2 generator-update applies
+    and 2 discriminator-update applies, or 4 where the norm keeps real and
+    fake apart (batch norm); none in float32 (cuDNN)."""
+    import torch
+
+    if dtype != torch.bfloat16:
+        return {}
+    spread = gather = wgrad = 0
+    if net_g.startswith("unet"):
+        spread, gather, wgrad = 4, 2, 4
+    if net_d in ("n_layers", "basic"):
+        d_update = 2 if norm in ("instance", "none") else 4
+        spread, gather, wgrad = spread + 2 + d_update, gather + 2, wgrad + d_update
+    want = {"conv4s2_spread": spread, "conv4s2_gather": gather, "conv4s2_wgrad": wgrad,
+            "conv4s2_wgrad_reduce": wgrad}
+    return {k: v for k, v in want.items() if v}
+
+
+def c4s2_inputs(n: int, c: int, box, pads, gen):
+    """bf16 inputs on the card as the step gives them: x (N, 1, box) in
+    [-1, 1], the taps (C, 4, 4, 4) at 1/8 (O(1) outputs), a bias, and an
+    output gradient (N, C, out box) in channels_last_3d."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
+
+    x = (torch.rand((n, 1, *box), generator=gen, device=DEVICE) * 2 - 1).bfloat16()
+    w = (torch.randn((c, 4, 4, 4), generator=gen, device=DEVICE) / 8).bfloat16()
+    b = (0.1 * torch.randn((c,), generator=gen, device=DEVICE)).bfloat16()
+    g = torch.randn((n, c, *C4.out_shape(box, pads)), generator=gen, device=DEVICE).bfloat16()
+    return x, w, b, g.contiguous(memory_format=torch.channels_last_3d)
+
+
+def _over_half_ulp(got, ref) -> float:
+    """How far ``got`` lies beyond half an ulp of each element of ``ref``,
+    as a share of ref's scale (the conv7 bar holds it to 2^-12)."""
+    err = (got.float() - ref).abs()
+    return float((err - 2 ** -8 * ref.abs()).max()) / float(ref.abs().max())
+
+
+def phase_conv4s2_kernels(results: dict) -> None:
+    """Phase 2's conv4s2 part: at every case of C4S2_CASES each kernel
+    (forward, input gradient, weight and bias gradient through its reduce)
+    twice, bit-equal, against its plain version on the card (float32
+    F.conv3d, conv3d_input, conv3d_weight and the sum of g, of the same bf16
+    inputs, TF32 off) at phase_conv7_kernels' bar: |kernel - ref| <= 2^-8
+    |ref| + 2^-12 max|ref|; and the reduce alone on each case's partials
+    against its plain version, which sums in the kernel's order: bit for
+    bit."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for label, n, c, box, pads in C4S2_CASES:
+            x, w, b, g = c4s2_inputs(n, c, box, pads, gen)
+            runs = {
+                "conv4s2_spread": (lambda: (C4.conv4s2_spread(x, w, b, pads),),
+                                   lambda: (C4.conv4s2_spread_plain(x.float(), w, b, pads),)),
+                "conv4s2_gather": (lambda: (C4.conv4s2_gather(g, w, pads, box),),
+                                   lambda: (C4.conv4s2_gather_plain(g.float(), w, pads, box),)),
+                "conv4s2_wgrad": (lambda: C4.conv4s2_wgrad(x, g, pads),
+                                  lambda: C4.conv4s2_wgrad_plain(x.float(), g.float(), pads)),
+            }
+            line = []
+            for kernel, (fn, plain) in runs.items():
+                got, again = fn(), fn()
+                torch.cuda.synchronize()
+                ref = plain()
+                for t, a, r in zip(got, again, ref):
+                    check(t.shape == r.shape and t.dtype == torch.bfloat16,
+                          f"{kernel} {label}: {tuple(t.shape)} {t.dtype}, want {tuple(r.shape)}")
+                    check(torch.equal(t, a), f"{kernel} {label}: two runs differ")
+                worst = max(_over_half_ulp(t, r) for t, r in zip(got, ref))
+                err = max(float((t.float() - r).abs().max()) for t, r in zip(got, ref))
+                results[kernel]["shapes"].append({"case": label, "n": n, "c": c, "box": list(box),
+                                                  "pads": list(pads), "max_abs_err": err,
+                                                  "over_half_ulp_rel": worst})
+                check(worst <= 2 ** -12, f"{kernel} {label}: {worst} > 2^-12")
+                line.append(f"{kernel} err {err:.3g} ({worst:.2g} past half an ulp)")
+            part = C4.conv4s2_wgrad_partials(x, g, pads)
+            red, red2 = C4.conv4s2_wgrad_reduce(part, c), C4.conv4s2_wgrad_reduce(part, c)
+            want = C4.conv4s2_wgrad_reduce_plain(part, c)
+            err = max(float((t.float() - r.float()).abs().max()) for t, r in zip(red, want))
+            results["conv4s2_wgrad_reduce"]["shapes"].append({
+                "case": label, "n": n, "c": c, "partials": part.shape[0], "max_abs_err": err})
+            check(all(torch.equal(t, a) for t, a in zip(red, red2)),
+                  f"conv4s2_wgrad_reduce {label}: two runs differ")
+            check(all(torch.equal(t, r) for t, r in zip(red, want)),
+                  f"conv4s2_wgrad_reduce {label}: {err} from its plain version")
+            print(f"[conv4s2] {label:13s} n={n:2d} c={c:2d} {box} pads {pads}: "
+                  + "; ".join(line) + f"; reduce over {part.shape[0]} partials bit-equal to "
+                  f"plain; each twice bit-equal", flush=True)
+            del x, w, b, g, part
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def cudnn_kernels(fn) -> list:
+    """The device kernels one call of ``fn`` runs, under torch.profiler:
+    [(name, ms)], longest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3)
+            for e in prof.key_averages() if str(e.device_type) == "DeviceType.CUDA"]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_conv4s2_times(bw: float, flops: float, tc: float, results: dict) -> list:
+    """Phase 3's conv4s2 part: each kernel at the step's batch sizes (16,
+    the discriminator update's stacked applies, and 8, the generator
+    update's) beside cuDNN's bf16 call for the same direction and shape in
+    channels_last_3d (the path before the kernels: F.conv3d, conv3d_input,
+    convolution_backward for the weight and bias), heuristic and with
+    torch.backends.cudnn.benchmark on, the plain version (float32, TF32 off)
+    and the bound: each input read and each output written once at the
+    memory rate, or the FLOPs at the bf16 tensor-core peak, whichever is
+    larger; the reduce alone beside its bound (its partials read once, or
+    their adds at the float32 rate). Each kernel must beat cuDNN's heuristic
+    call. (c4s2_cudnn_split, after phase 7, names the kernels of those
+    calls.)"""
+    import torch
+    import torch.nn.functional as F
+
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    pads = (1, 1, 1)
+    rows = []
+    tf32, bench = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark
+    cl = torch.channels_last_3d
+    try:
+        for n in C4S2_TIMED:
+            x, w, b, g = c4s2_inputs(n, NDF, PATCH, pads, gen)
+            w5 = w[:, None].contiguous(memory_format=cl)
+            out = C4.out_shape(PATCH, pads)
+            vox_in, vox_out = n * math.prod(PATCH), n * math.prod(out)
+            flop = 2 * 64 * NDF * vox_out
+            part = C4.conv4s2_wgrad_partials(x, g, pads)
+            cases = (
+                ("conv4s2_spread", "forward", lambda: C4.conv4s2_spread(x, w, b, pads),
+                 lambda: C4.conv4s2_spread_plain(x.float(), w, b, pads),
+                 lambda: F.conv3d(x, w5, b, 2, pads), 2 * (vox_in + NDF * vox_out + w.numel())),
+                ("conv4s2_gather", "input grad", lambda: C4.conv4s2_gather(g, w, pads, PATCH),
+                 lambda: C4.conv4s2_gather_plain(g.float(), w, pads, PATCH),
+                 lambda: torch.nn.grad.conv3d_input(x.shape, w5, g, 2, pads),
+                 2 * (NDF * vox_out + vox_in + w.numel())),
+                ("conv4s2_wgrad", "weight grad", lambda: C4.conv4s2_wgrad(x, g, pads),
+                 lambda: C4.conv4s2_wgrad_plain(x.float(), g.float(), pads),
+                 lambda: torch.ops.aten.convolution_backward(
+                     g, x, w5, [NDF], [2] * 3, list(pads), [1] * 3, False, [0] * 3, 1,
+                     [False, True, True]),
+                 2 * (vox_in + NDF * vox_out + 65 * NDF)))
+            for kernel, role, fn, plain, lib, nbytes in cases:
+                torch.backends.cudnn.benchmark = False
+                row = {"kernel": kernel, "role": role, "n": n, "ms": device_ms(fn, 20, 3),
+                       "cudnn_ms": device_ms(lib, 5, 1)}
+                torch.backends.cudnn.benchmark = True
+                row["cudnn_benchmark_ms"] = device_ms(lib, 5, 2)
+                torch.backends.cudnn.benchmark = bench
+                torch.backends.cudnn.allow_tf32 = False
+                row["plain_ms"] = device_ms(plain, 3, 1)
+                torch.backends.cudnn.allow_tf32 = tf32
+                row.update(flop=flop, bytes=nbytes, bound_ms=max(flop / tc, nbytes / bw) * 1e3,
+                           bound_by="operations" if flop / tc >= nbytes / bw else "bytes")
+                rows.append(row)
+                results[kernel].setdefault("times", []).append(row)
+                print(f"[conv4s2] {role:11s} n={n:2d} kernel {row['ms']:.4f} ms; cuDNN "
+                      f"heuristic {row['cudnn_ms']:.4f}, searched {row['cudnn_benchmark_ms']:.4f}; "
+                      f"plain f32 {row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']})", flush=True)
+                check(row["ms"] < row["cudnn_ms"],
+                      f"{kernel} n={n}: {row['ms']:.4f} ms, not under cuDNN's {row['cudnn_ms']:.4f}")
+            r_bytes = 4 * part.numel() + 2 * 65 * NDF
+            row = {"kernel": "conv4s2_wgrad_reduce", "role": "weight grad", "n": n,
+                   "partials": part.shape[0],
+                   "ms": device_ms(lambda: C4.conv4s2_wgrad_reduce(part, NDF), 20, 3),
+                   "plain_ms": device_ms(lambda: C4.conv4s2_wgrad_reduce_plain(part, NDF), 3, 1),
+                   "sum_only_ms": device_ms(lambda: part.sum(0), 20, 3),
+                   "bytes": r_bytes, "bound_ms": max(part.numel() / flops, r_bytes / bw) * 1e3,
+                   "bound_by": "bytes" if r_bytes / bw >= part.numel() / flops else "operations"}
+            rows.append(row)
+            results["conv4s2_wgrad_reduce"].setdefault("times", []).append(row)
+            print(f"[conv4s2] reduce      n={n:2d} over {row['partials']} partials {row['ms']:.4f} "
+                  f"ms; plain {row['plain_ms']:.4f}; torch.sum alone {row['sum_only_ms']:.4f}; "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            del x, w, b, g, w5, part
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = tf32, bench
+    return rows
+
+
+def c4s2_kernels_reproducible() -> list:
+    """The conv4s2 kernels run twice on the same input at the batch-1
+    step's shapes (the forward and the weight gradient at 2, the discriminator
+    update's; the forward and the input gradient at 1, the generator
+    update's): the shapes whose two results differ in any bit."""
+    import torch
+
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    pads = (1, 1, 1)
+    b1 = min(TRAIN_BATCHES)
+    differ = []
+    for n, kernels in ((2 * b1, ("spread", "wgrad")), (b1, ("spread", "gather"))):
+        x, w, b, g = c4s2_inputs(n, NDF, PATCH, pads, gen)
+        fns = {"spread": lambda: (C4.conv4s2_spread(x, w, b, pads),),
+               "gather": lambda: (C4.conv4s2_gather(g, w, pads, PATCH),),
+               "wgrad": lambda: C4.conv4s2_wgrad(x, g, pads)}
+        for k in kernels:
+            if not all(torch.equal(a, c) for a, c in zip(fns[k](), fns[k]())):
+                differ.append(f"conv4s2_{k} n={n}")
+    return differ
+
+
+def c4s2_line(results: dict, train: dict, decode: dict) -> list:
+    """The conv4s2 kernels' entries of the kernels line. Main path: the
+    batch-8 train step (phase 7's timed steps), which runs all four; the
+    times at the step's largest call of each (the forward and the weight
+    gradient at 2B = 16, the input gradient at B = 8), the other batch size
+    beside them. Launches per cell: phase 7's batch-8 step and phase 5's
+    decode (none: the decode runs no discriminator)."""
+    b8 = f"b{max(TRAIN_BATCHES)}"
+    steps = train[b8]["steps"]
+    out = []
+    for kernel in C4S2_KERNELS:
+        r = results[kernel]
+        n_main = max(TRAIN_BATCHES) if kernel == "conv4s2_gather" else 2 * max(TRAIN_BATCHES)
+        head = next(t for t in r["times"] if t["n"] == n_main)
+        launches = train[b8]["c4s2_launches"][kernel]
+        check(launches > 0, f"{kernel} launched on its main path")
+        reduce = kernel == "conv4s2_wgrad_reduce"
+        entry = {
+            "name": kernel, "route": "cuda",
+            "source": "mra_gan_tpu_torch/ops/kernels/csrc/conv4s2.cu",
+            "replaces": "mra_gan_tpu/ops/s2d.py:618",
+            "launches": launches, "max_abs_err": max(s["max_abs_err"] for s in r["shapes"]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None if reduce else head["cudnn_ms"],
+            "at": {"n": n_main, "shape": [n_main, 1, *PATCH], "dtype": "bf16"},
+            "launches_train_per_step": {f"b{b}": train[f"b{b}"]["c4s2_launches"][kernel]
+                                        / train[f"b{b}"]["steps"] for b in TRAIN_BATCHES},
+            "launches_decode": decode["c4s2_launches"][kernel],
+            "launches_cells": {"train-b8-p64": launches / steps,
+                               "decode-sw-128x256x256": decode["c4s2_launches"][kernel]},
+            "times": [{k: v for k, v in t.items() if k != "cudnn_kernels"} for t in r["times"]],
+            "note": "no Pallas kernel: XLA's conv over space-to-depth cells on the TPU "
+                    "(conv3d_s2d_stride2); library_ms: cuDNN's heuristic pick in bf16, the path "
+                    "before this kernel; max_abs_err against its plain version"}
+        if kernel == "conv4s2_wgrad":
+            entry["note"] += "; ms: both passes (the partial sums and conv4s2_wgrad_reduce)"
+        if reduce:
+            entry.update(sum_only_ms=head["sum_only_ms"],
+                         note="the weight gradient's second pass: the partial sums of a fixed "
+                              "grid in a fixed order, one rounding, bit-equal to its plain "
+                              "version; library_ms: none, no one PyTorch call sums in that order "
+                              "and rounds; sum_only_ms: torch.sum of the partials alone")
+        out.append(entry)
+    return out
+
+
+def c4s2_cudnn_split(results: dict) -> list:
+    """The path before the conv4s2 kernels split by direction: the device
+    kernels of cuDNN's heuristic bf16 call for each direction at the step's
+    shapes (the forward at 16 and 8, the input gradient at 8, the weight and
+    bias gradient at 16), under torch.profiler, and beside them the kernels
+    of the PatchGAN's head conv (8 ndf -> 1 channel, 4^3, stride 1), which
+    stays on cuDNN. Run after phase 7's timed steps, as no timed block of
+    this process runs after a trace."""
+    import torch
+    import torch.nn.functional as F
+
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    pads, cl = (1, 1, 1), torch.channels_last_3d
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    rows = []
+    try:
+        for n, role in ((16, "forward"), (8, "forward"), (8, "input grad"), (16, "weight grad")):
+            x, w, b, g = c4s2_inputs(n, NDF, PATCH, pads, gen)
+            w5 = w[:, None].contiguous(memory_format=cl)
+            lib = {"forward": lambda: F.conv3d(x, w5, b, 2, pads),
+                   "input grad": lambda: torch.nn.grad.conv3d_input(x.shape, w5, g, 2, pads),
+                   "weight grad": lambda: torch.ops.aten.convolution_backward(
+                       g, x, w5, [NDF], [2] * 3, list(pads), [1] * 3, False, [0] * 3, 1,
+                       [False, True, True])}[role]
+            split = cudnn_kernels(lib)
+            rows.append({"conv": "first", "role": role, "n": n, "kernels": split})
+            print(f"[conv4s2] cuDNN's {role} at n={n}: "
+                  + "; ".join(f"{k[:90]} {v:.4f} ms" for k, v in split), flush=True)
+            del x, w, b, g, w5
+        # the PatchGAN's head conv, Conv3d(8 ndf, 1, 4, stride 1, pad 1) on
+        # the 7^3 map (no conv4s2 route), at the step's 16: its cuDNN kernels
+        # beside the first conv's
+        x = torch.randn((16, 8 * NDF, 7, 7, 7), generator=gen, device=DEVICE).bfloat16()
+        x = x.contiguous(memory_format=cl).requires_grad_()
+        w = (torch.randn((1, 8 * NDF, 4, 4, 4), generator=gen, device=DEVICE) / 128).bfloat16()
+        w = w.contiguous(memory_format=cl).requires_grad_()
+        y = F.conv3d(x, w, None, 1, 1)
+        g = torch.randn(y.shape, generator=gen, device=DEVICE).bfloat16()
+        for role, lib in (("forward", lambda: F.conv3d(x, w, None, 1, 1)),
+                          ("input and weight grad",
+                           lambda: torch.autograd.grad(y, (x, w), g, retain_graph=True))):
+            split = cudnn_kernels(lib)
+            rows.append({"conv": "head", "role": role, "n": 16, "kernels": split})
+            print(f"[conv4s2] the PatchGAN head's cuDNN {role} at n=16: "
+                  + "; ".join(f"{k[:90]} {v:.4f} ms" for k, v in split), flush=True)
+        del x, w, y, g
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    results["conv4s2_spread"]["cudnn_split"] = rows
+    return rows
+
+
+def patchgan_conv_calls() -> list:
+    """The step's discriminator (3-layer PatchGAN at NDF, bf16, seeded
+    weights) as its two updates run it: at 2B = 16 with weight gradients
+    (the discriminator update) and at B = 8 with an input gradient and no
+    weight gradient (the generator update), under torch.profiler with
+    shapes: each convolution op that reaches cuDNN, by its shapes, with its
+    calls and device ms. It names which conv each cuDNN kernel of the
+    step's profile serves."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mra_gan_tpu_torch.models.networks import define_d
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    net = define_d(1, NDF, "n_layers", 3).to(DEVICE, memory_format=torch.channels_last_3d)
+    rows = []
+    for n, update in ((2 * max(TRAIN_BATCHES), "discriminator"), (max(TRAIN_BATCHES), "generator")):
+        x = torch.rand((n, 1, *PATCH), generator=gen, device=DEVICE).bfloat16()
+        x.requires_grad_(update == "generator")
+        params = [p for p in net.parameters()]
+
+        def run():
+            from mra_gan_tpu_torch.ops.conv import param_casts
+
+            with param_casts(net, torch.bfloat16):
+                y = net(x)
+            want = [x] if update == "generator" else params
+            torch.autograd.grad(y.float().square().mean(), want, allow_unused=True)
+
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            run()
+            torch.cuda.synchronize()
+        for e in prof.key_averages(group_by_input_shape=True):
+            if e.key not in ("aten::cudnn_convolution", "aten::convolution_backward"):
+                continue
+            ms = e.device_time_total / 1e3
+            rows.append({"update": update, "n": n, "op": e.key, "shapes": str(e.input_shapes[:3]),
+                         "calls": e.count, "device_ms": ms})
+            print(f"[patchgan] {update} update n={n}: {e.key} {e.input_shapes[:3]} x{e.count}: "
+                  f"{ms:.4f} ms on the device", flush=True)
+    del net
+    return rows
+
+
 def generator_pads(n: int, spatial) -> list:
     """(role, (N, C, D, H, W), pad) of the three pad shapes of one
     resnet_6blocks forward on ``spatial`` input: the stem's and the head's
@@ -1333,6 +1766,7 @@ def phase_generator(K, tree) -> None:
 
     from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
     from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
     from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
 
@@ -1347,6 +1781,7 @@ def phase_generator(K, tree) -> None:
         K.reset_launches()
         C7.reset_launches()
         RP.reset_launches()
+        C4.reset_launches()
         t0 = time.perf_counter()
         y = gen(x)
         torch.cuda.synchronize()
@@ -1356,6 +1791,7 @@ def phase_generator(K, tree) -> None:
               f"no backward")
         want7 = CONV7_PER_FORWARD if dtype == torch.bfloat16 else {}  # float32: cuDNN
         check(conv7_launched(want7), f"conv7 launches per forward {C7.LAUNCHES}, want {want7}")
+        check(c4s2_launched({}), f"conv4s2 launches in a generator forward {C4.LAUNCHES}")
         # the pads take the kernels in float32 too; no backward, no relayout
         check(pad_launched(PAD_PER_FORWARD) and RP.RELAYOUTS["count"] == 0,
               f"pad launches per forward {RP.LAUNCHES}, want {PAD_PER_FORWARD}; "
@@ -1389,6 +1825,7 @@ def phase_decode(K, tree, results: dict) -> dict:
     from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
     from mra_gan_tpu_torch.infer.sliding_window import patch_grid, sliding_window_inference
     from mra_gan_tpu_torch.models.cycle_gan import CycleGANConfig, make_generate_fn
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
     from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
     from mra_gan_tpu_torch.parallel.spatial import single_pass_apply
@@ -1408,12 +1845,15 @@ def phase_decode(K, tree, results: dict) -> dict:
     K.reset_launches()
     C7.reset_launches()
     RP.reset_launches()
+    C4.reset_launches()
     t0 = time.perf_counter()
     out = decode()
     secs = [time.perf_counter() - t0]
     launches = dict(K.LAUNCHES)
     conv7_launches = dict(C7.LAUNCHES)
     pad_launches = dict(RP.LAUNCHES)
+    c4s2_launches = dict(C4.LAUNCHES)
+    check(c4s2_launched({}), f"conv4s2 launches in a decode (no discriminator): {c4s2_launches}")
     per_forward = forward_launches(K, generator_norms(DECODE_BATCH, PATCH), torch.bfloat16)
     check(launched(K, times(per_forward, n_batches)),
           f"{n_batches} x {per_forward} launches per decode, no backward: {launches}")
@@ -1473,7 +1913,7 @@ def phase_decode(K, tree, results: dict) -> dict:
     return {"decode_s": secs, "single_pass_s": sp_secs, "decode_launches": launches,
             "single_pass_launches": sp_launches, "trace_decode": decode,
             "conv7_launches": conv7_launches, "pad_launches": pad_launches,
-            "single_pass_pad_launches": sp_pad_launches}
+            "single_pass_pad_launches": sp_pad_launches, "c4s2_launches": c4s2_launches}
 
 
 def phase_cli(K, tree, workdir: Path) -> None:
@@ -1484,6 +1924,7 @@ def phase_cli(K, tree, workdir: Path) -> None:
     from mra_gan_tpu_torch.checkpoint.io import state_dict_from_jax
     from mra_gan_tpu_torch.data import nifti
     from mra_gan_tpu_torch.infer.sliding_window import patch_grid
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
     from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
 
@@ -1505,6 +1946,7 @@ def phase_cli(K, tree, workdir: Path) -> None:
     K.reset_launches()
     C7.reset_launches()
     RP.reset_launches()
+    C4.reset_launches()
     t0 = time.perf_counter()
     failed = cli.main(["--image", str(workdir / "in"), "--result", str(workdir / "out"),
                        "--checkpoints_dir", str(workdir / "ck"), "--name", "smoke",
@@ -1520,6 +1962,7 @@ def phase_cli(K, tree, workdir: Path) -> None:
           f"CLI conv7 launches {C7.LAUNCHES}, want {batches} x {CONV7_PER_FORWARD}")
     check(pad_launched(times(PAD_PER_FORWARD, batches)),
           f"CLI pad launches {RP.LAUNCHES}, want {batches} x {PAD_PER_FORWARD}")
+    check(c4s2_launched({}), f"CLI conv4s2 launches {C4.LAUNCHES}, want none")
     for i, shp in enumerate(shapes):
         src = nifti.load(workdir / "in" / f"v{i}.nii.gz")
         got = nifti.load(workdir / "out" / f"v{i}.nii.gz")
@@ -1566,6 +2009,22 @@ def timed_steps(step, state, real_a, real_b, n: int):
     return [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])], metrics
 
 
+def first_conv_library_calls(fn) -> list:
+    """The convolution ops that one call of ``fn`` sends to aten (cuDNN on
+    the card) with a (C, 1, 4, 4, 4) weight, the conv4s2 route's shape,
+    under a profile of the host's ops that records their shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = ("aten::convolution", "aten::convolution_backward", "aten::cudnn_convolution")
+    return sorted({f"{e.name} {e.input_shapes[:3]}" for e in prof.events() if e.name in names
+                   and any(len(t) == 5 and list(t[1:]) == [1, 4, 4, 4] for t in e.input_shapes)})
+
+
 def phase_train(K, results: dict) -> dict:
     """create_state + make_train_step at the reference default in bf16, at
     batch 8, then 1: warm-up steps, then timed steps with the launch counters
@@ -1576,6 +2035,7 @@ def phase_train(K, results: dict) -> dict:
     import torch
 
     from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
     from mra_gan_tpu_torch.ops.kernels import conv7 as C7
     from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
 
@@ -1594,6 +2054,7 @@ def phase_train(K, results: dict) -> dict:
         K.reset_launches()
         C7.reset_launches()
         RP.reset_launches()
+        C4.reset_launches()
         t0 = time.perf_counter()
         per_step, metrics = timed_steps(step, state, real_a, real_b, timed)
         wall = (time.perf_counter() - t0) / timed
@@ -1603,6 +2064,11 @@ def phase_train(K, results: dict) -> dict:
         pad_launches = dict(RP.LAUNCHES)
         conv7_relayouts = C7.GRAD_RELAYOUTS["count"] / timed
         pad_relayouts = RP.RELAYOUTS["count"] / timed
+        c4s2_launches = dict(C4.LAUNCHES)
+        c4s2_relayouts = C4.RELAYOUTS["count"] / timed
+        check(c4s2_launched(times(C4S2_PER_STEP, timed)),
+              f"train b{batch}: {C4S2_PER_STEP} conv4s2 launches per step: {c4s2_launches} "
+              f"over {timed} steps")
         check(conv7_launched(times(CONV7_PER_STEP, timed)),
               f"train b{batch}: {CONV7_PER_STEP} conv7 launches per step: {conv7_launches} "
               f"over {timed} steps")
@@ -1626,15 +2092,21 @@ def phase_train(K, results: dict) -> dict:
               f"{batch / secs:.3f} pairs/s over {timed} steps; peak memory {peak:.2f} GiB; launches {launches}, conv7 "
               f"{conv7_launches}, pads {pad_launches}; gradient relayouts {relayouts:g} per "
               f"step (norms), {conv7_relayouts:g} (the stem's conv7 backward), "
-              f"{pad_relayouts:g} (the pads); losses {losses}", flush=True)
+              f"{pad_relayouts:g} (the pads), {c4s2_relayouts:g} (the conv4s2 backward); "
+              f"conv4s2 {c4s2_launches}; losses {losses}", flush=True)
         prof = profile_run(lambda: step(state, real_a, real_b, TRAIN_LR), f"train b{batch}")
+        at_first_conv = first_conv_library_calls(lambda: step(state, real_a, real_b, TRAIN_LR))
+        check(not at_first_conv, f"train b{batch}: the step still calls cuDNN with the "
+              f"PatchGAN's first conv's weight: {at_first_conv}")
         out[f"b{batch}"] = {"s_per_step": secs, "pairs_per_s": batch / secs, "steps": timed,
                             "peak_gib": peak, "launches": launches,
                             "grad_relayouts_per_step": relayouts, "losses": losses,
                             "profile": prof, "conv7_launches": conv7_launches,
                             "conv7_grad_relayouts_per_step": conv7_relayouts,
                             "pad_launches": pad_launches,
-                            "pad_relayouts_per_step": pad_relayouts}
+                            "pad_relayouts_per_step": pad_relayouts,
+                            "c4s2_launches": c4s2_launches,
+                            "c4s2_relayouts_per_step": c4s2_relayouts}
         for k, n in with_wholes(launches).items():
             results[k].setdefault("launches_train_per_step", {})[f"b{batch}"] = n / timed
             if batch == max(TRAIN_BATCHES):
@@ -1934,12 +2406,15 @@ def phase_checkpoint(K, workdir: Path) -> dict:
     with reproducible(False):
         kernels_differ = norm_kernels_reproducible(K)
         pads_differ = pad_kernels_reproducible()
+        c4s2_differ = c4s2_kernels_reproducible()
         calls = library_calls_reproducible()
     print(f"[checkpoint] norm kernels run twice differ at {kernels_differ or 'no shape'}; pad "
-          f"kernels at {pads_differ or 'no shape'}; library calls run twice, largest |diff|: "
+          f"kernels at {pads_differ or 'no shape'}; conv4s2 kernels at "
+          f"{c4s2_differ or 'no shape'}; library calls run twice, largest |diff|: "
           f"{calls}", flush=True)
     check(not kernels_differ, f"norm kernels not bit-reproducible at {kernels_differ}")
     check(not pads_differ, f"pad kernels not bit-reproducible at {pads_differ}")
+    check(not c4s2_differ, f"conv4s2 kernels not bit-reproducible at {c4s2_differ}")
     check(runs["deterministic_algorithms"]["bit_equal"],
           "resumed run bit-equal to the straight one with deterministic algorithms")
     check(runs["cudnn_deterministic"]["bit_equal"],
@@ -1980,6 +2455,7 @@ def phase_checkpoint(K, workdir: Path) -> dict:
         del r["g_a"]
     return {"runs": runs, "steps": CKPT_STEPS, "launches_per_run": per_steps,
             "library_calls_twice_max_diff": calls, "pad_kernels_differ": pads_differ,
+            "c4s2_kernels_differ": c4s2_differ,
             "decode_cli_s": decode_s}
 
 
@@ -2578,9 +3054,12 @@ def zoo_decode(K, net_g: str, vol) -> dict:
 
     from mra_gan_tpu_torch.infer.sliding_window import sliding_window_inference
     from mra_gan_tpu_torch.models.cycle_gan import make_generate_fn
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
     from mra_gan_tpu_torch.parallel.spatial import single_pass_apply
 
     cfg = zoo_config(net_g, "n_layers", "instance", torch.bfloat16)
+    # the U-Net's outermost down conv: one conv4s2 forward a generator forward
+    c4s2_forward = {"conv4s2_spread": 1} if net_g.startswith("unet") else {}
     gen = make_generate_fn(cfg, "g_a", DEVICE, seed=SEED)
     n_batches = EXPECTED_GRID[1]
 
@@ -2590,12 +3069,15 @@ def zoo_decode(K, net_g: str, vol) -> dict:
     decode()
     torch.cuda.synchronize()
     K.reset_launches()
+    C4.reset_launches()
     t0 = time.perf_counter()
     out = decode()
     secs = [time.perf_counter() - t0]
     per_forward = forward_launches(K, zoo_generator_norms(net_g, DECODE_BATCH, PATCH),
                                    cfg.dtype)
     launches = dict(K.LAUNCHES)
+    check(c4s2_launched(times(c4s2_forward, n_batches)),
+          f"zoo decode {net_g}: {n_batches} x {c4s2_forward} conv4s2 launches: {C4.LAUNCHES}")
     check(launched(K, times(per_forward, n_batches)),
           f"zoo decode {net_g}: {n_batches} x {per_forward}, no backward: {launches}")
     check(out.shape == VOLUME and bool(np.isfinite(out).all()), f"zoo decode {net_g} finite")
@@ -2606,9 +3088,12 @@ def zoo_decode(K, net_g: str, vol) -> dict:
     single_pass_apply(gen, vol)
     torch.cuda.synchronize()
     K.reset_launches()
+    C4.reset_launches()
     t0 = time.perf_counter()
     sp = single_pass_apply(gen, vol)
     sp_secs = [time.perf_counter() - t0]
+    check(c4s2_launched(c4s2_forward), f"zoo single pass {net_g}: {c4s2_forward} conv4s2 "
+          f"launches: {C4.LAUNCHES}")
     sp_want = forward_launches(K, zoo_generator_norms(net_g, 1, VOLUME), cfg.dtype)
     sp_launches = dict(K.LAUNCHES)
     check(launched(K, sp_want), f"zoo single pass {net_g}: {sp_want}, no backward: "
@@ -2707,6 +3192,7 @@ def zoo_deep_unet(K, net_g: str, side: int) -> dict:
 
     from mra_gan_tpu_torch.models.cycle_gan import make_generate_fn
     from mra_gan_tpu_torch.models.networks import UNET_DOWNS
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
 
     gen = make_generate_fn(zoo_config(net_g, "n_layers", "instance", torch.bfloat16), "g_a",
                            DEVICE, seed=SEED)
@@ -2715,6 +3201,7 @@ def zoo_deep_unet(K, net_g: str, side: int) -> dict:
     gen(x)
     torch.cuda.synchronize()
     K.reset_launches()
+    C4.reset_launches()
     t0 = time.perf_counter()
     y = gen(x)
     torch.cuda.synchronize()
@@ -2722,6 +3209,8 @@ def zoo_deep_unet(K, net_g: str, side: int) -> dict:
     want = forward_launches(K, unet_norms(1, (side,) * 3, UNET_DOWNS[net_g]), torch.bfloat16)
     launches = dict(K.LAUNCHES)
     check(launched(K, want), f"{net_g} forward: {want}, no backward: {launches}")
+    check(c4s2_launched({"conv4s2_spread": 1}), f"{net_g} forward: one conv4s2 forward, "
+          f"{C4.LAUNCHES}")
     with plain_norms():
         yp = gen(x)
     d = (y.float() - yp.float()).abs()
@@ -2742,6 +3231,7 @@ def zoo_train(K, label: str, cfg, batch: int) -> tuple:
     import torch
 
     from mra_gan_tpu_torch.models.cycle_gan import create_state, make_train_step
+    from mra_gan_tpu_torch.ops.kernels import conv4s2 as C4
 
     state = create_state(cfg, SEED, PATCH, DEVICE)
     step = make_train_step(cfg)
@@ -2751,12 +3241,17 @@ def zoo_train(K, label: str, cfg, batch: int) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
+    C4.reset_launches()
     t0 = time.perf_counter()
     for _ in range(ZOO_STEPS):
         _, metrics = step(state, real_a, real_b, TRAIN_LR)
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / ZOO_STEPS
     launches = dict(K.LAUNCHES)
+    c4s2_want = c4s2_per_step(cfg.net_g, cfg.net_d, cfg.norm, cfg.dtype)
+    check(c4s2_launched(times(c4s2_want, ZOO_STEPS)),
+          f"zoo train {label} b{batch}: {c4s2_want} conv4s2 launches per step: "
+          f"{dict(C4.LAUNCHES)} over {ZOO_STEPS} steps")
     norms = zoo_step_norms(cfg, batch)
     per_step = {**forward_launches(K, norms, cfg.dtype), **backward_launches(K, norms, cfg.dtype)}
     check(launched(K, times(per_step, ZOO_STEPS)),
@@ -2768,11 +3263,12 @@ def zoo_train(K, label: str, cfg, batch: int) -> tuple:
     relayouts = K.GRAD_RELAYOUTS["count"] / ZOO_STEPS
     print(f"[zoo train] {label} b{batch}: {secs:.4f} s/step, {batch / secs:.3f} pairs/s; peak "
           f"{peak:.2f} GiB; {len(norms)} norms per step, launches per step "
-          f"{ {k: v / ZOO_STEPS for k, v in launches.items() if v} }; gradient relayouts "
-          f"{relayouts:g} per step; losses {losses}", flush=True)
+          f"{ {k: v / ZOO_STEPS for k, v in launches.items() if v} }, conv4s2 {c4s2_want}; "
+          f"gradient relayouts {relayouts:g} per step; losses {losses}", flush=True)
     return ({"s_per_step": secs, "pairs_per_s": batch / secs, "steps": ZOO_STEPS,
              "peak_gib": peak, "norms_per_step": len(norms), "launches_per_step": per_step,
-             "grad_relayouts_per_step": relayouts, "losses": losses}, state)
+             "c4s2_launches_per_step": c4s2_want, "grad_relayouts_per_step": relayouts,
+             "losses": losses}, state)
 
 
 def zoo_checkpoint(K, state, workdir: Path) -> dict:
@@ -4342,6 +4838,10 @@ def main(argv=None) -> int:
                     help="phase 1, then only the conv7 parts of phases 2 and 3 (every kernel "
                          "against its plain version, the times); prints their rows and no "
                          "result line")
+    ap.add_argument("--conv4s2", action="store_true",
+                    help="phase 1, then only the conv4s2 parts of phases 2 and 3 (every kernel "
+                         "against its plain version, the times); prints their rows and no "
+                         "result line")
     ap.add_argument("--single-pass-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -4402,6 +4902,7 @@ def main(argv=None) -> int:
                                                   "conv7_wgrad_reduce")}
     pad_results = {k: {"shapes": [], "times": []}
                    for k in ("replication_pad_fwd", "replication_pad_bwd")}
+    c4s2_results = {k: {"shapes": [], "times": []} for k in C4S2_KERNELS}
 
     if args.conv7:
         phase_conv7_kernels(conv7_results)
@@ -4415,14 +4916,26 @@ def main(argv=None) -> int:
         print(json.dumps({"conv7": conv7_rows}))
         print(gpu_line())
         return 0
+    if args.conv4s2:
+        phase_conv4s2_kernels(c4s2_results)
+        c4s2_rows = phase_conv4s2_times(bw, flops, tc, c4s2_results)
+        if args.json_out:
+            Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json_out).write_text(json.dumps(
+                {"gpu": card, "conv4s2": c4s2_rows, "shapes": c4s2_results}, indent=1))
+        print(json.dumps({"conv4s2": c4s2_rows}))
+        print(gpu_line())
+        return 0
     phase_kernels(K, bw, flops, results)
     phase_train_kernels(K, bw, flops, results)
     phase_conv7_kernels(conv7_results)
     phase_conv7_wgrad_kernels(conv7_results)
     pad_rows = phase_pad_kernels(bw, pad_results)
+    phase_conv4s2_kernels(c4s2_results)
     conv_rows = phase_conv_formats()
     conv7_rows = phase_conv7_times(bw, tc, conv7_results)
     conv7_rows += phase_conv7_wgrad_times(bw, flops, tc, conv7_results)
+    c4s2_rows = phase_conv4s2_times(bw, flops, tc, c4s2_results)
     tree = random_jax_tree(NGF, 6, SEED)
     phase_generator(K, tree)
     decode = phase_decode(K, tree, results)
@@ -4432,6 +4945,8 @@ def main(argv=None) -> int:
         phase_cli(K, tree, Path(tmp))
     train = phase_train(K, results)
     decode["decode_profile"] = profile_run(decode.pop("trace_decode"), "decode")
+    c4s2_split = c4s2_cudnn_split(c4s2_results)
+    c4s2_split.append({"patchgan_conv_calls": patchgan_conv_calls()})
     parity = phase_train_parity()
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         ckpt = phase_checkpoint(K, Path(tmp))
@@ -4496,16 +5011,19 @@ def main(argv=None) -> int:
             **({"note": r["note"]} if "note" in r else {})})
     kernels += conv7_line(conv7_results, train, decode)
     kernels += pad_line(pad_results, train, decode)
+    kernels += c4s2_line(c4s2_results, train, decode)
     summary = {"decode": decode, "train": train, "train_parity": parity, "checkpoint": ckpt,
                "serve": serving, "train_driver": train_driver, "zoo": zoo, "phase13": phase13,
                "parallel": parallel, "bench": bench,
                "conv_formats": conv_rows, "conv7": conv7_rows, "pads": pad_rows,
+               "conv4s2": c4s2_rows, "conv4s2_cudnn_split": c4s2_split,
                "seconds": time.perf_counter() - t_start}
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(
             {"gpu": card, **summary, "kernels": kernels,
-             "shapes": {k: r["shapes"] for k, r in {**results, **pad_results}.items()}},
+             "shapes": {k: r["shapes"] for k, r in {**results, **pad_results,
+                                                    **c4s2_results}.items()}},
             indent=1))
     for prof in [decode["decode_profile"]] + [t["profile"] for t in train.values()]:
         prof.pop("top", None)  # printed above; kept in --json-out

@@ -45,12 +45,29 @@ torch.utils.flop_counter formulas, so FlopCounterMode counts them exactly as
 it counts ``aten.convolution`` and the input and weight parts of
 ``aten.convolution_backward``. Where no dispatch mode is on, ``conv3d``
 runs the same functions through the autograd Function ``C7Convolution``,
-without the custom ops' dispatch."""
+without the custom ops' dispatch.
+
+The stride-2 4^3 one-channel convs. ``conv3d`` sends every conv with a (C,
+1, 4, 4, 4) weight, stride 2 on every axis and a zero pad of 0 or 1 on each
+axis (``single_channel_4s2``: the PatchGAN's first conv, the U-Net's
+outermost down conv, its depth pad 0 on a depth shard) to three custom ops
+of the same pattern, ``mra_torch::c4s2_convolution``,
+``mra_torch::c4s2_convolution_input_grad`` and
+``mra_torch::c4s2_convolution_weight_grad`` (the weight and the bias
+gradient together), through the autograd Function ``C4S2Convolution`` where
+no dispatch mode is on. A bfloat16 CUDA tensor launches
+``ops/kernels/conv4s2.py``'s kernels (``conv4s2_spread``,
+``conv4s2_gather``, ``conv4s2_wgrad`` and its reduce; no fallback); every
+other tensor takes ``F.conv3d`` and aten's backward, as before. Their
+backward computes only the gradients the running backward pass will use:
+``needs_input_grad`` is fixed at the forward, so it also asks whether the
+engine will run the node each gradient flows into (``_asked``); the train
+step's generator update asks no gradient of the discriminators' weights."""
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,10 +76,11 @@ from torch.utils.flop_counter import conv_flop_count, register_flop_formula
 
 from ..core.spatial_ctx import spatial_shard_info
 from ..parallel.collectives import neighbour_exchange
-from .kernels import conv7, replication_pad
+from .kernels import conv4s2, conv7, replication_pad
 
 _CL = torch.channels_last_3d
 _TAPS = (7, 7, 7)
+_TAPS4 = (4, 4, 4)
 
 
 def _keep_layout(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -84,6 +102,14 @@ def single_channel_7(weight_shape, stride=1, padding=0) -> bool:
     cout, cin, *taps = weight_shape
     return (tuple(taps) == _TAPS and _triple(stride) == (1, 1, 1)
             and _triple(padding) == (0, 0, 0) and (cin == 1 or cout == 1))
+
+
+def single_channel_4s2(weight_shape, stride=1, padding=0) -> bool:
+    """Whether ``conv3d`` sends a conv to the c4s2 ops: a (C, 1, 4, 4, 4)
+    weight, stride 2 on every axis and a zero pad of 0 or 1 on each axis."""
+    cout, cin, *taps = weight_shape
+    return (cin == 1 and tuple(taps) == _TAPS4 and _triple(stride) == (2, 2, 2)
+            and all(p in (0, 1) for p in _triple(padding)))
 
 
 def _on_kernels(t: torch.Tensor) -> bool:
@@ -227,20 +253,165 @@ class C7Convolution(torch.autograd.Function):
         return _c7_backward(ctx, grad)
 
 
-@register_flop_formula(torch.ops.mra_torch.c7_convolution)
-def _c7_flops(x_shape, w_shape, bias_shape, *args, out_shape, **kwargs) -> int:
+# ---------------------------------------------------------------------------
+# the stride-2 4^3 one-channel convs (single_channel_4s2)
+
+_WILL_RUN = getattr(torch._C, "_will_engine_execute_node", None)
+
+
+def _asked(ctx, i: int) -> bool:
+    """Whether the running backward wants the gradient of tensor input i (x,
+    weight, bias): it needs one and the engine will run the node the
+    gradient flows into. A torch.autograd.grad() over some parameters runs
+    only their part of the graph (the generator's update runs no
+    discriminator weight's cast), which ``needs_input_grad``, fixed at the
+    forward, does not show."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    if _WILL_RUN is None:
+        return True
+    try:
+        return bool(_WILL_RUN(ctx.next_functions[i][0]))
+    except RuntimeError:  # a leaf that the running torch.autograd.grad() asks for
+        return True
+
+
+def _taps4(weight: torch.Tensor) -> torch.Tensor:
+    # (C, 1, 4, 4, 4) -> (C, 4, 4, 4)
+    return weight[:, 0].contiguous()
+
+
+def _c4s2_forward(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                  padding: List[int]) -> torch.Tensor:
+    if not _on_kernels(x):
+        return F.conv3d(x, weight, bias, 2, tuple(padding))
+    return conv4s2.conv4s2_spread(x.contiguous(), _taps4(weight), bias, tuple(padding))
+
+
+def _c4s2_input_grad(grad: torch.Tensor, weight: torch.Tensor, padding: List[int],
+                     box: List[int]) -> torch.Tensor:
+    if not _on_kernels(grad):
+        return torch.nn.grad.conv3d_input((grad.shape[0], 1, *box), weight, grad, 2,
+                                          tuple(padding))
+    return conv4s2.conv4s2_gather(grad.contiguous(memory_format=_CL), _taps4(weight),
+                                  tuple(padding), tuple(box))
+
+
+def _c4s2_weight_grad(grad: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                      padding: List[int], with_bias: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not _on_kernels(grad):
+        _, dw, db = torch.ops.aten.convolution_backward(
+            grad, x, weight, [weight.shape[0]] if with_bias else None, [2] * 3, list(padding),
+            [1] * 3, False, [0] * 3, 1, [False, True, with_bias])
+        return dw, db if with_bias else grad.new_empty(0)
+    dw, db = conv4s2.conv4s2_wgrad(x.contiguous(), grad.contiguous(memory_format=_CL),
+                                   tuple(padding))
+    return dw.view(weight.shape), db if with_bias else db.new_empty(0)
+
+
+@torch.library.custom_op("mra_torch::c4s2_convolution", mutates_args=())
+def c4s2_convolution(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                     padding: List[int]) -> torch.Tensor:
+    """F.conv3d(x, weight, bias, 2, padding) for a ``single_channel_4s2``
+    weight; ``padding`` per axis."""
+    return _c4s2_forward(x, weight, bias, padding)
+
+
+@c4s2_convolution.register_fake
+def _(x, weight, bias, padding):
+    return x.new_empty((x.shape[0], weight.shape[0], *conv4s2.out_shape(x.shape[2:], padding)))
+
+
+@torch.library.custom_op("mra_torch::c4s2_convolution_input_grad", mutates_args=())
+def c4s2_convolution_input_grad(grad: torch.Tensor, weight: torch.Tensor, padding: List[int],
+                                box: List[int]) -> torch.Tensor:
+    """The gradient of ``c4s2_convolution`` with respect to x, whose box is
+    ``box``, from the gradient of its output."""
+    return _c4s2_input_grad(grad, weight, padding, box)
+
+
+@c4s2_convolution_input_grad.register_fake
+def _(grad, weight, padding, box):
+    return grad.new_empty((grad.shape[0], 1, *box))
+
+
+@torch.library.custom_op("mra_torch::c4s2_convolution_weight_grad", mutates_args=())
+def c4s2_convolution_weight_grad(grad: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                                 padding: List[int],
+                                 with_bias: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of ``c4s2_convolution`` with respect to its weight (of
+    ``weight``'s shape and dtype) and, ``with_bias``, its bias ((C,); else
+    an empty tensor), from its input and the gradient of its output."""
+    return _c4s2_weight_grad(grad, x, weight, padding, with_bias)
+
+
+@c4s2_convolution_weight_grad.register_fake
+def _(grad, x, weight, padding, with_bias):
+    return weight.new_empty(weight.shape), weight.new_empty(weight.shape[0] if with_bias else 0)
+
+
+def _c4s2_setup(ctx, inputs, output):
+    x, weight, bias, padding = inputs
+    _, need_w, need_b = ctx.needs_input_grad[:3]
+    ctx.padding, ctx.box, ctx.has_bias = list(padding), list(x.shape[2:]), bias is not None
+    ctx.save_for_backward(x if need_w or need_b else None, weight)  # x only for dW, db
+
+
+def _c4s2_backward(ctx, grad):
+    x, weight = ctx.saved_tensors
+    need_x, need_w, need_b = (_asked(ctx, i) for i in range(3))
+    if _on_kernels(grad) and not grad.is_contiguous(memory_format=_CL):
+        # the gather and the weight gradient take g in channels_last_3d
+        conv4s2.RELAYOUTS["count"] += 1
+        grad = grad.contiguous(memory_format=_CL)
+    gx = gw = gb = None
+    if need_x:
+        gx = _as_op(_c4s2_input_grad, c4s2_convolution_input_grad)(grad, weight, ctx.padding,
+                                                                   ctx.box)
+    if need_w or need_b:
+        gw, gb = _as_op(_c4s2_weight_grad, c4s2_convolution_weight_grad)(
+            grad, x, weight, ctx.padding, ctx.has_bias)
+        gw, gb = (gw if need_w else None), (gb if need_b else None)
+    return gx, gw, gb, None
+
+
+c4s2_convolution.register_autograd(_c4s2_backward, setup_context=_c4s2_setup)
+
+
+class C4S2Convolution(torch.autograd.Function):
+    """``c4s2_convolution`` and its backward as a plain autograd Function:
+    ``conv3d``'s route where no dispatch mode is on, as ``C7Convolution``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding):
+        out = _c4s2_forward(x, weight, bias, padding)
+        _c4s2_setup(ctx, (x, weight, bias, padding), out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return _c4s2_backward(ctx, grad)
+
+
+@register_flop_formula([torch.ops.mra_torch.c7_convolution,
+                        torch.ops.mra_torch.c4s2_convolution])
+def _conv_flops(x_shape, w_shape, bias_shape, *args, out_shape, **kwargs) -> int:
     return conv_flop_count(x_shape, w_shape, out_shape, transposed=False)
 
 
-@register_flop_formula(torch.ops.mra_torch.c7_convolution_input_grad)
-def _c7_input_grad_flops(grad_shape, w_shape, *args, out_shape, **kwargs) -> int:
+@register_flop_formula([torch.ops.mra_torch.c7_convolution_input_grad,
+                        torch.ops.mra_torch.c4s2_convolution_input_grad])
+def _input_grad_flops(grad_shape, w_shape, *args, out_shape, **kwargs) -> int:
     # as aten.convolution_backward counts an input gradient
     return conv_flop_count(grad_shape, w_shape, out_shape, transposed=True)
 
 
-@register_flop_formula(torch.ops.mra_torch.c7_convolution_weight_grad)
-def _c7_weight_grad_flops(grad_shape, x_shape, w_shape, *args, out_shape, **kwargs) -> int:
-    # as aten.convolution_backward counts a weight gradient: conv(x, grad)
+@register_flop_formula([torch.ops.mra_torch.c7_convolution_weight_grad,
+                        torch.ops.mra_torch.c4s2_convolution_weight_grad])
+def _weight_grad_flops(grad_shape, x_shape, w_shape, *args, out_shape, **kwargs) -> int:
+    # as aten.convolution_backward counts a weight gradient: conv(x, grad);
+    # the c4s2 op's bias gradient, as aten's, counts nothing
     def t(shape):
         return [shape[1], shape[0], *shape[2:]]
 
@@ -330,10 +501,14 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
 def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride=1, padding=0) -> torch.Tensor:
     """x (N, Cin, D, H, W); weight (Cout, Cin, kd, kh, kw). A
-    ``single_channel_7`` conv goes through ``c7_convolution``."""
+    ``single_channel_7`` conv goes through ``c7_convolution``, a
+    ``single_channel_4s2`` conv through ``c4s2_convolution``."""
     b, w = _cast(bias, x.dtype), _cast(weight, x.dtype)
     if single_channel_7(weight.shape, stride, padding):
         return _keep_layout(_as_op(C7Convolution.apply, c7_convolution)(x, w, b), x)
+    if single_channel_4s2(weight.shape, stride, padding):
+        pads = list(_triple(padding))
+        return _keep_layout(_as_op(C4S2Convolution.apply, c4s2_convolution)(x, w, b, pads), x)
     return _keep_layout(F.conv3d(x, w, b, stride, padding), x)
 
 

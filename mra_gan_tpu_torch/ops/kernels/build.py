@@ -19,7 +19,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("instance_norm", "conv7", "replication_pad")
+SOURCES = ("instance_norm", "conv7", "replication_pad", "conv4s2")
 
 
 def nvcc_path() -> str:
