@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --conv7   # phase 1 and the conv7 parts of phases 2-3 alone
     python3 chip_smoke.py --conv4s2   # phase 1 and the conv4s2 parts of phases 2-3 alone
+    python3 chip_smoke.py --pads   # phase 1 and the pad part of phase 2 alone
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -44,10 +45,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    step at batch 1 and 8 (the generators at 2B and B), at a depth shard of
    phase 14's spatial step (depth pad 0), on an odd unequal box with an
    axis of 1 voxel at C = 6 and at C = 128 (pad_cases; C = 1, 6, 32, 128),
-   in bf16 and float32, each bit-equal to its plain version and twice
-   bit-equal, then at the decode's and the step's batch sizes timed beside
-   the plain version, F.pad(mode="replicate") and its autograd backward (the
-   path before the kernels) and the byte bound; and the four conv4s2
+   in bf16 and float32, and at PAD_EXTRA's float64 boxes (the head's pad of
+   phase 8's float64 step among them), sources whose base pointer is not
+   16-byte aligned and wide voxels (C = 128 in float32, C = 64 and 128 in
+   float64), each bit-equal to its plain version and twice
+   bit-equal, then at the decode's and the step's batch sizes (3, 8, 16)
+   timed beside the plain version, F.pad(mode="replicate") and its autograd
+   backward (the path before the kernels) and the byte bound, and those
+   times summed over a batch-8 step's and a decoded volume's launches beside
+   the bound's sums; and the four conv4s2
    kernels (the PatchGAN's first conv and the U-Net's outermost down conv:
    conv4s2_spread forward, conv4s2_gather input gradient, conv4s2_wgrad
    weight and bias gradient with its conv4s2_wgrad_reduce) at every case of
@@ -247,8 +253,8 @@ both roles), their times those of the step's 2B = 16 forward or weight
 gradient role (both passes for a weight gradient; the reduce alone at the
 stem's), each role's times beside them; the two pad kernels' launches are
 the batch-8 step's, their times those of the head's pad at the step's
-2B = 16, the decode's batch-8 head pad and the other timed shapes beside
-them; the four conv4s2 kernels' launches are the batch-8 step's, their
+2B = 16, the decode's batch-8 head pad, every role's timed row and the
+sums a step and a volume beside them; the four conv4s2 kernels' launches are the batch-8 step's, their
 times those of the step's largest call (the forward and the weight
 gradient at 16, the input gradient at 8), the other batch size beside. ``--json-out PATH`` also writes every shape's numbers. The last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits non-zero
@@ -351,8 +357,21 @@ CONV7_PER_STEP = {"conv7_spread": 8, "conv7_gather": 6, "conv7_wgrad_spread": 4,
 # 2 leaf applies, whose inputs are real images)
 PAD_PER_FORWARD = {"replication_pad_fwd": 14}
 PAD_PER_STEP = {"replication_pad_fwd": 56, "replication_pad_bwd": 54}
-# the pad shapes phase 2 times (the decode's batch 8, the step's 2B = 16)
-PAD_TIMED = (DECODE_BATCH, 2 * max(TRAIN_BATCHES))
+# the same by (kernel, role, N): a forward runs 1 stem, 12 trunk and 1 head
+# pad; a batch-8 step applies each generator once at 2B = 16 and once at
+# B = 8 (models/cycle_gan.py:355-361), every pad but the stems at 2B (real
+# images) running its backward; a decoded 128x256x256 volume is 18 batches
+# of 8 patches and one of 3 (phase 2 weights its timed rows by these)
+PAD_ROLES = {"stem": 1, "trunk": 12, "head": 1}
+PAD_STEP_LAUNCHES = {
+    **{("replication_pad_fwd", role, n): 2 * k for n in (16, 8) for role, k in PAD_ROLES.items()},
+    **{("replication_pad_bwd", role, n): 2 * k for n in (16, 8) for role, k in PAD_ROLES.items()
+       if (role, n) != ("stem", 16)}}
+PAD_VOLUME_LAUNCHES = {("replication_pad_fwd", role, n): calls * k
+                       for role, k in PAD_ROLES.items() for n, calls in ((8, 18), (3, 1))}
+# the pad shapes phase 2 times: the decode's last batch of 3 and its batch 8,
+# the step's B = 8 and 2B = 16
+PAD_TIMED = (EXPECTED_GRID[0] % DECODE_BATCH, DECODE_BATCH, 2 * max(TRAIN_BATCHES))
 
 
 def check(cond: bool, what: str) -> None:
@@ -1617,61 +1636,122 @@ def pad_launched(want: dict) -> bool:
     return all(RP.LAUNCHES[k] == want.get(k, 0) for k in RP.LAUNCHES)
 
 
-def pad_inputs(shape, pads, dtype, gen):
+def pad_inputs(shape, pads, dtype, gen, offset: int = 0):
     """x of ``shape`` and a gradient g of its padded shape, both O(1) in
-    channels_last_3d on the card."""
+    channels_last_3d on the card; ``offset`` elements past a 16-byte
+    boundary (a source the kernels may not read in 16-byte units)."""
     import torch
 
     from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
 
-    x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-    g = torch.randn(shape[:2] + RP.out_shape(shape[2:], pads), generator=gen,
-                    device=DEVICE).to(dtype)
-    return (x.contiguous(memory_format=torch.channels_last_3d),
-            g.contiguous(memory_format=torch.channels_last_3d))
+    def laid_out(size):
+        t = torch.randn(size, generator=gen, device=DEVICE).to(dtype)
+        n, c, d, h, w = size
+        buf = torch.empty(t.numel() + offset, device=DEVICE, dtype=dtype)
+        view = buf[offset:].view(n, d, h, w, c).permute(0, 4, 1, 2, 3)
+        view.copy_(t)
+        return view
+
+    return laid_out(shape), laid_out(shape[:2] + RP.out_shape(shape[2:], pads))
+
+
+# phase 2's further pad cases: (label, role, shape, pads, dtype, offset) a
+# float64 odd box (the unit path at C = 6, the chunk forward at C = 1), the
+# head's pad of phase 8's float64 step, sources whose base pointer is not
+# 16-byte aligned (C = 1 and C = 32 in bf16: the chunk forward and the row
+# backward) and wide voxels (the head's pad at --ngf 128 in float32 and at
+# C = 64 in float64: the ring at three stages; C = 128 in float64: the row
+# backward)
+PAD_EXTRA = [("odd box", "C=6", (2, 6, 1, 17, 23), (3, 2, 1, 3, 0, 2), "float64", 0),
+             ("float64", "head", (2, NGF, 64, 64, 64), (3,) * 6, "float64", 0),
+             ("odd box", "C=1", (2, 1, 5, 1, 9), (1, 2, 3, 3, 0, 1), "float64", 0),
+             ("unaligned", "stem", (2, 1, 64, 64, 64), (3,) * 6, "bfloat16", 1),
+             ("unaligned", "C=32", (1, 32, 9, 10, 11), (3,) * 6, "bfloat16", 3),
+             ("unaligned", "stem f32", (1, 1, 17, 9, 23), (2, 1, 0, 3, 3, 1), "float32", 1),
+             ("wide voxel", "C=128", (2, 128, 9, 10, 11), (3,) * 6, "float32", 0),
+             ("wide voxel", "C=64", (2, 64, 9, 10, 11), (3,) * 6, "float64", 0),
+             ("wide voxel", "C=128", (1, 128, 6, 7, 9), (3,) * 6, "float64", 0)]
+
+
+def pad_route(src, pads, box, backward: bool) -> str:
+    """The kernel a pad wrapper launches on ``src`` (replication_pad's
+    ROUTES: a block a row, the chunk forward or the ring backward)."""
+    from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
+
+    params = RP.launch_plan(tuple(src.shape), pads, tuple(box), src.dtype,
+                            src.data_ptr() % RP.VEC_BYTES == 0, backward, src.device.index)[1]
+    return next(k for k, v in RP.ROUTES.items() if v == params[RP.HEADER.index("route")])
+
+
+def pad_weighted(rows, launches: dict) -> dict:
+    """The pads' ms, bound and F.pad ms summed over a step's or a volume's
+    launches ({(kernel, role, N): count}), per kernel."""
+    out = {}
+    for (kernel, role, n), count in launches.items():
+        row = next(r for r in rows if (r["kernel"], r["role"], r["n"]) == (kernel, role, n))
+        acc = out.setdefault(kernel, {"launches": 0, "ms": 0.0, "bound_ms": 0.0,
+                                      "library_ms": 0.0})
+        acc["launches"] += count
+        for key in ("ms", "bound_ms", "library_ms"):
+            acc[key] += count * row[key]
+    return out
 
 
 def phase_pad_kernels(bw: float, results: dict) -> list:
     """Phase 2's pad part: both replication-pad kernels at every case of
-    pad_cases, bf16 and float32, against their plain versions on the same
-    input: bit for bit (the forward a copy; the backward the same float32
-    folds in the same order, rounded once), each run twice and bit-equal.
-    Then each kernel at the decode's and the step's batch sizes (PAD_TIMED),
-    bf16, timed beside its plain version, F.pad(mode="replicate") and its
-    autograd backward (the library call, the path before the kernels) and
-    the bound: its input read and its output written once at the memory
-    rate."""
+    pad_cases, bf16 and float32, and at PAD_EXTRA's cases, against their
+    plain versions on the same input: bit for bit (the forward a copy; the
+    backward the same float32 folds in the same order, rounded once), each
+    run twice and bit-equal. Then each kernel at the decode's and the step's
+    batch sizes (PAD_TIMED), bf16, timed beside its plain version,
+    F.pad(mode="replicate") and its autograd backward (the library call, the
+    path before the kernels) and the bound: its input read and its output
+    written once at the memory rate; and their sums over a batch-8 step's and
+    a decoded volume's launches (PAD_STEP_LAUNCHES, PAD_VOLUME_LAUNCHES)."""
     import torch
     import torch.nn.functional as F
 
     from mra_gan_tpu_torch.ops.kernels import replication_pad as RP
 
+    for kernel, per_step in PAD_PER_STEP.items():  # the launch tables against the counters
+        check(sum(v for k, v in PAD_STEP_LAUNCHES.items() if k[0] == kernel) == per_step,
+              f"{kernel}: PAD_STEP_LAUNCHES against PAD_PER_STEP")
+    check(sum(PAD_VOLUME_LAUNCHES.values())
+          == EXPECTED_GRID[1] * PAD_PER_FORWARD["replication_pad_fwd"], "PAD_VOLUME_LAUNCHES")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
-    for label, role, shape, pads in pad_cases():
-        for dtype in (torch.bfloat16, torch.float32):
-            x, g = pad_inputs(shape, pads, dtype, gen)
-            y, y2 = RP.replication_pad_fwd(x, pads), RP.replication_pad_fwd(x, pads)
-            dx, dx2 = (RP.replication_pad_bwd(g, pads, shape[2:]),
-                       RP.replication_pad_bwd(g, pads, shape[2:]))
-            torch.cuda.synchronize()
-            want_y = RP.replication_pad_fwd_plain(x, pads)
-            want_dx = RP.replication_pad_bwd_plain(g, pads, shape[2:])
-            dt = "bf16" if dtype == torch.bfloat16 else "f32"
-            for name, got, again, want in (("replication_pad_fwd", y, y2, want_y),
-                                           ("replication_pad_bwd", dx, dx2, want_dx)):
-                err = float((got.float() - want.float()).abs().max())
-                results[name]["shapes"].append({"path": label, "role": role, "shape": list(shape),
-                                                "pads": list(pads), "dtype": dt,
-                                                "max_abs_err": err})
-                check(got.shape == want.shape and got.dtype == dtype
-                      and got.is_contiguous(memory_format=torch.channels_last_3d),
-                      f"{name} {label} {role} {shape} {pads} {dt}: {tuple(got.shape)} {got.dtype}")
-                check(torch.equal(got, again), f"{name} {label} {role} {shape} {dt}: two runs differ")
-                check(torch.equal(got, want), f"{name} {label} {role} {shape} {pads} {dt}: "
-                      f"{err} from the plain version")
-            print(f"[pad] {label:10s} {role:6s} {dt:4s} {str(shape):26s} pads {pads}: forward and "
-                  f"backward bit-equal to plain, twice", flush=True)
-            del x, g, y, y2, dx, dx2, want_y, want_dx
+    cases = [(label, role, shape, pads, dtype, 0) for label, role, shape, pads in pad_cases()
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(label, role, shape, pads, getattr(torch, dtype), offset)
+              for label, role, shape, pads, dtype, offset in PAD_EXTRA]
+    for label, role, shape, pads, dtype, offset in cases:
+        x, g = pad_inputs(shape, pads, dtype, gen, offset)
+        check(offset == 0 or (x.data_ptr() % 16 and g.data_ptr() % 16),
+              f"pad {label} {role}: the source is 16-byte aligned")
+        y, y2 = RP.replication_pad_fwd(x, pads), RP.replication_pad_fwd(x, pads)
+        dx, dx2 = (RP.replication_pad_bwd(g, pads, shape[2:]),
+                   RP.replication_pad_bwd(g, pads, shape[2:]))
+        torch.cuda.synchronize()
+        want_y = RP.replication_pad_fwd_plain(x, pads)
+        want_dx = RP.replication_pad_bwd_plain(g, pads, shape[2:])
+        dt = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}[dtype]
+        routes = (pad_route(x, pads, shape[2:], False), pad_route(g, pads, shape[2:], True))
+        for name, got, again, want, route in (("replication_pad_fwd", y, y2, want_y, routes[0]),
+                                              ("replication_pad_bwd", dx, dx2, want_dx,
+                                               routes[1])):
+            err = float((got.double() - want.double()).abs().max())
+            results[name]["shapes"].append({"path": label, "role": role, "shape": list(shape),
+                                            "pads": list(pads), "dtype": dt, "offset": offset,
+                                            "route": route, "max_abs_err": err})
+            check(got.shape == want.shape and got.dtype == dtype
+                  and got.is_contiguous(memory_format=torch.channels_last_3d),
+                  f"{name} {label} {role} {shape} {pads} {dt}: {tuple(got.shape)} {got.dtype}")
+            check(torch.equal(got, again), f"{name} {label} {role} {shape} {dt}: two runs differ")
+            check(torch.equal(got, want), f"{name} {label} {role} {shape} {pads} {dt}: "
+                  f"{err} from the plain version")
+        print(f"[pad] {label:10s} {role:8s} {dt:4s} {str(shape):26s} pads {pads}"
+              f"{f' offset {offset}' if offset else ''}: forward ({routes[0]}) and backward "
+              f"({routes[1]}) bit-equal to plain, twice", flush=True)
+        del x, g, y, y2, dx, dx2, want_y, want_dx
         torch.cuda.empty_cache()
 
     rows = []
@@ -1692,15 +1772,26 @@ def phase_pad_kernels(bw: float, results: dict) -> list:
                 row = {"kernel": name, "role": role, "n": n, "shape": list(shape), "pad": pad,
                        "ms": device_ms(fn, 10, 2), "plain_ms": device_ms(plain, 3, 1),
                        "library_ms": device_ms(lib, 5, 1), "bytes": nbytes,
-                       "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes"}
+                       "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
+                       "launches_step": PAD_STEP_LAUNCHES.get((name, role, n), 0),
+                       "launches_volume": PAD_VOLUME_LAUNCHES.get((name, role, n), 0),
+                       "route": pad_route(g if "bwd" in name else x, pads, shape[2:],
+                                          "bwd" in name)}
                 rows.append(row)
                 results[name]["times"].append(row)
-                print(f"[pad] {name} {role:5s} n={n:2d} {str(shape):24s} kernel {row['ms']:.4f} "
+                print(f"[pad] {name} {role:5s} n={n:2d} {str(shape):24s} {row['route']:6s} "
+                      f"kernel {row['ms']:.4f} "
                       f"ms; plain {row['plain_ms']:.4f}; F.pad{' backward' if 'bwd' in name else ''}"
                       f" {row['library_ms']:.4f}; bound {row['bound_ms']:.4f} ms (bytes)",
                       flush=True)
             del x, g, xr, lib_y
         torch.cuda.empty_cache()
+    for what, launches in (("step", PAD_STEP_LAUNCHES), ("volume", PAD_VOLUME_LAUNCHES)):
+        for kernel, acc in pad_weighted(rows, launches).items():
+            results[kernel][f"per_{what}"] = acc
+            print(f"[pad] {kernel} a {'batch-8 train step' if what == 'step' else 'decoded volume'}"
+                  f": {acc['launches']} launches, {acc['ms']:.4f} ms against a bound of "
+                  f"{acc['bound_ms']:.4f} ms (F.pad {acc['library_ms']:.4f})", flush=True)
     return rows
 
 
@@ -4791,11 +4882,14 @@ def pad_line(results: dict, train: dict, decode: dict) -> list:
     """The replication-pad kernels' entries of the kernels line. Main path:
     the batch-8 train step (phase 7's timed steps), which runs both; the
     times at the head's pad at its 2B = 16 (the largest pad of the step),
-    the decode's batch-8 head pad and every timed shape beside them.
+    the decode's batch-8 head pad, every role's timed row (stem, trunk,
+    head at each PAD_TIMED batch, with its launches a step and a volume)
+    and their launch-weighted sums a step and a volume beside them.
     Launches per cell: phase 7's batch-8 step and phase 5's decode."""
     b8 = f"b{max(TRAIN_BATCHES)}"
     steps = train[b8]["steps"]
-    keys = ("role", "n", "shape", "ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("role", "n", "shape", "route", "ms", "plain_ms", "library_ms", "bound_ms",
+            "launches_step", "launches_volume")
     out = []
     for kernel in ("replication_pad_fwd", "replication_pad_bwd"):
         r = results[kernel]
@@ -4819,6 +4913,7 @@ def pad_line(results: dict, train: dict, decode: dict) -> list:
             "launches_cells": {"train-b8-p64": launches / steps,
                                "decode-sw-128x256x256": decode["pad_launches"][kernel]},
             "roles": [{k: t[k] for k in keys} for t in r["times"]],
+            "per_step": r["per_step"], "per_volume": r.get("per_volume"),
             "note": "no Pallas kernel: XLA's edge pad on the TPU (mra_gan_tpu/ops/conv.py:131); "
                     "library_ms: F.pad(mode='replicate')" + (" and its autograd backward"
                                                              if "bwd" in kernel else "")
@@ -4842,6 +4937,10 @@ def main(argv=None) -> int:
                     help="phase 1, then only the conv4s2 parts of phases 2 and 3 (every kernel "
                          "against its plain version, the times); prints their rows and no "
                          "result line")
+    ap.add_argument("--pads", action="store_true",
+                    help="phase 1, then only the pad part of phase 2 (both kernels against "
+                         "their plain versions, the times); prints their rows and no result "
+                         "line")
     ap.add_argument("--single-pass-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -4914,6 +5013,15 @@ def main(argv=None) -> int:
             Path(args.json_out).write_text(json.dumps(
                 {"gpu": card, "conv7": conv7_rows, "shapes": conv7_results}, indent=1))
         print(json.dumps({"conv7": conv7_rows}))
+        print(gpu_line())
+        return 0
+    if args.pads:
+        pad_rows = phase_pad_kernels(bw, pad_results)
+        if args.json_out:
+            Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json_out).write_text(json.dumps(
+                {"gpu": card, "pads": pad_rows, "shapes": pad_results}, indent=1))
+        print(json.dumps({"pads": pad_rows}))
         print(gpu_line())
         return 0
     if args.conv4s2:
