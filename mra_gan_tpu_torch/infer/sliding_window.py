@@ -11,6 +11,7 @@ package."""
 from __future__ import annotations
 
 import functools
+import itertools
 import threading
 from concurrent import futures
 from typing import Optional, Sequence
@@ -18,6 +19,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.spatial_ctx import spatial_shard_info
+from ..models import networks
+from ..models.cycle_gan import GenerateFn
 from ..models.networks import BatchNorm3d
 
 
@@ -66,7 +70,8 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
                              stride_inplane: int = 32, stride_layer: int = 32,
                              blend: str = "gaussian", batch: int = 4,
                              transfer_dtype: torch.dtype = torch.float32,
-                             input_transfer_dtype: Optional[torch.dtype] = None) -> np.ndarray:
+                             input_transfer_dtype: Optional[torch.dtype] = None,
+                             graphs: bool = True) -> np.ndarray:
     """volume: (X, Y, Z) float32 in the generator's input range, mapped to the
     generator's (D, H, W); stride_inplane covers X and Y, stride_layer Z, like
     the reference. generate_fn: a models.cycle_gan.GenerateFn, (B, 1, px, py,
@@ -86,7 +91,11 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
 
     Both transfers go in slabs along X (``transfer_marks``): a batch waits
     only for the planes its patches read, and the planes no later patch
-    reaches are divided and sent back while the device works on the rest."""
+    reaches are divided and sent back while the device works on the rest.
+
+    On a card a ``GenerateFn``'s forward is replayed from CUDA graphs
+    (``_Graphed``), the same kernels on the same inputs, so the same bits;
+    ``graphs=False`` runs every batch eagerly."""
     if blend not in ("gaussian", "uniform"):
         raise ValueError(f"unknown blend {blend!r}")
     patch = tuple(int(p) for p in patch_size)
@@ -100,18 +109,22 @@ def sliding_window_inference(volume: np.ndarray, generate_fn, patch_size=(64, 64
     batches = [starts[i:i + batch] for i in range(0, len(starts), batch)]
     win, wsum = _blend_weights(padded, patch, strides, blend, dev)
     io = _Transfers(volume, padded, in_dtype, transfer_dtype, dev)
+    graphed = _Graphed.take(generate_fn) if graphs and _graphs_apply(generate_fn, dev) else None
+    run = graphed or generate_fn
     try:
         acc = torch.zeros(padded, dtype=torch.float32, device=dev)
         for chunk, (need, final) in zip(batches, transfer_marks(batches, patch[0], vshape[0])):
             vol = io.upload_to(need)
             x = torch.stack([vol[a:a + patch[0], b:b + patch[1], c:c + patch[2]]
                              for a, b, c in chunk])[:, None]
-            out = generate_fn(x)[:, 0].float() * win
+            out = run(x)[:, 0].float() * win
             for (a, b, c), o in zip(chunk, out):
                 acc[a:a + patch[0], b:b + patch[1], c:c + patch[2]].add_(o)
             io.download_to(final, acc, wsum)
     finally:
         io.finish()
+        if graphed is not None:
+            graphed.release()
     return io.host_out.numpy().astype(np.float32, copy=False)
 
 
@@ -132,6 +145,128 @@ def transfer_marks(batches: Sequence[Sequence[tuple]], patch_x: int, size_x: int
         need = max([need] + [min(a + patch_x, size_x) for a, _, _ in chunk])
         marks.append((need, final))
     return marks
+
+
+def _graphs_apply(generate_fn, dev: torch.device) -> bool:
+    """Whether the decode replays ``generate_fn`` from CUDA graphs: a
+    ``GenerateFn`` on a card, outside a depth shard's context (whose halo
+    exchanges go through the host), a dispatch mode (FlopCounterMode sees
+    ops, not a replay) and another capture."""
+    return (dev.type == "cuda" and isinstance(generate_fn, GenerateFn)
+            and spatial_shard_info() is None and not _DISPATCH_MODES()
+            and not torch.cuda.is_current_stream_capturing())
+
+
+# the number of dispatch modes on the stack (FlopCounterMode, FakeTensorMode)
+_DISPATCH_MODES = getattr(torch._C, "_len_torch_dispatch_stack", lambda: 1)
+
+
+def _route(net: torch.nn.Module) -> tuple:
+    """What a generator's forward runs besides its input's shape: each
+    parameter's and buffer's storage and version, the norm the networks call
+    (the plain version under ``utils.profiling.plain_norms``) and the
+    determinism settings."""
+    return (tuple((t.data_ptr(), t._version) for t in itertools.chain(net.parameters(),
+                                                                      net.buffers())),
+            networks.instance_norm_act, torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32)
+
+
+def _counters() -> tuple:
+    """The kernel wrappers' counters, dicts of ints changed in place."""
+    from ..ops.kernels import conv4s2, conv7, instance_norm, replication_pad
+    return (instance_norm.LAUNCHES, instance_norm.SHARDED_LAUNCHES,
+            instance_norm.GRAD_RELAYOUTS, conv7.LAUNCHES, conv7.GRAD_RELAYOUTS,
+            replication_pad.LAUNCHES, replication_pad.RELAYOUTS, conv4s2.LAUNCHES,
+            conv4s2.RELAYOUTS)
+
+
+def _capture(fn, x: torch.Tensor, pool):
+    """(graph, output, pool): ``fn(x)`` recorded into a CUDA graph whose
+    memory comes from ``pool`` (a new pool where None). Only this thread's
+    calls are checked while it records: the decode's transfer worker goes on."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        y = fn(x)
+    return graph, y, graph.pool()
+
+
+class _Graphed:
+    """A ``GenerateFn``'s forward replayed from CUDA graphs, one a patch
+    batch shape, kept on the ``GenerateFn`` from one decode to the next.
+
+    The enqueue of a patch batch is the generator's ~70 launches, each
+    through Python, aten and a wrapper; on a busy host it takes longer than
+    the card's work. A replay enqueues the same kernels on the same inputs
+    in one call. The first batch of a shape runs eagerly (it builds the
+    kernels, the weights' casts and cuDNN's plans); the second records the
+    graph and replays it, as does every later one. The graphs of a
+    ``GenerateFn`` share one memory pool: a replay's output is read before
+    the next replay is enqueued on the same stream. Each replay adds to the
+    wrappers' counters the launches its recording counted, which are taken
+    back (recording launches nothing), so the counters go on counting each
+    kernel run on the card once. The graphs are kept while ``_route`` stays
+    as it was; a new parameter value, the plain norms or another
+    determinism setting drops them all. One decode at a time holds a
+    ``GenerateFn``'s graphs (``take``, ``release``): their buffers are
+    shared, and a decode has ended on the card when it returns."""
+
+    def __init__(self, generate_fn: GenerateFn, lock: threading.Lock):
+        self.fn, self.lock = generate_fn, lock
+        route = _route(generate_fn.net)
+        held = getattr(generate_fn, "_graphs", None)
+        if held is None or held["route"] != route:
+            held = {"route": route, "pool": None, "seen": set(), "graphs": {}}
+            generate_fn._graphs = held
+        self.held = held
+
+    @classmethod
+    def take(cls, generate_fn: GenerateFn) -> Optional["_Graphed"]:
+        """The graphs of ``generate_fn`` for one decode, or None while
+        another decode holds them (that one then runs eagerly)."""
+        lock = generate_fn.__dict__.setdefault("_graphs_lock", threading.Lock())
+        if not lock.acquire(blocking=False):
+            return None
+        try:
+            return cls(generate_fn, lock)
+        except BaseException:
+            lock.release()
+            raise
+
+    def release(self) -> None:
+        self.lock.release()
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        key = (tuple(x.shape), x.stride(), x.dtype)
+        graphs, seen = self.held["graphs"], self.held["seen"]
+        if key not in graphs:
+            if key not in seen:
+                seen.add(key)
+                return self.fn(x)
+            graphs[key] = self._record(x)
+        graph, x_in, y, counts, _ = graphs[key]
+        x_in.copy_(x)
+        graph.replay()
+        for counter, add in zip(_counters(), counts):
+            for k, n in add.items():
+                counter[k] += n
+        return y
+
+    def _record(self, x: torch.Tensor) -> tuple:
+        counters = _counters()
+        before = [dict(c) for c in counters]
+        x_in = torch.empty_like(x)
+        try:
+            graph, y, self.held["pool"] = _capture(self.fn, x_in, self.held["pool"])
+            counts = [{k: c[k] - b[k] for k in c if c[k] != b[k]}
+                      for c, b in zip(counters, before)]
+        finally:
+            for c, b in zip(counters, before):
+                c.update(b)
+        # the weights' casts the graph reads (ops/conv.py ``_cast``) stay alive
+        casts = [getattr(p, "_mra_cast", None) for p in self.fn.net.parameters()]
+        return graph, x_in, y, counts, casts
 
 
 class _Transfers:

@@ -32,11 +32,21 @@ failed build, a refused launch). Each launch adds one to
 ``RELAYOUTS["count"]`` counts the output gradients ``ops/conv.py`` copied
 into channels_last_3d before the input- and weight-gradient kernels.
 
+The forward and the weight gradient each have two kernels, one path a
+launch: the TMA path (``conv4s2_spread_tma_kernel``,
+``conv4s2_wgrad_tma_kernel``: persistent blocks fed through an mbarrier ring
+of TMA loads, the forward's tiles stored by TMA) wherever a tensor map can
+describe every tensor, and the staged kernels elsewhere. ``takes_tma``
+decides from the shape and the alignment alone: x's rows a multiple of 16
+bytes (W % 8 == 0), C % 8 == 0, every source 16-byte aligned. No flag and no
+fallback: a CUDA call launches its plan's kernel or raises.
+
 The host side of a launch is pure functions here, so the CPU tests reach it:
 ``tile_of`` (a tile of outputs, or for the gather of cells, and the tiles a
-sample along each axis), ``wgrad_grid`` (the first pass's fixed grid),
-``smem_bytes`` (what a block stages) and ``launch_params`` (the checks and
-the parameters of a launch, once a shape)."""
+sample along each axis), ``takes_tma`` (the path), ``window_x0`` and
+``tile_pitch`` (the TMA path's staged rows), ``wgrad_grid`` (the first pass's fixed grid),
+``smem_bytes`` (what a block stages) and ``launch_params`` (the checks, the
+path and the parameters of a launch, once a shape)."""
 from __future__ import annotations
 
 import ctypes
@@ -74,9 +84,25 @@ SMEM_LIMIT = 232448  # a block's shared memory on sm_90
 # the best of 1-4 planes x 1-8 rows in a sweep on an H100 at N = 8 and 16
 TILES = {"spread": ((4, 4), MAX_TILE_W), "gather": ((2, 4), GATHER_MAX_W),
          "wgrad": ((2, 4), MAX_TILE_W)}
-# the weight gradient's first pass: at most this many blocks (4 an H100 SM)
-# walk the tiles; a function of the shape alone, so every sum keeps its order
+# the weight gradient's first pass on the staged path: at most this many
+# blocks (4 an H100 SM) walk the tiles; a function of the shape alone, so
+# every sum keeps its order
 WGRAD_BLOCKS = 528
+# the TMA path (csrc/conv4s2.cu's constants): consumer warps of the forward
+# and of the weight gradient (one producer warp besides), the m-tiles a
+# forward warp holds at most, bytes a voxel of a 32-channel chunk in a TMA
+# tile, the forward's input windows and the weight gradient's (window, g
+# tile) pairs in flight a block, a TMA buffer's alignment; at most
+# TMA_BLOCKS persistent blocks (1 an H100 SM) walk the tiles, a function of
+# the shape alone
+SPREAD_WARPS = 8
+WGRAD_WARPS = 8
+SPREAD_MPW = 4
+SLOT = 64
+SPREAD_STAGES = 2
+WGRAD_STAGES = 3
+ALIGN = 1024
+TMA_BLOCKS = 132
 
 Pads = Tuple[int, int, int]
 
@@ -114,17 +140,68 @@ def tile_of(kind: str, span: Sequence[int]):
     return tile, tuple(-(-s // t) for s, t in zip(span, tile))
 
 
-def wgrad_grid(n: int, out_box: Sequence[int]) -> int:
+def takes_tma(kind: str, c: int, box: Sequence[int], aligned: bool) -> bool:
+    """The TMA path: the forward and the weight gradient where a tensor map
+    describes every tensor: x (N, 1, D, H, W) with rows of a multiple of 16
+    bytes (W % 8 == 0), y or g with C % 8 == 0, every source 16-byte aligned
+    (``aligned``). The gather stays staged."""
+    return kind in ("spread", "wgrad") and box[2] % 8 == 0 and c % 8 == 0 and aligned
+
+
+def window_pitch(width: int) -> int:
+    """The TMA path's staged input row: ``width`` voxels rounded up to 16
+    bytes (the box's rows), then on by 8 until its words are 9-23 mod 32, so
+    that the two rows a warp's A loads touch fall in distinct banks."""
+    pitch = -(-width // 8) * 8
+    while not 9 <= pitch // 2 % 32 <= 23:
+        pitch += 8
+    return pitch
+
+
+def window_x0(w0: int) -> int:
+    """The x index where a TMA window row starts for a window whose first
+    voxel is ``w0`` (2 ow0 - pw): a box's innermost coordinate stays a
+    non-negative multiple of 8 voxels, so the window starts w0 -
+    window_x0(w0), in [-1, 7], voxels into the row (-1: the low zero pad)."""
+    return 0 if w0 < 0 else w0 & ~7
+
+
+def tile_pitch(kind: str, tile: Sequence[int]) -> int:
+    """The TMA path's window row for ``kind``'s tile: from the row's start
+    the forward reads up to 7 + 2 TW + 2 voxels (the window's offset, its
+    outputs' taps, the second word of a pair that straddles two), the
+    weight gradient up to 7 + 2 TWr + 4 (TWr = TW rounded up to 16, its g
+    rows; taps a pair 2 voxels apart)."""
+    if kind == "spread":
+        return window_pitch(2 * tile[2] + 10)
+    return window_pitch(2 * 16 * -(-tile[2] // 16) + 12)
+
+
+def wgrad_grid(n: int, out_box: Sequence[int], tma: bool) -> int:
     """The weight gradient's first pass: its blocks (each walks tiles b, b +
-    grid, ...), fixed by the shape."""
+    grid, ...), fixed by the shape and the path."""
     _, counts = tile_of("wgrad", out_box)
-    return min(n * math.prod(counts), WGRAD_BLOCKS)
+    return min(n * math.prod(counts), TMA_BLOCKS if tma else WGRAD_BLOCKS)
 
 
-def smem_bytes(kind: str, tile: Sequence[int]) -> int:
+def _align(v: int) -> int:
+    return -(-v // ALIGN) * ALIGN
+
+
+def smem_bytes(kind: str, tile: Sequence[int], tma: bool = False) -> int:
     """Shared memory a block of ``kind`` ("spread", "gather", "wgrad")
-    takes for ``tile`` (csrc/conv4s2.cu sizes it the same way)."""
+    takes for ``tile`` on its path (csrc/conv4s2.cu sizes it the same
+    way): on the TMA path the ring, the output tiles and the barriers, and
+    the slack that aligns them."""
     td, th, tw = tile
+    if tma:
+        window = _align((2 * td + 2) * (2 * th + 2) * tile_pitch(kind, tile) * 2)
+        if kind == "spread":
+            return ALIGN + 2 * _align(td * th * tw * SLOT) + SPREAD_STAGES * window \
+                + 2 * SPREAD_STAGES * 8
+        ring = WGRAD_STAGES * (window + _align(td * th * 16 * -(-tw // 16) * SLOT))
+        # and a guard before the ring, so that a window's x[-1] reads stay in bounds
+        return 2 * ALIGN + max(ring, WGRAD_WARPS * ROWS * GROUP * 4) + 2 * WGRAD_STAGES * 8
     if kind == "spread":
         return ((2 * td + 2) * (2 * th + 2) * SPREAD_ROW + WARPS * 16 * VOX) * 2
     if kind == "gather":
@@ -239,23 +316,38 @@ def check_tensor(t: torch.Tensor, device: torch.device, what: str, name: str, sh
                          + (" in channels_last_3d" if channels_last else ""))
 
 
+# a launch's parameters, csrc/conv4s2.cu's int array
+PARAMS = ("n", "c", "d", "h", "w", "pd", "ph", "pw", "td", "th", "tw", "vec", "grid", "tma",
+          "pitch")
+
+
 @functools.lru_cache(maxsize=1024)
 def launch_params(kind: str, n: int, c: int, box: Tuple[int, int, int], pads: Pads,
-                  vec: bool):
+                  vec: bool, aligned: bool):
     """The parameters of a launch of ``kind`` ("spread", "gather", "wgrad")
-    for N = n, C = c, the one-channel box ``box`` and ``pads``: (params, a C
-    int array of them, its address). Raises on what the kernels do not take;
-    the checks and the tiling run once a shape."""
+    for N = n, C = c, the one-channel box ``box`` and ``pads``, where
+    ``vec`` says the staged kernel may move y or g in 16-byte channel
+    vectors and ``aligned`` that every source is 16-byte aligned: (params
+    laid out as PARAMS, a C int array of them, its address). The path
+    (``takes_tma``), the grid (the TMA kernels' and the staged weight
+    gradient's fixed grid, else the tiles) and the window's pitch (0 on the
+    staged path) are a function of these alone. Raises on what the kernels
+    do not take; the checks and the tiling run once a shape."""
     what = f"conv4s2_{kind}"
     if len(pads) != 3 or any(p not in (0, 1) for p in pads):
         raise ValueError(f"{what}: pads must be 0 or 1 on each axis, got {pads}")
     out = out_shape(box, pads)
     if min(out) < 1 or n < 1 or c < 1:
         raise ValueError(f"{what}: input box {box} with pads {pads} gives no output")
-    tile, _ = tile_of(kind, cells(box, pads) if kind == "gather" else out)
-    params = (n, c, *box, *pads, *tile, int(vec))
+    tile, counts = tile_of(kind, cells(box, pads) if kind == "gather" else out)
+    tiles = n * math.prod(counts)
+    tma = takes_tma(kind, c, box, aligned)
     if kind == "wgrad":
-        params += (wgrad_grid(n, out),)
+        grid = wgrad_grid(n, out, tma)
+    else:
+        grid = min(tiles, TMA_BLOCKS) if tma else tiles
+    pitch = tile_pitch(kind, tile) if tma else 0
+    params = (n, c, *box, *pads, *tile, int(vec), grid, int(tma), pitch)
     arr = (ctypes.c_int * len(params))(*params)
     return params, arr, ctypes.addressof(arr)
 
@@ -266,10 +358,14 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _vec(c: int, *tensors: torch.Tensor) -> bool:
     """16-byte channel vectors: C a multiple of 8 and the C-channel tensors
     16-byte aligned."""
-    return c % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    return c % 8 == 0 and _aligned(*tensors)
 
 
 def conv4s2_spread(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -287,7 +383,8 @@ def conv4s2_spread(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor
     check_tensor(w, x.device, what, "the weight", (c, *TAPS))
     if bias is not None:
         check_tensor(bias, x.device, what, "the bias", (c,))
-    _, _, addr = launch_params("spread", n, c, tuple(box), tuple(pads), c % 8 == 0)
+    _, _, addr = launch_params("spread", n, c, tuple(box), tuple(pads), c % 8 == 0,
+                               _aligned(x))
     y = torch.empty((n, c, *out_shape(box, pads)), device=x.device, dtype=x.dtype,
                     memory_format=torch.channels_last_3d)
     err = _lib().mra_conv4s2_spread(x.data_ptr(), w.data_ptr(),
@@ -310,7 +407,7 @@ def conv4s2_gather(g: torch.Tensor, w: torch.Tensor, pads: Pads,
     n, c = g.shape[:2]
     check_tensor(g, g.device, what, "the output gradient", (n, c, *out_shape(box, pads)), True)
     check_tensor(w, g.device, what, "the weight", (c, *TAPS))
-    _, _, addr = launch_params("gather", n, c, tuple(box), tuple(pads), _vec(c, g))
+    _, _, addr = launch_params("gather", n, c, tuple(box), tuple(pads), _vec(c, g), False)
     dx = torch.empty((n, 1, *box), device=g.device, dtype=g.dtype)
     err = _lib().mra_conv4s2_gather(g.data_ptr(), w.data_ptr(), dx.data_ptr(), addr, _stream(g))
     _raise_on(err, what)
@@ -321,16 +418,18 @@ def conv4s2_gather(g: torch.Tensor, w: torch.Tensor, pads: Pads,
 def conv4s2_wgrad_partials(x: torch.Tensor, g: torch.Tensor, pads: Pads) -> torch.Tensor:
     """The weight gradient's first pass: (blocks, 65, 32 * chunks) float32
     partial sums of ``wgrad_grid``'s blocks (rows: the 64 taps, then the
-    bias), fixed by the shape. x (N, 1, D, H, W) contiguous and g (N, C, Do,
-    Ho, Wo) contiguous in channels_last_3d, both bfloat16 on CUDA."""
+    bias), fixed by the shape and the path. x (N, 1, D, H, W) contiguous and
+    g (N, C, Do, Ho, Wo) contiguous in channels_last_3d, both bfloat16 on
+    CUDA."""
     what = "conv4s2_wgrad"
     _check_device(x, what)
     n, c = g.shape[:2]
     box = tuple(x.shape[2:])
     check_tensor(x, x.device, what, "the input", (n, 1, *box))
     check_tensor(g, x.device, what, "the output gradient", (n, c, *out_shape(box, pads)), True)
-    params, _, addr = launch_params("wgrad", n, c, box, tuple(pads), _vec(c, g))
-    partial = torch.empty((params[-1], ROWS, -(-c // GROUP) * GROUP), device=x.device,
+    params, _, addr = launch_params("wgrad", n, c, box, tuple(pads), _vec(c, g),
+                                    _aligned(x, g))
+    partial = torch.empty((params[12], ROWS, -(-c // GROUP) * GROUP), device=x.device,
                           dtype=torch.float32)
     err = _lib().mra_conv4s2_wgrad(x.data_ptr(), g.data_ptr(), partial.data_ptr(), addr,
                                    _stream(x))

@@ -17,7 +17,8 @@
 // outside a box read as zero. Every product is bf16 x bf16, summed in float32
 // by mma.sync.m16n8k16 (row.col, f32 accumulators), rounded once.
 //
-// conv4s2_spread (forward): y[n, c, o] = bias[c] + sum_t w[c, t] x[n, 2o + t - p].
+// conv4s2_spread (forward): y[n, c, o] = bias[c] + sum_t w[c, t] x[n, 2o + t - p]
+//   (the staged kernel; the TMA kernel keeps its products, 8 consumer warps).
 //   One block of 4 warps a tile of TD x TH x TW outputs (TW <= 32). The tile's
 //   input window, (2TD + 2) x (2TH + 2) rows of 2TW + 2 voxels, is staged in
 //   shared memory once: neighbouring outputs share half their window on each
@@ -44,7 +45,8 @@
 //   chunk of 32 channels at a time, with 16-byte loads where C % 8 == 0; a
 //   warp keeps up to 5 m-tiles' sums across the chunks.
 //
-// conv4s2_wgrad (weight and bias gradient), first pass:
+// conv4s2_wgrad (weight and bias gradient), first pass (staged kernel below;
+// its TMA kernel keeps the M, N, K and the one-row bias):
 //   dw[c, t] = sum_n sum_o g[n, c, o] x[n, 2o + t - p], db[c] = sum g[n, c, o].
 //   M = the 64 taps and a 65th row whose input is 1 (the bias), N = 32
 //   channels (a grid row a chunk), K = the output voxels, 16 along a row a
@@ -63,20 +65,49 @@
 //   every run (ops/kernels/conv4s2.py repeats the reduce's order in its plain
 //   version).
 //
-// Bound: memory, at N = 16 and C = 32 the forward reads 8.4 MB and writes
-// 33.6 MB (~12.5 us at 3.35 TB/s); its 2.15 GFLOP take ~2 us on the tensor
-// cores. A simple kernel: synchronous staging, no TMA and no ring; each
-// input voxel is read about (2TD + 2)(2TH + 2)(2TW + 2) / (8 TD TH TW) ~ 2
-// times (from L2 beyond the first).
+// Bound: memory. At N = 16 and C = 32 the forward reads 8.4 MB and writes
+// 33.6 MB, the weight gradient reads the same two (~12.5 us at 3.35 TB/s);
+// their 2.15 GFLOP take ~2 us on the tensor cores. The staged kernels above
+// load with plain loads and wait at __syncthreads before every tile's
+// products, so nothing of one tile overlaps the next within a block.
+//
+// The TMA path (conv4s2_spread_tma, conv4s2_wgrad_tma): the same tiles and
+// products, fed by the Tensor Memory Accelerator. A persistent grid (at most
+// one block an SM, a function of the shape alone) walks the tiles b, b +
+// grid, ...; in each block one producer warp keeps a ring of stages in
+// flight (cp.async.bulk.tensor, completion counted in bytes on a full
+// mbarrier, each stage freed by an empty one) while 8 consumer warps
+// multiply the stage that has landed. The input window is one box of a
+// 4-d map over x (W, H, D, N): its zero pad and every voxel past the box
+// come as TMA's zero fill. A box's innermost coordinate must be a multiple
+// of 16 bytes, negative or not (x index -1 or 1 faults at run time with an
+// illegal instruction on an H100; 0, 8 and -8 load), so a window row
+// starts at a multiple of 8 voxels and the window e0 in [-1, 7] voxels into
+// it; A registers are made from two words by a byte permute where a pair
+// straddles them, and x[-1] (the low pad) is masked to zero. The forward
+// holds the weights in registers for the whole walk, writes each tile's
+// sums into one of two output tiles (64-byte voxels under the 64-byte
+// swizzle) and stores it by TMA, which clips at the box and runs on while
+// the next tile loads and multiplies. The weight gradient's g tile comes by
+// TMA under the same swizzle, read by ldmatrix.trans without bank conflicts.
+//
+// The path: TMA where the maps can describe every tensor (x's rows a
+// multiple of 16 bytes: W % 8 == 0; y or g with C % 8 == 0; every source
+// 16-byte aligned), else the staged kernels; ops/kernels/conv4s2.py
+// (takes_tma, launch_params) decides from the shape and the alignment
+// alone, once a shape. The gather has the staged kernel only.
 //
 // C interface (ctypes, ops/kernels/conv4s2.py): each launcher takes its
-// parameters as one int array worked out once a shape on the host, launches
-// on the caller's stream and returns a cudaError_t.
+// parameters as one int array worked out once a shape on the host ({N, C,
+// D, H, W, pd, ph, pw, TD, TH, TW, vec, grid, tma, pitch}), launches the
+// path it names on the caller's stream and returns a cudaError_t.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <initializer_list>
 
 namespace {
@@ -97,6 +128,16 @@ constexpr int kGatherMaxW = 40;           // gather: cells along W a tile
 constexpr int kGatherMT = kMaxCells / 16 / kWarps;  // m-tiles a warp of the gather
 constexpr int kReduceWarps = 8;
 constexpr uint32_t kOnes = 0x3F803F80u;   // two bf16 ones
+// the TMA path (conv4s2_spread_tma, conv4s2_wgrad_tma)
+constexpr int kSpreadWarps = 8;           // consumer warps of the TMA forward, a producer besides
+constexpr int kSpreadThreads = 32 * (kSpreadWarps + 1);
+constexpr int kWgradWarps = 8;            // and of the TMA weight gradient
+constexpr int kWgradThreads = 32 * (kWgradWarps + 1);
+constexpr int kSpreadMPW = 4;             // m-tiles a consumer warp of the TMA forward at most
+constexpr int kSlot = 64;                 // bytes a voxel of a 32-channel chunk in a TMA tile
+constexpr int kSpreadStages = 2;          // spread: input windows in flight a block
+constexpr int kWgradStages = 3;           // weight gradient: (window, g tile) pairs in flight
+constexpr int kAlign = 1024;              // a TMA buffer's alignment (the 64-byte swizzle's)
 
 struct Geo {
   int N, C;
@@ -117,13 +158,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// a: the shared-memory address of this lane's row
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+                                              uint32_t& r3, uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
                : "r"(a)
                : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3, const bf16* p) {
+  ldsm_x4_trans(r0, r1, r2, r3, static_cast<uint32_t>(__cvta_generic_to_shared(p)));
 }
 
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
@@ -152,6 +198,123 @@ __device__ __forceinline__ void tile_origin(const Geo& g, int t, int& n, int& a,
   a *= g.TD;
   b *= g.TH;
   c *= g.TW;
+}
+
+// ---------------------------------------------------------------------------
+// Hopper's asynchronous pieces: mbarriers and TMA (as csrc/conv7.cu has them)
+
+__host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival that also tells the barrier how many bytes TMA will bring
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait for the phase of the given parity to complete
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// threads' writes to shared memory made visible to TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// every TMA store but the newest N has read its tile out of shared memory
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// byte offset of 16-byte chunk q (8 channels) of voxel u in a TMA tile of
+// 64-byte voxels under the 64-byte swizzle: the chunk index XOR-ed with bits
+// 1-2 of u (address bits, so a tile starts on kAlign bytes). The 8 voxels of
+// an ldmatrix phase, or of a warp's accumulator stores, fall in 8 distinct
+// 16-byte bank groups.
+__device__ __forceinline__ int chunk_offset(int u, int q) {
+  return u * kSlot + ((q ^ ((u >> 1) & 3)) << 4);
+}
+
+// The TMA path's window rows start at x index window_x0(w0) for a window
+// whose first voxel is x index w0 = 2 ow0 - pw: a box's first coordinate
+// stays a non-negative multiple of 8 voxels (16 bytes), which the tensor
+// copy requires of the innermost one; the window's first voxel then sits
+// e0 = w0 - window_x0(w0) in [-1, 7] voxels into the row, e0 = -1 being the
+// low zero pad. The rows above and below the box (negative y, z included)
+// come as TMA's zero fill.
+__host__ __device__ __forceinline__ int window_x0(int w0) { return w0 < 0 ? 0 : (w0 & ~7); }
+
+// Two voxels of a staged row as one A register from the words at p and p +
+// d (p word-aligned): bytes picked by `sel`. The forward's pair (x[e], x[e +
+// 1]) is the word at e (d = 0, sel 0x3210) where e is even, else the halves
+// of those at e - 1 and e + 1 (d = 2, 0x5432); the weight gradient's (x[e],
+// x[e + 2]) the low (e even, 0x5410) or high (e odd, 0x7632) halves of the
+// words at e & ~1 and 2 on. The caller masks x[-1], the pad, to zero.
+__device__ __forceinline__ uint32_t pair_at(const bf16* p, int d, uint32_t sel) {
+  return __byte_perm(lds32(p), lds32(p + d), sel);
 }
 
 // Stage a window of the one-channel field: rows (z0 + zz, y0 + yy), zz < RD,
@@ -330,6 +493,154 @@ conv4s2_spread_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       __syncwarp();
     }
   }
+}
+
+// The forward on the TMA path: the same products as conv4s2_spread_kernel,
+// fed and drained by TMA. A persistent block walks tiles blockIdx.x, +
+// gridDim.x, ...; its producer warp keeps kSpreadStages input windows in
+// flight (a box of (2TD + 2) x (2TH + 2) rows of `pitch` voxels from x index
+// (window_x0(2 ow0 - pw), 2 oh0 - ph, 2 od0 - pd) of sample n: the zero pad
+// and every voxel past the box come as TMA's zero fill), each stage guarded
+// by a full and an empty mbarrier. The 8 consumer warps hold the weights' B fragments
+// in registers for the whole walk (C <= 32; else reloaded a chunk), write a
+// tile's rounded sums into one of two output tiles in shared memory (64-byte
+// voxels under the 64-byte swizzle) and hand it to one TMA store, which
+// clips at the output box and runs on while the next tile loads and
+// multiplies; a buffer is written again once the store two tiles back has
+// read it (cp.async.bulk.wait_group.read 1).
+__global__ void __launch_bounds__(kSpreadThreads)
+conv4s2_spread_tma_kernel(const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap y_map, const bf16* __restrict__ w,
+                          const bf16* __restrict__ bias, Geo g, int pitch, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  const int RD = 2 * g.TD + 2, RH = 2 * g.TH + 2;
+  const int V = g.TD * g.TH * g.TW, M = (V + 15) >> 4;
+  const int out_bytes = round_up(V * kSlot, kAlign);
+  const int x_bytes = round_up(RD * RH * pitch * 2, kAlign);
+  unsigned char* outb = smem;                 // two output tiles
+  unsigned char* xb = smem + 2 * out_bytes;   // kSpreadStages input windows
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xb + kSpreadStages * x_bytes);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kSpreadStages);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSpreadStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);                    // the producer's expect-tx arrival
+      mbar_init(empty0 + 8 * s, kSpreadWarps * 32);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kSpreadWarps) {  // the producer
+    if (lane == 0) {
+      int k = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+        int n, od0, oh0, ow0;
+        tile_origin(g, t, n, od0, oh0, ow0);
+        const int s = k % kSpreadStages;
+        mbar_wait(empty0 + 8 * s, ((k / kSpreadStages) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, RD * RH * pitch * 2);
+        tma_load_4d(smem_u32(xb + s * x_bytes), &x_map, full0 + 8 * s,
+                    window_x0(2 * ow0 - g.pw), 2 * oh0 - g.ph, 2 * od0 - g.pd, n);
+      }
+    }
+    return;
+  }
+
+  const int gq = lane >> 2, tq = lane & 3;
+  // this lane's outputs, the same in every tile: rows gq and gq + 8 of m-tiles
+  // warp, warp + kSpreadWarps, ...; an A register is taps (kw, kw + 1), kw =
+  // 2 (tq & 1), of kernel row kh = tq >> 1 (a0, a1; a2, a3 two rows on): x[2
+  // vw + kw - pw], at woff + e0 in the stage (e0 the tile's window offset).
+  // vox: the output voxel (-1 past the tile), first: taps 0, 1 of output vw
+  // = 0, whose x[-1] is the low pad where e0 = -1
+  int woff[kSpreadMPW][2], vox[kSpreadMPW][2];
+  uint32_t first = 0;
+#pragma unroll
+  for (int i = 0; i < kSpreadMPW; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = 16 * (warp + kSpreadWarps * i) + gq + 8 * h, vc = v < V ? v : V - 1;
+      const int vw = vc % g.TW, rr = vc / g.TW, vh = rr % g.TH, vd = rr / g.TH;
+      woff[i][h] = (2 * vd * RH + 2 * vh + (tq >> 1)) * pitch + 2 * vw + 2 * (tq & 1);
+      vox[i][h] = v < V ? v : -1;
+      if (vw == 0 && (tq & 1) == 0) first |= 1u << (2 * i + h);
+    }
+  uint32_t b[4][4][2];
+  float bv[4][2];
+  auto load_weights = [&](int c0) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int c = c0 + 8 * nt + gq;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const bf16* wp = w + (int64_t)c * kTaps + 16 * s + 2 * tq;
+        b[s][nt][0] = c < g.C ? *reinterpret_cast<const uint32_t*>(wp) : 0u;
+        b[s][nt][1] = c < g.C ? *reinterpret_cast<const uint32_t*>(wp + 8) : 0u;
+      }
+      const int cb = c0 + 8 * nt + 2 * tq;
+      bv[nt][0] = bias != nullptr && cb < g.C ? __bfloat162float(bias[cb]) : 0.f;
+      bv[nt][1] = bias != nullptr && cb + 1 < g.C ? __bfloat162float(bias[cb + 1]) : 0.f;
+    }
+  };
+  const bool one_chunk = g.C <= kGroup;
+  if (one_chunk) load_weights(0);
+  // the window's offset e0 has the parity of pw in every tile: a pair is one
+  // word (pw = 0) or the halves of two (pw = 1)
+  const int odd = g.pw & 1, d = 2 * odd;
+  const uint32_t sel = odd ? 0x5432u : 0x3210u;
+  int k = 0, u = 0;  // tiles walked, output tiles stored
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+    int n, od0, oh0, ow0;
+    tile_origin(g, t, n, od0, oh0, ow0);
+    const int s = k % kSpreadStages;
+    const int e0 = 2 * ow0 - g.pw - window_x0(2 * ow0 - g.pw);
+    const uint32_t pad = e0 == -1 ? 0xFFFF0000u : 0xFFFFFFFFu;
+    mbar_wait(full0 + 8 * s, (k / kSpreadStages) & 1);
+    const bf16* xs = reinterpret_cast<const bf16*>(xb + s * x_bytes) + e0 - odd;
+    for (int c0 = 0; c0 < g.C; c0 += kGroup, ++u) {
+      if (!one_chunk) load_weights(c0);
+      unsigned char* ob = outb + (u & 1) * out_bytes;
+      if (threadIdx.x == 0) tma_store_wait_read<1>();  // the store two tiles back has read ob
+      bar_sync(1, kSpreadWarps * 32);
+#pragma unroll
+      for (int i = 0; i < kSpreadMPW; ++i) {
+        if (warp + kSpreadWarps * i >= M) break;
+        const bf16* p0 = xs + woff[i][0];
+        const bf16* p1 = xs + woff[i][1];
+        const uint32_t m0 = (first >> (2 * i)) & 1 ? pad : 0xFFFFFFFFu;
+        const uint32_t m1 = (first >> (2 * i + 1)) & 1 ? pad : 0xFFFFFFFFu;
+        float acc[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < 4; ++kd) {
+          const int o = kd * RH * pitch;
+          const uint32_t a0 = pair_at(p0 + o, d, sel) & m0, a1 = pair_at(p1 + o, d, sel) & m1;
+          const uint32_t a2 = pair_at(p0 + o + 2 * pitch, d, sel) & m0;
+          const uint32_t a3 = pair_at(p1 + o + 2 * pitch, d, sel) & m1;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[nt], a0, a1, a2, a3, b[kd][nt][0], b[kd][nt][1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int v = vox[i][h];
+          if (v < 0) continue;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            *reinterpret_cast<uint32_t*>(ob + chunk_offset(v, nt) + 4 * tq) =
+                pack_rn(acc[nt][2 * h] + bv[nt][0], acc[nt][2 * h + 1] + bv[nt][1]);
+        }
+      }
+      if (c0 + kGroup >= g.C) mbar_arrive(empty0 + 8 * s);  // the window is read
+      fence_proxy_async();
+      bar_sync(1, kSpreadWarps * 32);
+      if (threadIdx.x == 0) tma_store_5d(&y_map, smem_u32(ob), c0, ow0, oh0, od0, n);
+    }
+  }
+  if (threadIdx.x == 0) tma_store_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -513,6 +824,150 @@ conv4s2_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gr,
   }
 }
 
+// The first pass on the TMA path: the same sums as conv4s2_wgrad_kernel.
+// A persistent block (grid fixed by the shape) walks tiles blockIdx.x, +
+// gridDim.x, ... of channel chunk blockIdx.y; its producer warp keeps
+// kWgradStages (input window, g tile) pairs in flight, both by TMA: the
+// window as rows of `pitch` voxels (zero pad and past-the-box voxels as
+// zero fill), the g tile as TD x TH rows of TWr = 16 ceil(TW / 16) 64-byte
+// voxels of the chunk under the 64-byte swizzle, which ldmatrix.trans reads
+// without bank conflicts. A row of the window holds x[2j + kw] and x[2j + 2 +
+// kw] of the two outputs j, j + 1 of an A register in two aligned words;
+// one byte permute makes the register, so x is read from device memory
+// once a window. Voxels j >= TW of a g row (the next tile's, where TWr > TW)
+// meet zeroed A halves, so each output voxel is summed by one tile. The
+// walk, the warps' rows and the k order are fixed by the shape, so each
+// partial sums in a fixed order.
+__global__ void __launch_bounds__(kWgradThreads)
+conv4s2_wgrad_tma_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap g_map, float* __restrict__ partial,
+                         Geo g, int pitch, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  const int RD = 2 * g.TD + 2, RH = 2 * g.TH + 2, KW = (g.TW + 15) >> 4, TWr = 16 * KW;
+  const int x_bytes = round_up(RD * RH * pitch * 2, kAlign);
+  const int g_bytes = round_up(g.TD * g.TH * TWr * kSlot, kAlign);
+  const int stage = x_bytes + g_bytes;  // the window, then the g tile
+  unsigned char* ring = smem + kAlign;  // past a guard: a window's x[-1] reads stay in bounds
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kWgradStages * stage);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kWgradStages);
+  float* red = reinterpret_cast<float*>(smem);  // after the walk: kWgradWarps x kRows x kGroup
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = blockIdx.y * kGroup;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgradStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kWgradWarps * 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[5][4][4];
+#pragma unroll
+  for (int m = 0; m < 5; ++m)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) acc[m][nt][0] = acc[m][nt][1] = acc[m][nt][2] = acc[m][nt][3] = 0.f;
+
+  if (warp == kWgradWarps) {  // the producer
+    if (lane == 0) {
+      int k = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+        int n, od0, oh0, ow0;
+        tile_origin(g, t, n, od0, oh0, ow0);
+        const int s = k % kWgradStages;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((k / kWgradStages) & 1) ^ 1);
+        mbar_expect_tx(full, RD * RH * pitch * 2 + g.TD * g.TH * TWr * kSlot);
+        unsigned char* st = ring + s * stage;
+        tma_load_4d(smem_u32(st), &x_map, full, window_x0(2 * ow0 - g.pw), 2 * oh0 - g.ph,
+                    2 * od0 - g.pd, n);
+        tma_load_5d(smem_u32(st + x_bytes), &g_map, full, c0, ow0, oh0, od0, n);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int gq = lane >> 2, tq = lane & 3;
+    // A row gq is tap 16 kd + gq (kh = gq >> 2, kw = gq & 3): its pair of a
+    // k-step, outputs j and j + 1, is x[2j + kw - pw] and the voxel 2 on, e =
+    // e0 + 2j + kw voxels into window row 2vh + kh
+    const int mi = lane >> 3;  // ldmatrix: the matrix whose row this lane addresses
+    const int brow = (mi & 1) * 8 + (lane & 7), bq = mi >> 1;
+    int k = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+      int n, od0, oh0, ow0;
+      tile_origin(g, t, n, od0, oh0, ow0);
+      // the lane's first pair (output j = 2tq at ks = 0) sits e voxels into
+      // its row; a k-step on, 32; a2's, 16
+      const int e = 2 * ow0 - g.pw - window_x0(2 * ow0 - g.pw) + (gq & 3) + 4 * tq;
+      const uint32_t sel = (e & 1) ? 0x7632u : 0x5410u;
+      const uint32_t pad = e == -1 ? 0xFFFF0000u : 0xFFFFFFFFu;  // x[-1]: a0, a1 of k-step 0
+      const int s = k % kWgradStages;
+      mbar_wait(full0 + 8 * s, (k / kWgradStages) & 1);
+      const bf16* xs = reinterpret_cast<const bf16*>(ring + s * stage) + (e & ~1);
+      const uint32_t gs = smem_u32(ring + s * stage + x_bytes);
+      for (int r = warp; r < g.TD * g.TH; r += kWgradWarps) {
+        const int vd = r / g.TH, vh = r % g.TH;
+        const bf16* ar = xs + (2 * vd * RH + 2 * vh + (gq >> 2)) * pitch;
+        for (int ks = 0; ks < KW; ++ks) {
+          const int j = 16 * ks + 2 * tq;  // the outputs of a0's (and a1's) k pair; a2's 8 on
+          const uint32_t v0 = (j < g.TW ? 0xFFFFu : 0u) | (j + 1 < g.TW ? 0xFFFF0000u : 0u);
+          const uint32_t m2 = (j + 8 < g.TW ? 0xFFFFu : 0u) | (j + 9 < g.TW ? 0xFFFF0000u : 0u);
+          const uint32_t m0 = v0 & (ks == 0 ? pad : 0xFFFFFFFFu);  // and the pad's x[-1]
+          uint32_t b[4][2];
+          const int u = r * TWr + 16 * ks + brow;
+          ldsm_x4_trans(b[0][0], b[0][1], b[1][0], b[1][1], gs + chunk_offset(u, bq));
+          ldsm_x4_trans(b[2][0], b[2][1], b[3][0], b[3][1], gs + chunk_offset(u, bq + 2));
+#pragma unroll
+          for (int kd = 0; kd < 4; ++kd) {
+            const bf16* p = ar + kd * RH * pitch + 32 * ks;
+            const uint32_t a0 = pair_at(p, 2, sel) & m0;
+            const uint32_t a1 = pair_at(p + 2 * pitch, 2, sel) & m0;
+            const uint32_t a2 = pair_at(p + 16, 2, sel) & m2;
+            const uint32_t a3 = pair_at(p + 2 * pitch + 16, 2, sel) & m2;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[kd][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
+          }
+          const uint32_t one0 = gq == 0 ? kOnes & v0 : 0u, one2 = gq == 0 ? kOnes & m2 : 0u;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[4][nt], one0, 0u, one2, 0u, b[nt][0], b[nt][1]);
+        }
+      }
+      mbar_arrive(empty0 + 8 * s);  // the stage is read
+    }
+  }
+
+  __syncthreads();  // every stage consumed: the ring becomes the warps' sums
+  if (warp < kWgradWarps) {
+    float* mine = red + warp * kRows * kGroup;
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int gq = lane >> 2, tq = lane & 3, tap = 16 * kd + gq, ch = 8 * nt + 2 * tq;
+        mine[tap * kGroup + ch] = acc[kd][nt][0];
+        mine[tap * kGroup + ch + 1] = acc[kd][nt][1];
+        mine[(tap + 8) * kGroup + ch] = acc[kd][nt][2];
+        mine[(tap + 8) * kGroup + ch + 1] = acc[kd][nt][3];
+      }
+    if ((lane >> 2) == 0)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        mine[kTaps * kGroup + 8 * nt + 2 * lane] = acc[4][nt][0];
+        mine[kTaps * kGroup + 8 * nt + 2 * lane + 1] = acc[4][nt][1];
+      }
+  }
+  __syncthreads();
+  const int Cp = gridDim.y * kGroup;
+  float* out = partial + (int64_t)blockIdx.x * kRows * Cp + c0;
+  for (int e = threadIdx.x; e < kRows * kGroup; e += kWgradThreads) {
+    float s = red[e];
+#pragma unroll
+    for (int q = 1; q < kWgradWarps; ++q) s += red[q * kRows * kGroup + e];
+    out[(e / kGroup) * Cp + e % kGroup] = s;
+  }
+}
+
 __global__ void __launch_bounds__(kReduceWarps * 32)
 conv4s2_wgrad_reduce_kernel(const float* __restrict__ partial, bf16* __restrict__ dw,
                             bf16* __restrict__ db, int P, int C, int Cp) {
@@ -586,6 +1041,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int* allowed) {
 }
 
 int g_spread_smem = 48 * 1024, g_gather_smem = 48 * 1024, g_wgrad_smem = 48 * 1024;
+int g_spread_tma_smem = 48 * 1024, g_wgrad_tma_smem = 48 * 1024;
 
 int spread_smem(const Geo& g) {
   return ((2 * g.TD + 2) * (2 * g.TH + 2) * kSpreadRow + kWarps * 16 * kVox) * 2;
@@ -598,17 +1054,122 @@ int wgrad_smem(const Geo& g) {
   return tiles > red ? tiles : red;
 }
 
+// the TMA path: an input window's bytes (rows of `pitch` voxels), and a
+// block's shared memory, the alignment slack and the barriers included
+int window_bytes(const Geo& g, int pitch) {
+  return round_up((2 * g.TD + 2) * (2 * g.TH + 2) * pitch * 2, kAlign);
+}
+int spread_tma_smem(const Geo& g, int pitch) {
+  return kAlign + 2 * round_up(g.TD * g.TH * g.TW * kSlot, kAlign) +
+         kSpreadStages * window_bytes(g, pitch) + 2 * kSpreadStages * 8;
+}
+int wgrad_tma_smem(const Geo& g, int pitch) {
+  const int ring = kWgradStages * (window_bytes(g, pitch) +
+                                   round_up(g.TD * g.TH * 16 * cdiv(g.TW, 16) * kSlot, kAlign));
+  const int red = kWgradWarps * kRows * kGroup * 4;  // the warps' sums, over the ring at the end
+  return 2 * kAlign + (ring > red ? ring : red) + 2 * kWgradStages * 8;  // and the guard
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A bf16 tensor map: dims innermost first, the byte strides of dims 1..rank-1
+// (multiples of 16), the box, zeros outside the tensor. Any CUresult but
+// success (a base or stride TMA cannot take) is an invalid value.
+cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                        dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// x (N, 1, D, H, W) as a 4-d map (W, H, D, N), its box one input window of
+// `pitch` x (2TH + 2) x (2TD + 2) voxels
+cudaError_t window_map(CUtensorMap* map, const void* x, const Geo& g, int pitch) {
+  const cuuint64_t row = (cuuint64_t)g.W * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)g.W, (cuuint64_t)g.H, (cuuint64_t)g.D, (cuuint64_t)g.N};
+  const cuuint64_t strides[3] = {row, row * g.H, row * g.H * g.D};
+  const cuuint32_t box[4] = {(cuuint32_t)pitch, (cuuint32_t)(2 * g.TH + 2),
+                             (cuuint32_t)(2 * g.TD + 2), 1};
+  return make_map(map, x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// y or g (N, Od, Oh, Ow, C) as a 5-d map (C, Ow, Oh, Od, N), its box a chunk
+// of 32 channels of tw x TH x TD voxels, under the 64-byte swizzle
+cudaError_t voxel_map(CUtensorMap* map, const void* t, const Geo& g, int tw) {
+  const cuuint64_t row = (cuuint64_t)g.C * 2;
+  const cuuint64_t dims[5] = {(cuuint64_t)g.C, (cuuint64_t)g.Ow, (cuuint64_t)g.Oh,
+                              (cuuint64_t)g.Od, (cuuint64_t)g.N};
+  const cuuint64_t strides[4] = {row, row * g.Ow, row * g.Ow * g.Oh, row * g.Ow * g.Oh * g.Od};
+  const cuuint32_t box[5] = {kGroup, (cuuint32_t)tw, (cuuint32_t)g.TH, (cuuint32_t)g.TD, 1};
+  return make_map(map, t, 5, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// the TMA path's checks: what the maps need (W and C multiples of 8; the
+// bases' alignment the encode checks), a window row that holds `need`
+// voxels, and a grid of at most the tiles
+bool tma_ok(const Geo& g, int grid, int pitch, int need) {
+  const int tiles = g.N * g.nd * g.nh * g.nw;
+  return g.W % 8 == 0 && g.C % 8 == 0 && grid >= 1 && grid <= tiles && pitch >= need &&
+         pitch % 8 == 0 && pitch <= 256;
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* mra_conv4s2_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// x (N, 1, D, H, W), w (C, 64), bias (C) or null -> y (N, Do, Ho, Wo, C).
+// x (N, 1, D, H, W), w (C, 64), bias (C) or null -> y (N, Do, Ho, Wo, C);
+// p[12] the grid, p[13] the path (1: TMA), p[14] the window's row pitch.
 int mra_conv4s2_spread(const void* x, const void* w, const void* bias, void* y, const int* p,
                        void* stream) {
   Geo g;
   if (!make_geo(&g, p, false)) return (int)cudaErrorInvalidValue;
+  if (p[13]) {
+    const int grid = p[12], pitch = p[14];
+    if (!tma_ok(g, grid, pitch, 2 * g.TW + 10) ||
+        g.TD * g.TH * g.TW > 16 * kSpreadMPW * kSpreadWarps)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap x_map, y_map;
+    memset(&x_map, 0, sizeof(x_map));
+    memset(&y_map, 0, sizeof(y_map));
+    cudaError_t e = window_map(&x_map, x, g, pitch);
+    if (e == cudaSuccess) e = voxel_map(&y_map, y, g, g.TW);
+    const int smem = spread_tma_smem(g, pitch);
+    if (e == cudaSuccess) e = allow_smem(conv4s2_spread_tma_kernel, smem, &g_spread_tma_smem);
+    if (e != cudaSuccess) return (int)e;
+    conv4s2_spread_tma_kernel<<<(unsigned)grid, kSpreadThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+        x_map, y_map, static_cast<const bf16*>(w), static_cast<const bf16*>(bias), g, pitch,
+        g.N * g.nd * g.nh * g.nw);
+    return (int)cudaGetLastError();
+  }
   const int smem = spread_smem(g);
   cudaError_t e = allow_smem(conv4s2_spread_kernel, smem, &g_spread_smem);
   if (e != cudaSuccess) return (int)e;
@@ -633,11 +1194,28 @@ int mra_conv4s2_gather(const void* gr, const void* w, void* dx, const int* p, vo
 }
 
 // x (N, 1, D, H, W), g (N, Do, Ho, Wo, C) -> partial (grid, 65, 32 * chunks)
-// float32; p[12] the grid (at most the tiles).
+// float32; p[12] the grid (at most the tiles), p[13] the path (1: TMA),
+// p[14] the window's row pitch.
 int mra_conv4s2_wgrad(const void* x, const void* gr, void* partial, const int* p, void* stream) {
   Geo g;
   if (!make_geo(&g, p, false)) return (int)cudaErrorInvalidValue;
   const int grid = p[12];
+  if (p[13]) {
+    const int pitch = p[14], twr = 16 * cdiv(g.TW, 16);
+    if (!tma_ok(g, grid, pitch, 2 * twr + 12)) return (int)cudaErrorInvalidValue;
+    CUtensorMap x_map, g_map;
+    memset(&x_map, 0, sizeof(x_map));
+    memset(&g_map, 0, sizeof(g_map));
+    cudaError_t e = window_map(&x_map, x, g, pitch);
+    if (e == cudaSuccess) e = voxel_map(&g_map, gr, g, twr);
+    const int smem = wgrad_tma_smem(g, pitch);
+    if (e == cudaSuccess) e = allow_smem(conv4s2_wgrad_tma_kernel, smem, &g_wgrad_tma_smem);
+    if (e != cudaSuccess) return (int)e;
+    conv4s2_wgrad_tma_kernel<<<dim3((unsigned)grid, (unsigned)cdiv(g.C, kGroup)), kWgradThreads,
+                               smem, static_cast<cudaStream_t>(stream)>>>(
+        x_map, g_map, static_cast<float*>(partial), g, pitch, g.N * g.nd * g.nh * g.nw);
+    return (int)cudaGetLastError();
+  }
   if (grid < 1 || grid > g.N * g.nd * g.nh * g.nw) return (int)cudaErrorInvalidValue;
   const int smem = wgrad_smem(g);
   cudaError_t e = allow_smem(conv4s2_wgrad_kernel, smem, &g_wgrad_smem);

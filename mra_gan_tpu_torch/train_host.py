@@ -89,13 +89,15 @@ def host_us(fn, calls: int = 300) -> float:
 
 
 def wrapper_costs(net) -> dict:
-    """Host microseconds a call: the norm, pad and conv7 wrappers and their
-    autograd routes, the casts of ``net``'s parameters one by one and
+    """Host microseconds a call: the norm, pad, conv7 and conv4s2 wrappers
+    (the last at one 32^3 sample, on the path the step's 64^3 takes),
+    the autograd routes, the casts of ``net``'s parameters one by one and
     grouped, and library calls beside them."""
     import torch.nn.functional as F
 
     from .ops import conv
     from .ops import norm as N
+    from .ops.kernels import conv4s2 as C4
     from .ops.kernels import instance_norm as K
     from .ops.kernels import replication_pad as RP
 
@@ -112,6 +114,10 @@ def wrapper_costs(net) -> dict:
     w7 = torch.randn(32, 1, 7, 7, 7, device=dev, requires_grad=True)
     x7r = x7.detach().requires_grad_()
     params = [p for p in net.parameters()]
+    x4 = torch.randn(1, 1, 32, 32, 32, device=dev, dtype=bf16)
+    w4 = torch.randn(32, 4, 4, 4, device=dev, dtype=bf16)
+    b4 = torch.randn(32, device=dev, dtype=bf16)
+    g4 = torch.randn(1, 32, 16, 16, 16, device=dev, dtype=bf16).contiguous(memory_format=cl)
 
     def norm_fwd_bwd():
         torch.autograd.grad(N.instance_norm_act(xr, act="relu"), xr, g)
@@ -142,6 +148,9 @@ def wrapper_costs(net) -> dict:
         "pad fwd": host_us(lambda: RP.replication_pad_fwd(x, (1,) * 6)),
         "pad Function fwd+bwd": host_us(pad_fwd_bwd),
         "F.conv3d 3^3 fwd": host_us(lambda: F.conv3d(xp, w3b)),
+        "c4s2 spread": host_us(lambda: C4.conv4s2_spread(x4, w4, b4, (1, 1, 1))),
+        "c4s2 gather": host_us(lambda: C4.conv4s2_gather(g4, w4, (1, 1, 1), (32, 32, 32))),
+        "c4s2 wgrad + reduce": host_us(lambda: C4.conv4s2_wgrad(x4, g4, (1, 1, 1))),
         "c7 custom op fwd+bwd": host_us(c7(conv.c7_convolution)),
         "c7 Function fwd+bwd": host_us(c7(conv.C7Convolution.apply)),
         "weight cast": host_us(lambda: w3.to(bf16)),

@@ -388,7 +388,8 @@ def test_plain_versions_round_once():
     assert not any(conv4s2.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("p, c", [(1, 4), (7, 32), (37, 40), (528, 32)])
+@pytest.mark.parametrize("p, c", [(1, 4), (7, 32), (37, 40), (528, 32), (264, 32), (264, 40),
+                                  (132, 32), (132, 40)])
 def test_wgrad_reduce_plain_version_keeps_the_kernels_order(p, c):
     """The reduce's plain version sums as csrc/conv4s2.cu's reduce does:
     per warp w the partials w, w + 8, ... in order from zero, then the 8
@@ -440,9 +441,9 @@ def test_wrappers_refuse_other_devices_and_dtypes():
     with pytest.raises(ValueError, match="shape"):
         conv4s2.check_tensor(gc, dev, what, "g", (1, 4, 4, 4, 5), True)
     with pytest.raises(ValueError, match="pads"):
-        conv4s2.launch_params("spread", 1, 4, (8, 8, 8), (2, 1, 1), True)
+        conv4s2.launch_params("spread", 1, 4, (8, 8, 8), (2, 1, 1), True, True)
     with pytest.raises(ValueError, match="no output"):
-        conv4s2.launch_params("gather", 1, 4, (1, 8, 8), (0, 1, 1), True)
+        conv4s2.launch_params("gather", 1, 4, (1, 8, 8), (0, 1, 1), True, True)
 
 
 # ---------------------------------------------------------------------------
@@ -485,18 +486,31 @@ def test_tiles_cover_every_output_and_every_cell_once(box, pads):
 
 @pytest.mark.parametrize("box, pads", BOXES, ids=BOX_IDS)
 def test_blocks_fit_and_the_grid_is_fixed_by_the_shape(box, pads):
-    """Each kind's shared memory fits a block of sm_90; the weight
-    gradient's grid is at most WGRAD_BLOCKS and at most the tiles."""
+    """Each kind's shared memory fits a block of sm_90 on both paths; the
+    weight gradient's grid is at most TMA_BLOCKS (TMA) or WGRAD_BLOCKS
+    (staged) and at most the tiles, the TMA forward's at most TMA_BLOCKS,
+    the staged forward's and the gather's the tiles: all fixed by the shape,
+    the path and nothing else."""
     out = conv4s2.out_shape(box, pads)
     for kind, span in (("spread", out), ("wgrad", out), ("gather", conv4s2.cells(box, pads))):
         tile, _ = conv4s2.tile_of(kind, span)
         assert conv4s2.smem_bytes(kind, tile) <= conv4s2.SMEM_LIMIT, kind
+        if kind != "gather":
+            assert conv4s2.smem_bytes(kind, tile, True) <= conv4s2.SMEM_LIMIT, kind
     for n in (1, 2, 16):
-        grid = conv4s2.wgrad_grid(n, out)
         tiles = n * np.prod(conv4s2.tile_of("wgrad", out)[1])
-        assert grid == min(tiles, conv4s2.WGRAD_BLOCKS)
-        params, _, _ = conv4s2.launch_params("wgrad", n, 32, box, pads, True)
-        assert params[-1] == grid and params[:8] == (n, 32, *box, *pads)
+        for aligned, blocks in ((True, conv4s2.TMA_BLOCKS), (False, conv4s2.WGRAD_BLOCKS)):
+            tma = box[2] % 8 == 0 and aligned
+            grid = conv4s2.wgrad_grid(n, out, tma)
+            assert grid == min(tiles, conv4s2.TMA_BLOCKS if tma else conv4s2.WGRAD_BLOCKS)
+            params, _, _ = conv4s2.launch_params("wgrad", n, 32, box, pads, True, aligned)
+            assert params[12] == grid and params[:8] == (n, 32, *box, *pads)
+            assert params == conv4s2.launch_params("wgrad", n, 32, box, pads, True, aligned)[0]
+        spread_tiles = n * np.prod(conv4s2.tile_of("spread", out)[1])
+        for aligned in (True, False):
+            params, _, _ = conv4s2.launch_params("spread", n, 32, box, pads, True, aligned)
+            tma = box[2] % 8 == 0 and aligned
+            assert params[12] == (min(spread_tiles, conv4s2.TMA_BLOCKS) if tma else spread_tiles)
 
 
 def test_constants_match_the_kernels():
@@ -513,3 +527,212 @@ def test_constants_match_the_kernels():
     assert consts["kReduceWarps"] == conv4s2.REDUCE_WARPS
     assert consts["kThreads"] == 32 * conv4s2.WARPS
     assert "constexpr int kRows = kTaps + 1;" in src and conv4s2.ROWS == consts["kTaps"] + 1
+    assert consts["kWgradWarps"] == conv4s2.WGRAD_WARPS
+    assert consts["kSpreadWarps"] == conv4s2.SPREAD_WARPS
+    assert consts["kSpreadMPW"] == conv4s2.SPREAD_MPW
+    assert "constexpr int kSpreadThreads = 32 * (kSpreadWarps + 1);" in src
+    assert consts["kSlot"] == conv4s2.SLOT == 2 * conv4s2.GROUP
+    assert consts["kSpreadStages"] == conv4s2.SPREAD_STAGES
+    assert consts["kWgradStages"] == conv4s2.WGRAD_STAGES
+    assert consts["kAlign"] == conv4s2.ALIGN
+    assert "constexpr int kWgradThreads = 32 * (kWgradWarps + 1);" in src
+    # the launch's int array: csrc/conv4s2.cu reads the path at p[13] and
+    # the pitch at p[14], the grid at p[12]
+    assert conv4s2.PARAMS.index("grid") == 12 and "p[12]" in src
+    assert conv4s2.PARAMS.index("tma") == 13 and "p[13]" in src
+    assert conv4s2.PARAMS.index("pitch") == 14 and "p[14]" in src
+
+
+# ---------------------------------------------------------------------------
+# the two paths: the plan, the rings, the TMA weight gradient's walk
+
+# chip_smoke.py's phase-2 shapes (C4S2_CASES and the cases for each path)
+# besides BOXES: (N, C, input box, pads)
+PATH_SHAPES = [(16, 32, (64, 64, 64), (1, 1, 1)), (8, 32, (64, 64, 64), (1, 1, 1)),
+               (2, 32, (64, 64, 64), (1, 1, 1)), (1, 32, (64, 64, 64), (1, 1, 1)),
+               (2, 32, (21, 18, 23), (1, 1, 1)), (2, 4, (20, 22, 18), (1, 1, 1)),
+               (2, 5, (19, 20, 22), (1, 1, 1)), (2, 40, (20, 22, 18), (1, 1, 1)),
+               (1, 32, (34, 64, 64), (0, 1, 1)), (2, 32, (21, 18, 23), (0, 1, 1)),
+               (1, 32, (128, 128, 128), (1, 1, 1)), (2, 40, (20, 22, 24), (1, 1, 1)),
+               (2, 64, (18, 20, 16), (0, 1, 1)), (3, 8, (9, 11, 16), (1, 1, 1))]
+PATH_IDS = ["n{}-c{}-{}-p{}".format(n, c, "x".join(map(str, b)), "".join(map(str, p)))
+            for n, c, b, p in PATH_SHAPES]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n, c, box, pads", PATH_SHAPES, ids=PATH_IDS)
+def test_the_plan_picks_the_path_from_the_shape(n, c, box, pads, aligned):
+    """The forward and the weight gradient take the TMA path exactly where
+    W % 8 == 0, C % 8 == 0 and the sources are 16-byte aligned; the gather
+    never. The plan is a function of its arguments: the same call gives the
+    same parameters, the path at p[13] and a window pitch only on TMA."""
+    want = box[2] % 8 == 0 and c % 8 == 0 and aligned
+    for kind in ("spread", "wgrad", "gather"):
+        params, arr, _ = conv4s2.launch_params(kind, n, c, box, pads, c % 8 == 0, aligned)
+        plan = dict(zip(conv4s2.PARAMS, params))
+        tma = want and kind != "gather"
+        assert plan["tma"] == int(tma) == int(conv4s2.takes_tma(kind, c, box, aligned)), kind
+        assert list(arr) == list(params) and len(params) == len(conv4s2.PARAMS)
+        assert (plan["pitch"] > 0) == tma
+        if tma:
+            tile = (plan["td"], plan["th"], plan["tw"])
+            assert plan["pitch"] == conv4s2.tile_pitch(kind, tile)
+
+
+@pytest.mark.parametrize("c", [4, 5, 32, 40])
+@pytest.mark.parametrize("box, pads", BOXES, ids=BOX_IDS)
+def test_the_plan_picks_the_path_at_every_box(box, pads, c):
+    """At every box of the geometry tests and C = 4, 5, 32, 40: TMA exactly
+    where W % 8 == 0, C % 8 == 0 and the sources are aligned, for the
+    forward and the weight gradient alike, and a TMA plan's tile fits its
+    window pitch and its grid."""
+    for aligned in (True, False):
+        want = box[2] % 8 == 0 and c % 8 == 0 and aligned
+        for kind in ("spread", "wgrad"):
+            params, _, _ = conv4s2.launch_params(kind, 2, c, box, pads, c % 8 == 0, aligned)
+            plan = dict(zip(conv4s2.PARAMS, params))
+            assert plan["tma"] == int(want)
+            if want:
+                tw = plan["tw"] if kind == "spread" else 16 * -(-plan["tw"] // 16)
+                assert plan["pitch"] >= 2 * tw + 10 and plan["pitch"] % 8 == 0
+                assert 1 <= plan["grid"] <= conv4s2.TMA_BLOCKS
+
+
+def _banks_conflict_free(words) -> bool:
+    """A warp's 32-bit shared-memory loads: each bank serves one address."""
+    seen = {}
+    for a in set(words):
+        seen.setdefault(a % 32, set()).add(a)
+    return all(len(v) == 1 for v in seen.values())
+
+
+@pytest.mark.parametrize("width", list(range(2, 87, 4)))
+def test_window_pitch_rows_fit_and_avoid_bank_conflicts(width):
+    """The TMA window's row: at least the voxels a tile reads, a multiple
+    of 8 (16-byte box rows) and at most 256 (a box's limit); a warp's A
+    loads, two rows a pitch apart, conflict-free for the forward's outputs
+    along a row and the weight gradient's (kh, kw, tq) words."""
+    pitch = conv4s2.window_pitch(width)
+    assert width <= pitch <= 256 and pitch % 8 == 0
+    words = pitch // 2
+    # forward: lane (gq, tq) reads word vw0 + gq + (tq & 1) + (tq >> 1) * pitch / 2
+    assert _banks_conflict_free([g + (t & 1) + (t >> 1) * words
+                                 for g in range(8) for t in range(4)])
+    # weight gradient: word (gq >> 2) * pitch / 2 + 2 tq + ((gq >> 1) & 1), and the next
+    for step in (0, 1):
+        assert _banks_conflict_free([(g >> 2) * words + 2 * t + ((g >> 1) & 1) + step
+                                     for g in range(8) for t in range(4)])
+
+
+@pytest.mark.parametrize("n, c, box, pads", [s for s in PATH_SHAPES
+                                             if s[2][2] % 8 == 0 and s[1] % 8 == 0],
+                         ids=[i for s, i in zip(PATH_SHAPES, PATH_IDS)
+                              if s[2][2] % 8 == 0 and s[1] % 8 == 0])
+def test_the_tma_forward_reads_its_windows_in_bounds(n, c, box, pads):
+    """A model of conv4s2_spread_tma_kernel's reads: each tile's window row
+    starts at window_x0(2 ow0 - pw); output vw's taps kw, kw + 1 sit e = e0
+    + 2 vw + kw voxels in, and the words a pair takes (one where e is even,
+    those at e - 1 and e + 1 where odd) lie in the row of ``pitch`` voxels,
+    e = -1 only for the low pad."""
+    out = conv4s2.out_shape(box, pads)
+    params, _, _ = conv4s2.launch_params("spread", n, c, box, pads, True, True)
+    plan = dict(zip(conv4s2.PARAMS, params))
+    assert plan["tma"] == 1
+    tw = plan["tw"]
+    _, (_, _, nw) = conv4s2.tile_of("spread", out)
+    for w_ in range(nw):
+        w0 = 2 * w_ * tw - pads[2]
+        e0 = w0 - conv4s2.window_x0(w0)
+        for vw in range(tw):
+            for kw in (0, 2):
+                e = e0 + 2 * vw + kw
+                assert conv4s2.window_x0(w0) + e == 2 * (w_ * tw + vw) - pads[2] + kw
+                last = e + 1 if e % 2 == 0 else e + 2
+                assert -1 <= e and last < plan["pitch"]
+                assert e != -1 or (w_ == 0 and vw == 0 and kw == 0 and pads[2] == 1)
+
+
+def _chunk_offset(u: int, q: int) -> int:
+    """csrc/conv4s2.cu chunk_offset: chunk q of voxel u under the 64-byte swizzle."""
+    return u * conv4s2.SLOT + ((q ^ ((u >> 1) & 3)) << 4)
+
+
+def test_the_swizzled_tiles_are_conflict_free():
+    """The 64-byte swizzle of a TMA tile: the 8 voxels of an ldmatrix
+    phase (the weight gradient's B) and of a warp's accumulator stores (the
+    forward's epilogue, 4 bytes a lane) fall in distinct bank groups."""
+    assert "return u * kSlot + ((q ^ ((u >> 1) & 3)) << 4);" in (
+        Path(conv4s2.__file__).parent / "csrc" / "conv4s2.cu").read_text()
+    for u0 in range(0, 64, 8):
+        for q in range(4):
+            groups = {(_chunk_offset(u0 + r, q) % 128) // 16 for r in range(8)}
+            assert len(groups) == 8
+            words = [(_chunk_offset(u0 + g, q) + 4 * t) // 4 for g in range(8) for t in range(4)]
+            assert _banks_conflict_free(words)
+
+
+@pytest.mark.parametrize("n, c, box, pads", [s for s in PATH_SHAPES
+                                             if s[2][2] % 8 == 0 and s[1] % 8 == 0],
+                         ids=[i for s, i in zip(PATH_SHAPES, PATH_IDS)
+                              if s[2][2] % 8 == 0 and s[1] % 8 == 0])
+def test_rings_fit_one_block_an_sm(n, c, box, pads):
+    """The TMA kernels' rings (at least two stages), output tiles and
+    barriers fit a block's shared memory on sm_90, so the persistent grid
+    of at most TMA_BLOCKS blocks, one an SM of an H100's 132, is resident
+    at once."""
+    assert conv4s2.TMA_BLOCKS <= 132
+    out = conv4s2.out_shape(box, pads)
+    for kind in ("spread", "wgrad"):
+        tile, _ = conv4s2.tile_of(kind, out)
+        smem = conv4s2.smem_bytes(kind, tile, True)
+        assert smem <= conv4s2.SMEM_LIMIT, (kind, smem)
+        if kind == "spread":  # a warp's m-tiles sit in registers
+            assert np.prod(tile) <= 16 * conv4s2.SPREAD_MPW * conv4s2.SPREAD_WARPS
+        window = (2 * tile[0] + 2) * (2 * tile[1] + 2) * conv4s2.tile_pitch(kind, tile) * 2
+        stages = conv4s2.SPREAD_STAGES if kind == "spread" else conv4s2.WGRAD_STAGES
+        assert stages >= 2 and stages * window < smem
+
+
+@pytest.mark.parametrize("n, box, pads", [(1, (64, 64, 64), (1, 1, 1)), (3, (9, 11, 16), (1, 1, 1)),
+                                          (2, (18, 20, 16), (0, 1, 1)),
+                                          (2, (20, 22, 24), (1, 1, 1)),
+                                          (1, (34, 64, 64), (0, 1, 1))])
+def test_the_tma_weight_gradient_sums_each_output_once(n, box, pads):
+    """A model of conv4s2_wgrad_tma_kernel's walk: block b takes tiles b, b
+    + grid, ...; a tile's g box is TD x TH rows of TWr voxels (TMA zero past
+    the output box), and A is zeroed at voxels j >= TW of a row. Every
+    (sample, output voxel) meets an unzeroed A exactly once over the grid,
+    and every window read (x index 2 o + t - p) lies in the tile's box of
+    ``pitch`` voxels a row."""
+    out = conv4s2.out_shape(box, pads)
+    params, _, _ = conv4s2.launch_params("wgrad", n, 32, box, pads, True, True)
+    plan = dict(zip(conv4s2.PARAMS, params))
+    assert plan["tma"] == 1
+    td, th, tw = plan["td"], plan["th"], plan["tw"]
+    twr = 16 * -(-tw // 16)
+    _, (nd, nh, nw) = conv4s2.tile_of("wgrad", out)
+    tiles, grid = n * nd * nh * nw, plan["grid"]
+    hits = np.zeros((n, *out), int)
+    walked = sorted(t for b in range(grid) for t in range(b, tiles, grid))
+    assert walked == list(range(tiles))
+    for t in walked:
+        w_, h_, d_, s_ = t % nw, t // nw % nh, t // (nw * nh) % nd, t // (nw * nh * nd)
+        w0 = 2 * w_ * tw - pads[2]
+        x0 = conv4s2.window_x0(w0)
+        assert x0 >= 0 and x0 % 8 == 0 and -1 <= w0 - x0 <= 7
+        for r in range(td * th):
+            od, oh = d_ * td + r // th, h_ * th + r % th
+            for j in range(twr):
+                ow = w_ * tw + j
+                live = j < tw and od < out[0] and oh < out[1] and ow < out[2]
+                if live:
+                    hits[s_, od, oh, ow] += 1
+                for kw in range(4):
+                    # tap kw of output j: x index w0 + 2 j + kw, e voxels into
+                    # the row; its pair's words reach e + 3 at most
+                    e = w0 - x0 + 2 * j + kw
+                    assert x0 + e == 2 * ow - pads[2] + kw
+                    assert -1 <= e and (e & ~1) + 3 < plan["pitch"]
+                    if e == -1:
+                        assert ow == 0 and kw == 0 and pads[2] == 1  # the pad, read as zero
+    assert (hits == 1).all()
